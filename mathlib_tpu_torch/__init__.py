@@ -8,26 +8,30 @@ bits as the reference's ``uint32`` arrays.  Plain tensor code is PyTorch; the
 group-law kernels are CUDA C++ under ``csrc/``, built with ``nvcc`` at first
 use (``ops/kernels/build.py``).
 
-The jax-free parts of the reference are shared, not forked:
-``mathlib_tpu.curves.params`` (curve constants) and ``mathlib_tpu.host``
-(the exact host engine: oracle and Horner finisher).  Nothing here imports
-``jax``.
+The port keeps its own copies of what it needs from the reference's modules
+that do not use JAX: ``curves/params.py`` (curve constants) and ``host/``
+(the exact host tower and engine, and the C++ engine that finishes MSMs and
+pairing checks on the host).  Nothing here imports ``jax`` or
+``mathlib_tpu``.  Every entry point runs on the CUDA card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mathlib_tpu.curves.params import CurveSpec, get_spec  # noqa: F401
+from .curves.params import CurveSpec, get_spec  # noqa: F401
 
 
-def device(kind: str = "cuda") -> torch.device:
-    """The device to run on: ``"cuda"`` needs a visible card, ``"cpu"`` must
-    be asked for by name.  Raises instead of handing back another device."""
+def device(kind=None) -> torch.device:
+    """The device to run on: ``None`` (the default of every entry point),
+    ``"cuda"`` or ``"cuda:N"`` needs a visible card; ``"cpu"`` must be asked
+    for by name.  Raises instead of handing back another device."""
+    kind = "cuda" if kind is None else str(kind)
     if kind == "cpu":
         return torch.device("cpu")
-    if kind != "cuda":
+    if kind != "cuda" and not kind.startswith("cuda:"):
         raise ValueError(f"unknown device kind {kind!r} (want 'cuda' or 'cpu')")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible to torch")
-    return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(kind) if ":" in kind else torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,124 @@
+"""Batched pairing-product checks (port of ``mathlib_tpu/batch.py``, the
+pairing-check part of ``BatchEngine``).
+
+This is how a BLS or BBS+ verifier checks signatures: prod_i e(P_i, Q_i) == 1
+over host point lists, in one device pass.  The device runs every pair's
+Miller loop and multiplies the lanes together (``ops/pairing.py``, the CUDA
+kernels of ``ops/kernels/pairing_cuda.py``); the host C++ engine
+(``host/native.py``) does the single final exponentiation of each product and
+tests it for unity, as the reference's default ``hostfexp`` strategy does.
+
+Not ported here: the all-device strategies (``MATHLIB_PAIR_FUSED=check``
+and ``split``, ``MATHLIB_GROUP_FEXP=device``), which need the device final
+exponentiation, and the MSM, scalar-mul, pairing and BLS entry points of the
+reference engine (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from . import device as _device
+from .curves.params import CurveSpec
+from .host import get_engine
+from .ops.field import ints_to_limbs
+from .ops.pairing import PairingCtx
+
+Tensor = torch.Tensor
+
+MAX_GROUP = 1024  # the reference's cap on pairs per grouped check
+
+
+class BatchEngine:
+    """Batched device engine for one curve, on the card unless ``device="cpu"``."""
+
+    def __init__(self, spec: CurveSpec, device=None):
+        self.spec = spec
+        self.device = _device(device)
+        self.pair = PairingCtx(spec, self.device)
+        self.tw = self.pair.tw
+        self.fp = self.tw.fp
+        self.host = get_engine(spec)
+
+    # ---------------------------------------------------------- pairing -----
+    def _encode_pairs(self, g1_points, g2_points) -> np.ndarray:
+        """Affine pair lists -> ONE plain (non-Montgomery) (6, L, N) uint16
+        array: xP, yP, Qx.c0, Qx.c1, Qy.c0, Qy.c1, one host->device copy."""
+        if len(g1_points) != len(g2_points):
+            raise ValueError("g1_points and g2_points differ in length")
+        p, L = self.spec.p, self.fp.L
+        cols = (
+            [P[0] for P in g1_points],
+            [P[1] for P in g1_points],
+            [Q[0][0] for Q in g2_points],
+            [Q[0][1] for Q in g2_points],
+            [Q[1][0] for Q in g2_points],
+            [Q[1][1] for Q in g2_points],
+        )
+        return np.stack(
+            [ints_to_limbs([int(v) % p for v in c], L).T.astype(np.uint16) for c in cols]
+        )
+
+    def _pair_split_mont(self, packed: np.ndarray):
+        """Widen, enter Montgomery form on the device, and unpack the
+        (6, L, N) pair array into (xP, yP, Qx, Qy)."""
+        t = torch.from_numpy(packed.astype(np.int32)).to(self.device)
+        m = self.fp.to_mont(t)
+        return m[0], m[1], m[2:4], m[4:6]
+
+    def pairing_product_is_one(self, g1_points, g2_points) -> bool:
+        """prod_i e(P_i, Q_i) == 1, with one shared final exponentiation."""
+        return self.pairing_product_is_one_async(g1_points, g2_points)()
+
+    def pairing_product_is_one_async(self, g1_points, g2_points) -> Callable[[], bool]:
+        """Launch a product check now; return a zero-argument resolver that
+        waits for the device product and finishes it on the host.  A
+        serving loop that submits check i+1 before resolving check i
+        overlaps the device work with the previous check's final exp."""
+        packed = self._encode_pairs(g1_points, g2_points)
+        prod = self.pair.product_miller(*self._pair_split_mont(packed))
+        if prod.device.type == "cuda":
+            host = torch.empty(prod.shape, dtype=prod.dtype, pin_memory=True)
+            host.copy_(prod, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+
+            def resolve() -> bool:
+                done.synchronize()
+                return self._host_finish_product(host)
+
+            return resolve
+        return lambda: self._host_finish_product(prod)
+
+    def pairing_products_are_one(self, g1_points, g2_points, group_size: int) -> List[bool]:
+        """Many independent product checks in one device pass: pairs are
+        consecutive groups of ``group_size`` (a power of two, at most 1024);
+        returns one verdict per group."""
+        n = len(g1_points)
+        if n != len(g2_points) or group_size < 1 or n % group_size:
+            raise ValueError("the pair count must be a multiple of group_size")
+        if group_size & (group_size - 1) or group_size > MAX_GROUP:
+            raise ValueError(f"group_size must be a power of two <= {MAX_GROUP}")
+        packed = self._encode_pairs(g1_points, g2_points)
+        prods = self.pair.products_miller(*self._pair_split_mont(packed), group_size)
+        vals = self.tw.f12_decode(prods)
+
+        def finish(v) -> bool:
+            return bool(self.host.gt_is_one(self.host.final_exp(v)))
+
+        if len(vals) >= 4:
+            # ctypes releases the GIL and the engine context is read-only:
+            # four final exps at a time
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                return list(pool.map(finish, vals))
+        return [finish(v) for v in vals]
+
+    def _host_finish_product(self, prod) -> bool:
+        """Finish a (2, 3, 2, L, 1) unreduced Miller product: decode the
+        single Fp12, final-exponentiate on the host engine, test unity."""
+        val = self.tw.f12_decode(prod)[0]
+        return bool(self.host.gt_is_one(self.host.final_exp(val)))

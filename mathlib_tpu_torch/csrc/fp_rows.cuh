@@ -37,6 +37,28 @@ struct FieldConsts {
   uint32_t np0;             // -p^-1 mod 2^32
 };
 
+// Element q of lane i of a (Q, L, n) array of 16-bit limbs held in 32-bit
+// words (the reference's lane-major layout): limb pairs pack into NW words.
+// A warp reads 128 consecutive bytes per limb.
+template <int NW>
+__device__ __forceinline__ void load_fp(uint32_t* w, const uint32_t* src, int q, int64_t n,
+                                        int64_t i) {
+  const uint32_t* base = src + (int64_t)q * 2 * NW * n + i;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) w[j] = (base[(2 * j) * n] & 0xFFFFu) | (base[(2 * j + 1) * n] << 16);
+}
+
+template <int NW>
+__device__ __forceinline__ void store_fp(uint32_t* dst, const uint32_t* w, int q, int64_t n,
+                                         int64_t i) {
+  uint32_t* base = dst + (int64_t)q * 2 * NW * n + i;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    base[(2 * j) * n] = w[j] & 0xFFFFu;
+    base[(2 * j + 1) * n] = w[j] >> 16;
+  }
+}
+
 template <int NW>
 __device__ __forceinline__ void fp_copy(uint32_t* r, const uint32_t* a) {
 #pragma unroll
@@ -149,6 +171,18 @@ __device__ __forceinline__ void fp_mul_small(uint32_t* r, const uint32_t* a, int
     if ((n >> bit) & 1) fp_add<NW>(acc, acc, base, k);
   }
   fp_copy<NW>(r, acc);
+}
+
+// The constants from the launcher's host array: p[nw], 2p[nw], one[nw], np0.
+inline FieldConsts make_consts(const uint32_t* words, int nw) {
+  FieldConsts k = {};
+  for (int j = 0; j < nw; ++j) {
+    k.p[j] = words[j];
+    k.p2[j] = words[nw + j];
+    k.one[j] = words[2 * nw + j];
+  }
+  k.np0 = words[3 * nw];
+  return k;
 }
 
 }  // namespace mlt

@@ -229,18 +229,6 @@ __global__ void g1_smul_kernel(const uint32_t* __restrict__ Q, const uint32_t* _
 
 constexpr int kThreads = 128;
 
-inline FieldConsts make_consts(const uint32_t* words, int nw) {
-  // words: p[nw], 2p[nw], one[nw], np0 (host memory)
-  FieldConsts k = {};
-  for (int j = 0; j < nw; ++j) {
-    k.p[j] = words[j];
-    k.p2[j] = words[nw + j];
-    k.one[j] = words[2 * nw + j];
-  }
-  k.np0 = words[3 * nw];
-  return k;
-}
-
 inline dim3 grid_for(int n) { return dim3((unsigned)((n + kThreads - 1) / kThreads)); }
 
 }  // namespace mlt

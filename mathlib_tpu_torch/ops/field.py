@@ -24,11 +24,13 @@ carries are scheduled.  Design notes:
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence, Union
 
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..convert import to_numpy
 
 LIMB_BITS = 16
@@ -78,6 +80,12 @@ def _pad_top(t: Tensor, n: int = 1) -> Tensor:
     return torch.nn.functional.pad(t, (0, 0, 0, n))
 
 
+@lru_cache(maxsize=None)
+def _limb_index1(K: int, device: torch.device) -> Tensor:
+    """(K, 1) int64: 1, 2, ..., K."""
+    return torch.arange(1, K + 1, device=device).view(K, 1)
+
+
 def _normalize(t: Tensor) -> Tensor:
     """Redundant non-negative int64 limbs (each < 2^47) -> canonical 16-bit
     digits of the same value mod 2^(16K), K = t.shape[-2]."""
@@ -85,11 +93,11 @@ def _normalize(t: Tensor) -> Tensor:
     v = (v & LIMB_MASK) + _shift_in(v >> LIMB_BITS)  # now < 2^16 + 2^15
     g = v >> LIMB_BITS  # 0/1: carry out of the limb whatever comes in
     keep = (v & LIMB_MASK) != LIMB_MASK  # does not pass an incoming carry on
-    K = v.shape[-2]
-    idx = torch.arange(K, device=v.device).view(K, 1)
-    last = torch.cummax(torch.where(keep, idx, -1), dim=-2).values
-    src = _shift_in(last, -1)  # last non-propagating limb below k
-    cin = torch.where(src >= 0, torch.gather(g, -2, src.clamp(min=0)), 0)
+    # 1 + the last non-propagating limb at or below k (0: none)
+    last1 = torch.cummax(torch.where(keep, _limb_index1(v.shape[-2], v.device), 0), dim=-2).values
+    # limb k takes the carry out of the last non-propagating limb below it;
+    # row 0 of the padded g is the zero carry of "none"
+    cin = torch.gather(torch.nn.functional.pad(g, (0, 0, 1, 0)), -2, _shift_in(last1))
     return (v + cin) & LIMB_MASK
 
 
@@ -120,10 +128,10 @@ class FpCtx:
     """All batched mod-p arithmetic for one prime ``p``, with its constants as
     ``(L, 1)`` int64 tensors on ``device``."""
 
-    def __init__(self, p: int, device, name: str = "fp"):
+    def __init__(self, p: int, device=None, name: str = "fp"):
         self.p = p
         self.name = name
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.nbits = p.bit_length()
         # pad so R >= 4p: headroom for the lazy [0, 2p) value domain
         self.L = -(-(self.nbits + 2) // LIMB_BITS)
@@ -187,13 +195,21 @@ class FpCtx:
         return torch.where(ge.unsqueeze(-2), w[..., : self.L, :], r)
 
     def _add64(self, a: Tensor, b: Tensor) -> Tensor:
-        return self._cond_sub(_normalize(a + b), self.r_minus_2p)  # a + b < 4p <= R
+        # s = a + b < 4p <= R, and s + (R - 2p) >= R iff s >= 2p: both
+        # candidates normalised in one call
+        s = _pad_top(a + b)
+        r, w = _normalize(torch.stack([s, s + _pad_top(self.r_minus_2p)]))
+        L = self.L
+        return torch.where((w[..., L, :] > 0).unsqueeze(-2), w[..., :L, :], r[..., :L, :])
 
     def _sub64(self, a: Tensor, b: Tensor) -> Tensor:
-        # a - b + (2p + R) with the offset borrow-absorbing; the guaranteed
-        # top digit (= R) is dropped
-        w = _normalize(_pad_top(a + self.sub_offset - b))
-        return self._cond_sub(w[..., : self.L, :], self.r_minus_2p)
+        # v = a - b + 2p + R with the offset borrow-absorbing; its low L
+        # digits are r = a - b + 2p < 4p, and v + (R - 2p) = a - b + 2R
+        # reaches 2R iff r >= 2p: both candidates normalised in one call
+        v = _pad_top(a + self.sub_offset - b)
+        r, w = _normalize(torch.stack([v, v + _pad_top(self.r_minus_2p)]))
+        L = self.L
+        return torch.where((w[..., L, :] >= 2).unsqueeze(-2), w[..., :L, :], r[..., :L, :])
 
     def _mont_mul64(self, a: Tensor, b: Tensor) -> Tensor:
         L = self.L
@@ -239,7 +255,11 @@ class FpCtx:
         return self.mont_mul(a, a)
 
     def to_mont(self, a_std: Tensor) -> Tensor:
-        return self.mont_mul(a_std, self.r2_limbs)
+        """Plain limbs (< p) -> Montgomery form; the ``mont_mul`` kernel on a
+        card, as the reference reaches its Pallas kernel here."""
+        from .kernels import fp_cuda
+
+        return fp_cuda.mont_mul(self, a_std, self.r2_limbs.to(torch.int32))
 
     def from_mont(self, a: Tensor) -> Tensor:
         one = torch.zeros_like(a)

@@ -15,8 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mathlib_tpu.curves.params import CurveSpec
-
+from .. import device as _device
+from ..curves.params import CurveSpec
 from . import weier
 from .field import FpCtx, ints_to_limbs, limb_tensor
 from .kernels import g1_cuda
@@ -59,9 +59,9 @@ class FpAdapter(weier.FieldAdapter):
 class G1Ctx:
     """G1 over one curve, with its constant tensors on ``device``."""
 
-    def __init__(self, spec: CurveSpec, device):
+    def __init__(self, spec: CurveSpec, device=None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.fp = FpCtx(spec.p, self.device, spec.name)
         self.fr = FpCtx(spec.r, self.device, spec.name + "_fr")
         self.F = FpAdapter(self.fp, spec.b)

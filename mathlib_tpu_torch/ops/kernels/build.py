@@ -1,14 +1,18 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All of ``mathlib_tpu_torch/csrc/*.cu`` compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``mathlib_tpu_torch/csrc/*.cu`` compiles to an object file in its own
+``nvcc`` process, all started together, and the objects link into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds to a minute):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/mathlib_tpu_torch/libmlt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o build/mathlib_tpu_torch/obj/<name>.o csrc/<name>.cu
+    nvcc -shared -o build/mathlib_tpu_torch/libmlt_kernels.so build/mathlib_tpu_torch/obj/*.o
 
 The library lands in ``build/mathlib_tpu_torch/`` at the repository root and
 is rebuilt when a source is newer than it.  A failed build raises with nvcc's
-output; there is no fallback.
+output; there is no fallback.  (``csrc/host/engine.cpp`` is the C++ host
+engine, built with g++ by ``host/native.py``, not here.)
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C launchers (csrc/g1_kernels.cu): every one returns cudaGetLastError()
+# C launchers (csrc/*.cu): every one returns cudaGetLastError()
 SIGNATURES = {
     # P, Q, out, n, L, consts, b3, stream
     "mlt_g1_add": [_P, _P, _P, _I, _I, _P, _I, _P],
@@ -43,6 +47,13 @@ SIGNATURES = {
     "mlt_g1_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # (csrc/pairing_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, out, lanes, L,
+    # consts, tower ints, tail words, stream
+    "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    # in, out, half, L, consts, tower ints, tail words, stream
+    "mlt_f12_pair_mul": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, stream
+    "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -69,23 +80,42 @@ def _stale() -> bool:
 
 
 def build() -> None:
-    """Compile the library (ptxas register/spill report goes to build.log)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    """Compile every source in parallel, then link (the ptxas register and
+    spill report of each goes to build.log)."""
+    obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
     tmp = f"{LIB}.tmp.{os.getpid()}"
-    cmd = [
-        _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *_sources(),
-    ]
+    nvcc = _nvcc()
+    flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): {cmd[-1]}\n{err[-8000:]}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"nvcc link failed (exit {res.returncode}):\n{res.stderr[-8000:]}")
         with open(BUILD_LOG, "w") as f:
-            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}):\n{res.stderr[-8000:]}"
-            )
+            f.write("\n".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, LIB)
     finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(obj_dir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
 

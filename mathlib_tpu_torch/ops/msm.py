@@ -394,7 +394,7 @@ def msm_totals(
 def horner_host(g1: G1Ctx, totals, c: int) -> Optional[tuple]:
     """Host-side Horner over fetched window totals: (3, L, W) projective
     -> affine host point (None = infinity), on the C++ host engine."""
-    from mathlib_tpu.host.engine import get_engine
+    from ..host import get_engine
 
     eng = get_engine(g1.spec)
     pts = g1.decode_points(totals)  # W affine host points, high window last

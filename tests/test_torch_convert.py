@@ -2,6 +2,7 @@
 constants equal to the reference's, round trips, the device helper, the
 kernel wrappers' refusals, and a port that never loads jax."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -122,11 +123,58 @@ def test_library_is_stale_when_a_source_is_newer(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port leaves jax unloaded (run apart: conftest loads jax)."""
+    """Importing every module of the port, and chip_smoke.py as a module,
+    leaves both jax and the JAX package unloaded (run apart: conftest loads
+    jax)."""
     code = (
-        "import sys\n"
-        "import mathlib_tpu_torch.convert, mathlib_tpu_torch.ops.msm\n"
-        "import mathlib_tpu_torch.ops.kernels.build\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "import importlib, pkgutil, sys\n"
+        "import mathlib_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(mathlib_tpu_torch.__path__,\n"
+        "                                               'mathlib_tpu_torch.')]\n"
+        "assert 'mathlib_tpu_torch.batch' in names and len(names) > 15, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'mathlib_tpu'))\n"
+        "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=300)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_nothing_of_the_reference():
+    """No .py file of the port, and not chip_smoke.py, imports jax or the
+    JAX package, at any depth of the code (an AST scan)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "mathlib_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "mathlib_tpu"), (path, mod)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device argument every context runs on the card, and raises
+    where torch sees none; "cpu" must be asked for by name."""
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.ops.pairing import PairingCtx
+    from mathlib_tpu_torch.ops.tower import TowerCtx
+
+    spec = get_spec("BN254")
+    ctors = [lambda d=None: FpCtx(spec.p, d), lambda d=None: G1Ctx(spec, d),
+             lambda d=None: TowerCtx(spec, d), lambda d=None: PairingCtx(spec, d),
+             lambda d=None: BatchEngine(spec, d)]
+    for ctor in ctors:
+        assert ctor("cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for ctor in ctors:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctor()

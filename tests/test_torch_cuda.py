@@ -1,4 +1,4 @@
-"""The CUDA G1 kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a machine with
 one (and nvcc), run this file on its own -- its imports need no jax, and the
@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from mathlib_tpu.curves.params import get_spec
-from mathlib_tpu.host.engine import get_engine
+from mathlib_tpu_torch import get_spec
+from mathlib_tpu_torch.batch import BatchEngine
+from mathlib_tpu_torch.host import get_engine
 from mathlib_tpu_torch.ops.g1 import G1Ctx
-from mathlib_tpu_torch.ops.kernels import g1_cuda
+from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, pairing_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +77,52 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(ctx):
     odd = G1Ctx(get_spec("FP256BN"), P.device)  # p has L = 17
     with pytest.raises(ValueError):
         odd.add(odd.gen, odd.gen)
+
+
+@pytest.fixture(params=["BLS12_381", "BN254", "BLS12_377"])
+def pair_ctx(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec(request.param)
+    return get_engine(spec), BatchEngine(spec)
+
+
+def _pairs(eng, n, seed):
+    rng = np.random.default_rng(seed)
+    g1s = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, n)]
+    g2s = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, n)]
+    return g1s, g2s
+
+
+def test_pairing_kernels_equal_plain_versions(pair_ctx):
+    eng, be = pair_ctx
+    cfg = be.pair.cfg
+    g1s, g2s = _pairs(eng, 40, 7)
+    packed = be._encode_pairs(g1s, g2s)
+    fp_cuda.reset_launches()
+    pairing_cuda.reset_launches()
+    xP, yP, Qx, Qy = be._pair_split_mont(packed)
+    t = torch.from_numpy(packed.astype(np.int32)).cuda()
+    assert torch.equal(torch.cat([xP[None], yP[None], Qx, Qy]),
+                       fp_cuda.mont_mul_plain(be.fp, t, be.fp.r2_limbs.to(torch.int32).cuda()))
+    f = pairing_cuda.miller_lanes(cfg, xP, yP, Qx, Qy, 37)  # 3 pad lanes
+    assert torch.equal(f, pairing_cuda.miller_lanes_plain(cfg, xP, yP, Qx, Qy, 37))
+    f = torch.cat([f, f[..., :24]], -1)  # 64 lanes
+    for seg in (2, 64):
+        assert torch.equal(pairing_cuda.f12_seg_product(cfg, f, seg),
+                           pairing_cuda.f12_seg_product_plain(cfg, f, seg))
+    assert fp_cuda.launches() == {"mont_mul": 1}
+    assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 6}
+
+
+def test_product_check_on_the_card(pair_ctx):
+    eng, be = pair_ctx
+    g1s, g2s = _pairs(eng, 3, 8)
+    P = eng.g1.mul(eng.gen_g1, 12345)
+    nP = eng.g1.neg(P)
+    G = eng.gen_g2
+    assert be.pairing_product_is_one([P, nP], [G, G]) is True
+    assert be.pairing_product_is_one(g1s + [P, nP], g2s + [G, G]) is False
+    grp = [P, nP, P, nP] + [g1s[0], g1s[1], P, nP] + [P, nP, P, nP]
+    g2g = [G] * 4 + [g2s[0], g2s[1], G, G] + [G] * 4
+    assert be.pairing_products_are_one(grp, g2g, 4) == [True, False, True]

@@ -1,0 +1,85 @@
+"""The port's own curve constants and host engine against the JAX package's.
+
+The port keeps copies of ``mathlib_tpu.curves.params`` and ``mathlib_tpu.host``
+(and of ``native/engine.cpp``) so that it never imports the JAX package.
+These tests hold the copies equal to the originals: every ``CurveSpec``
+field on all four curves, and the pure-Python and C++ engines on the group
+law, the MSM, the Miller loop and the final exponentiation.
+"""
+
+import dataclasses
+import os
+import random
+
+import pytest
+
+from mathlib_tpu.curves.params import get_spec as ref_get_spec
+from mathlib_tpu.host.engine import HostEngine as RefHostEngine
+from mathlib_tpu_torch import CurveSpec, get_spec
+from mathlib_tpu_torch.host import HostEngine, NativeEngine, get_engine, native
+
+CURVES = ["BLS12_381", "BN254", "BLS12_377", "FP256BN"]
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_every_spec_field_equals_the_reference(curve):
+    spec, ref = get_spec(curve), ref_get_spec(curve)
+    assert isinstance(spec, CurveSpec)
+    for f in dataclasses.fields(spec):
+        got, want = getattr(spec, f.name), getattr(ref, f.name)
+        if f.name == "family":
+            assert (got.name, got.value) == (want.name, want.value)
+        else:
+            assert got == want, f.name
+    for prop in ("hard_part_exp", "easy_exp"):
+        assert getattr(spec, prop) == getattr(ref, prop)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_native_and_python_engines_equal_the_reference_engine(curve):
+    spec = get_spec(curve)
+    ref = RefHostEngine(ref_get_spec(curve))
+    py, nat = HostEngine(spec), get_engine(spec)
+    assert isinstance(nat, NativeEngine)
+    rng = random.Random(curve)
+    ks = [rng.randrange(1, spec.r) for _ in range(4)]
+    P = ref.g1.mul(ref.gen_g1, ks[0])
+    Q = ref.g2.mul(ref.gen_g2, ks[1])
+    for eng in (py, nat):
+        assert eng.g1.mul(ref.gen_g1, ks[0]) == P
+        assert eng.g2.mul(ref.gen_g2, ks[1]) == Q
+        assert eng.g1.add(P, ref.gen_g1) == ref.g1.add(P, ref.gen_g1)
+        pts = [ref.gen_g1, P, None]
+        assert eng.g1.msm(pts, ks[1:]) == ref.g1.msm(pts, ks[1:])
+    # the C++ Miller loop clears denominators differently: its unreduced
+    # value is another representative, equal after the final exponentiation
+    f = ref.miller_loop([(P, Q)])
+    assert py.miller_loop([(P, Q)]) == f
+    e = ref.final_exp(f)
+    assert py.final_exp(f) == e == nat.final_exp(f)
+    assert nat.final_exp(nat.miller_loop([(P, Q)])) == e
+    assert nat.gt_is_one(nat.final_exp(nat.miller_loop([(P, Q), (ref.g1.neg(P), Q)])))
+
+
+def test_native_library_is_named_by_its_source(tmp_path, monkeypatch):
+    src = tmp_path / "engine.cpp"
+    src.write_text("int x;\n")
+    monkeypatch.setattr(native, "SRC", str(src))
+    first = native.library_path()
+    src.write_text("int y;\n")
+    second = native.library_path()
+    assert first != second
+    assert os.path.dirname(first) == native.BUILD_DIR
+    assert os.path.basename(second).startswith("libmlt_host_")
+
+
+def test_failed_native_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    src = tmp_path / "engine.cpp"
+    src.write_text("this is not C++;\n")
+    monkeypatch.setattr(native, "SRC", str(src))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "out"))
+    path = native.library_path()
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build(path)
+    assert not os.path.exists(path)
+    assert not [f for f in os.listdir(tmp_path / "out") if ".tmp." in f]
