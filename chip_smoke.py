@@ -94,8 +94,8 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
 # 3.35 TB/s, and 32-bit integer multiply-adds on 64 INT32 lanes per SM
 # (half the 128 float32 lanes behind the sheet's 67 TFLOP/s) at the
-# 1.98 GHz boost clock on 132 SMs.  A
-# 32x32->64 product counts as two of them (its low and high words).
+# 1.98 GHz boost clock on 132 SMs.  A 32x32->64 product counts as two of
+# them (its low and high words), a 32-bit low product as one.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MADS_PER_S = 132 * 64 * 1.98e9
 
@@ -110,9 +110,34 @@ def bound(nbytes: float, mads: float) -> dict:
 
 def wide_mads(fp_muls: int, L: int) -> int:
     """int32 multiply-adds of fp_muls CIOS Montgomery products at L 16-bit
-    limbs (NW = L/2 words: 2 NW^2 + NW 32x32->64 products, two each)."""
+    limbs (``fp_mul`` in csrc/fp_rows.cuh, NW = L/2 words): per word of b,
+    NW 32x32->64 products for a*b[i] and NW for m*p, two multiply-adds
+    each, and one low product for m = t[0]*np0: 4 NW^2 + NW."""
     nw = L // 2
-    return 2 * fp_muls * (2 * nw * nw + nw)
+    return fp_muls * (4 * nw * nw + nw)
+
+
+def miller_fp_muls(cfg, lanes: int) -> int:
+    """Base-field Montgomery products ``miller_lanes`` runs for ``lanes``
+    real lanes (pad lanes run none), counted from the steps it takes."""
+    import numpy as np
+    from mathlib_tpu_torch.ops.kernels.tower_rows import mults_per_step
+
+    c = mults_per_step(cfg.tower.n, cfg.tower.twist)
+    nbits, nadd = len(cfg.bits), int(np.count_nonzero(cfg.bits))
+    per = nbits * (c["dbl_step"] + c["f12_sqr"] + c["f12_sparse_mul"])
+    per += nadd * (c["add_step"] + c["f12_sparse_mul"])
+    if cfg.tail is not None:  # BN: Frobenius of Q (4 Fp2 products), 2 chord steps
+        per += 4 * 3 + 2 * (c["add_step"] + c["f12_sparse_mul"])
+    return lanes * per
+
+
+def seg_product_fp_muls(cfg, lanes: int, seg: int) -> int:
+    """Base-field Montgomery products of ``f12_seg_product`` on ``lanes``:
+    one f12 product per lane that is not the head of its segment."""
+    from mathlib_tpu_torch.ops.kernels.tower_rows import mults_per_step
+
+    return (lanes - lanes // seg) * mults_per_step(cfg.tower.n, cfg.tower.twist)["f12_mul"]
 
 
 def log(phase: str, **kv) -> None:
@@ -304,18 +329,18 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool) -> dict:
             lambda: pc.miller_lanes(cfg, xP, yP, Qx, Qy, N_PAIRS),
             lambda: chunked(lambda a, b, c, d: pc.miller_lanes_plain(cfg, a, b, c, d, PLAIN_PAIR_CHUNK),
                             N_PAIRS, xP, yP, Qx, Qy, step=PLAIN_PAIR_CHUNK),
-            (6 + 12) * limb_bytes * N_PAIRS, pc.miller_fp_muls(cfg, N_PAIRS)),
+            (6 + 12) * limb_bytes * N_PAIRS, miller_fp_muls(cfg, N_PAIRS)),
         "f12_seg_product": (
             f"{N_PAIRS} lanes, seg {N_PAIRS}",
             lambda: pc.f12_seg_product(cfg, f, N_PAIRS),
             lambda: pc.f12_seg_product_plain(cfg, f, N_PAIRS),
-            12 * limb_bytes * (N_PAIRS + 1), pc.seg_product_fp_muls(cfg, N_PAIRS, N_PAIRS)),
+            12 * limb_bytes * (N_PAIRS + 1), seg_product_fp_muls(cfg, N_PAIRS, N_PAIRS)),
         "f12_seg_product_seg2": (
             f"{2 * N_CHECKS} lanes, seg 2",
             lambda: pc.f12_seg_product(cfg, f_b, 2),
             lambda: chunked(lambda a: pc.f12_seg_product_plain(cfg, a, 2), 2 * N_CHECKS, f_b,
                             step=PLAIN_PAIR_CHUNK),
-            12 * limb_bytes * 3 * N_CHECKS, pc.seg_product_fp_muls(cfg, 2 * N_CHECKS, 2)),
+            12 * limb_bytes * 3 * N_CHECKS, seg_product_fp_muls(cfg, 2 * N_CHECKS, 2)),
     }
     for name, (what, kern, plain, nbytes, fp_muls) in shapes.items():
         ms, got = cuda_ms(kern, reps=3)

@@ -24,14 +24,19 @@ from .curves.params import CurveSpec, get_spec  # noqa: F401
 
 
 def device(kind=None) -> torch.device:
-    """The device to run on: ``None`` (the default of every entry point),
-    ``"cuda"`` or ``"cuda:N"`` needs a visible card; ``"cpu"`` must be asked
-    for by name.  Raises instead of handing back another device."""
-    kind = "cuda" if kind is None else str(kind)
+    """The device to run on: ``None`` (the default of every entry point) or
+    ``"cuda"`` needs a visible card; ``"cpu"`` must be asked for by name.  A
+    ``torch.device`` is what a context hands the contexts it builds, once
+    resolved here, and is taken as it is.  Raises instead of handing back
+    another device."""
+    index = None
+    if isinstance(kind, torch.device):
+        kind, index = kind.type, kind.index
+    kind = "cuda" if kind is None else kind
     if kind == "cpu":
         return torch.device("cpu")
-    if kind != "cuda" and not kind.startswith("cuda:"):
+    if kind != "cuda":
         raise ValueError(f"unknown device kind {kind!r} (want 'cuda' or 'cpu')")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible to torch")
-    return torch.device(kind) if ":" in kind else torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cuda", torch.cuda.current_device() if index is None else index)

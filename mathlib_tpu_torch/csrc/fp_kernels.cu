@@ -10,8 +10,8 @@
 //
 // On the pairing-check path it is the Montgomery entry of the encoded pairs
 // (6 rows of n lanes).  Bound on this card: bytes at that size (a 12-word mul
-// is 300 32x32->64 multiply-adds for 96 bytes in and 96 out, under the
-// card's ratio of multiply-adds to bytes), one launch per call.  The TPU
+// is 588 32-bit multiply-adds for 96 bytes in and 96 out, under the card's
+// ratio of multiply-adds to bytes), one launch per call.  The TPU
 // kernel's (8, 128) tiles become one element per thread: a warp reads 128
 // consecutive bytes per limb.
 #include <cuda_runtime.h>

@@ -19,8 +19,10 @@
 //              that comes out is the reference's too.
 //
 // Bound on this card: integer multiply issue rate and registers.  A 12-word
-// mul is 2*12*12 + 12 = 300 32x32->64 multiplies (IMAD.WIDE), all operands in
-// registers; there are no loads in here at all.
+// mul is 2*12*12 = 288 32x32->64 products (IMAD.WIDE, two 32-bit
+// multiply-adds each) and 12 low products m = t[0]*np0, so 4*12*12 + 12 =
+// 588 multiply-adds, all operands in registers; there are no loads in here
+// at all.
 #pragma once
 
 #include <cstdint>

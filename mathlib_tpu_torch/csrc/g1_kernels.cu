@@ -18,8 +18,9 @@
 // subs or small-multiple chains can land on the other representative.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
-// and registers, not bytes: an RCB add is 12 field muls (3,600 32x32->64
-// multiplies at NW = 12) for 288 bytes in and 144 out.  The design keeps
+// and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
+// products and 144 low products, 7,056 32-bit multiply-adds at NW = 12)
+// for 288 bytes in and 144 out.  The design keeps
 // every operand in registers, with one lane per thread and no shared memory;
 // a point is 36 words, and the add holds two points plus temporaries, so
 // spills to local memory are accepted here.  Later work: PTX carry chains
@@ -81,7 +82,7 @@ __device__ __forceinline__ void store_point(uint32_t* dst, const Point<NW>& P, i
 // The two point formulas are real calls (__noinline__), each with its 12 or
 // 8 field muls inlined and fully unrolled.  Inlining them too, into the smul
 // ladder, makes nvcc 12.9 crash (segfault); as calls they pass their points
-// through the thread's stack (L1), ~100 words against ~3,600 multiplies.
+// through the thread's stack (L1), ~100 words against ~3,600 products.
 
 // RCB Algorithm 7 (a = 0): O = P + Q, complete.  O may alias P or Q.
 template <int NW>

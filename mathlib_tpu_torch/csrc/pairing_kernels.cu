@@ -23,9 +23,9 @@
 // reduce independently, a whole product in log2(B) launches).
 //
 // Bound on this card: integer multiplies.  A BLS12-381 lane runs 63
-// doubling and 5 addition steps, 7,786 field muls of 2*12*12 + 12 = 300
-// 32x32->64 multiplies each, for 288 bytes in and 576 out; the tree's f12
-// mul is 162 field muls per pair.  What this simple design leaves on the
+// doubling and 5 addition steps, 7,786 field muls of 588 32-bit
+// multiply-adds each (fp_rows.cuh), for 288 bytes in and 576 out; the
+// tree's f12 mul is 54 field muls per pair.  What this simple design leaves on the
 // table: the stack traffic of the __noinline__ calls, and occupancy (one
 // lane per thread; a 4,096-pair check is 128 warps on 132 SMs).  The loop
 // bits come in as a device array and the pad-lane count as an argument, so

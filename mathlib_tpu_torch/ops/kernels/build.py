@@ -13,6 +13,10 @@ The library lands in ``build/mathlib_tpu_torch/`` at the repository root and
 is rebuilt when a source is newer than it.  A failed build raises with nvcc's
 output; there is no fallback.  (``csrc/host/engine.cpp`` is the C++ host
 engine, built with g++ by ``host/native.py``, not here.)
+
+The wrappers (``g1_cuda``, ``fp_cuda``, ``pairing_cuda``) reach the library
+through ``launch``, ``consts`` (a prime's constants as the launchers take
+them) and ``stream`` (the tensor's current CUDA stream).
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from typing import Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -134,3 +141,28 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@lru_cache(maxsize=None)
+def consts(p: int, L: int) -> ctypes.Array:
+    """Kernel constants as 32-bit words: p, 2p, R mod p, then -p^-1 mod 2^32."""
+    nw = L // 2
+    R = 1 << (16 * L)
+
+    def words(x):
+        return [(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)]
+
+    vals = words(p) + words(2 * p) + words(R % p) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+    return (ctypes.c_uint32 * len(vals))(*vals)
+
+
+def launch(name: str, *args) -> None:
+    """Call the C launcher ``name``; raise on a nonzero CUDA error."""
+    err = getattr(load(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a handle for a launcher."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from ..field import FpCtx
-from .g1_cuda import _consts, _launch, _stream
+from . import build
 
 Tensor = torch.Tensor
 
@@ -53,8 +53,9 @@ def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
         raise ValueError("the kernel indexes elements with a 32-bit int")
     if rows * n:
         with torch.cuda.device(a.device):
-            _launch("mlt_fp_mont_mul", a3.data_ptr(), b3.data_ptr(), 0 if const else 1,
-                    out.data_ptr(), rows, n, L, ctypes.addressof(_consts(fp.p, L)), _stream(a))
+            build.launch("mlt_fp_mont_mul", a3.data_ptr(), b3.data_ptr(), 0 if const else 1,
+                         out.data_ptr(), rows, n, L, ctypes.addressof(build.consts(fp.p, L)),
+                         build.stream(a))
         mont_mul.launches += 1
     return out.reshape(a.shape)
 

@@ -23,7 +23,6 @@ lane axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -78,19 +77,6 @@ def smul_plain(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) ->
 
 
 # ------------------------------------------------------------------ launches --
-@lru_cache(maxsize=None)
-def _consts(p: int, L: int) -> ctypes.Array:
-    """Kernel constants as 32-bit words: p, 2p, R mod p, then -p^-1 mod 2^32."""
-    nw = L // 2
-    R = 1 << (16 * L)
-
-    def words(x):
-        return [(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)]
-
-    vals = words(p) + words(2 * p) + words(R % p) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
-    return (ctypes.c_uint32 * len(vals))(*vals)
-
-
 def _check(F, *points: Tensor, scalars: Optional[Tensor] = None) -> None:
     """Refuse what the kernels do not take: a limb count other than 16 or 24,
     points not shaped (..., 3, L, B), dtypes other than int32, mixed devices."""
@@ -123,16 +109,6 @@ def _to_lanes(P: Tensor):
     return flat, restore
 
 
-def _launch(name: str, *args) -> None:
-    err = getattr(build.load(), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
-
-
-def _stream(t: Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _require_cuda(t: Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"G1 kernels run on CPU (plain) or CUDA tensors, got {t.device}")
@@ -151,8 +127,9 @@ def add(F: weier.FieldAdapter, P: Tensor, Q: Tensor) -> Tensor:
     n = P2.shape[-1]
     if n:
         with torch.cuda.device(P.device):
-            _launch("mlt_g1_add", P2.data_ptr(), Q2.data_ptr(), out.data_ptr(), n,
-                    F.fp.L, ctypes.addressof(_consts(F.fp.p, F.fp.L)), F.b3, _stream(P))
+            build.launch("mlt_g1_add", P2.data_ptr(), Q2.data_ptr(), out.data_ptr(), n,
+                         F.fp.L, ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3,
+                         build.stream(P))
         add.launches += 1
     return restore(out)
 
@@ -168,8 +145,9 @@ def double(F: weier.FieldAdapter, P: Tensor) -> Tensor:
     n = P2.shape[-1]
     if n:
         with torch.cuda.device(P.device):
-            _launch("mlt_g1_double", P2.data_ptr(), out.data_ptr(), n,
-                    F.fp.L, ctypes.addressof(_consts(F.fp.p, F.fp.L)), F.b3, _stream(P))
+            build.launch("mlt_g1_double", P2.data_ptr(), out.data_ptr(), n,
+                         F.fp.L, ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3,
+                         build.stream(P))
         double.launches += 1
     return restore(out)
 
@@ -190,9 +168,9 @@ def addsel(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
     n = P2.shape[-1]
     if n:
         with torch.cuda.device(P.device):
-            _launch("mlt_g1_addsel", P2.data_ptr(), Q2.data_ptr(), sel.data_ptr(),
-                    out.data_ptr(), n, F.fp.L,
-                    ctypes.addressof(_consts(F.fp.p, F.fp.L)), F.b3, _stream(P))
+            build.launch("mlt_g1_addsel", P2.data_ptr(), Q2.data_ptr(), sel.data_ptr(),
+                         out.data_ptr(), n, F.fp.L,
+                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(P))
         addsel.launches += 1
     return restore(out)
 
@@ -215,9 +193,9 @@ def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tenso
     n = Q2.shape[-1]
     if n:
         with torch.cuda.device(Q.device):
-            _launch("mlt_g1_smul", Q2.data_ptr(), s2.data_ptr(), out.data_ptr(), n,
-                    F.fp.L, S, nbits, ctypes.addressof(_consts(F.fp.p, F.fp.L)),
-                    F.b3, _stream(Q))
+            build.launch("mlt_g1_smul", Q2.data_ptr(), s2.data_ptr(), out.data_ptr(), n,
+                         F.fp.L, S, nbits, ctypes.addressof(build.consts(F.fp.p, F.fp.L)),
+                         F.b3, build.stream(Q))
         smul.launches += 1
     return restore(out)
 

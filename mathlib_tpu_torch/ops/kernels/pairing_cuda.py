@@ -37,8 +37,7 @@ import torch
 
 from ..field import FpCtx
 from . import build
-from .g1_cuda import _consts, _launch, _stream
-from .tower_rows import MulBatch, RowTower, mults_per_step
+from .tower_rows import MulBatch, RowTower
 
 Tensor = torch.Tensor
 
@@ -180,10 +179,11 @@ def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
         bits = _bits_on(cfg, xP.device)
         ints, tail = _tower_args(cfg)
         with torch.cuda.device(xP.device):
-            _launch("mlt_pairing_miller_lanes", xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
-                    Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), max(0, min(n, B)),
-                    out.data_ptr(), B, L, ctypes.addressof(_consts(cfg.fp.p, L)),
-                    ctypes.addressof(ints), ctypes.addressof(tail), _stream(xP))
+            build.launch("mlt_pairing_miller_lanes", xP.data_ptr(), yP.data_ptr(),
+                         Qx.data_ptr(), Qy.data_ptr(), bits.data_ptr(), len(cfg.bits),
+                         max(0, min(n, B)), out.data_ptr(), B, L,
+                         ctypes.addressof(build.consts(cfg.fp.p, L)), ctypes.addressof(ints),
+                         ctypes.addressof(tail), build.stream(xP))
         miller_lanes.launches += 1
     return out
 
@@ -202,30 +202,12 @@ def f12_seg_product(cfg: MillerCfg, f: Tensor, seg: int) -> Tensor:
         while f.shape[-1] > B // seg:
             half = f.shape[-1] // 2
             out = torch.empty((2, 3, 2, L, half), dtype=torch.int32, device=f.device)
-            _launch("mlt_f12_pair_mul", f.data_ptr(), out.data_ptr(), half, L,
-                    ctypes.addressof(_consts(cfg.fp.p, L)), ctypes.addressof(ints),
-                    ctypes.addressof(tail), _stream(f))
+            build.launch("mlt_f12_pair_mul", f.data_ptr(), out.data_ptr(), half, L,
+                         ctypes.addressof(build.consts(cfg.fp.p, L)), ctypes.addressof(ints),
+                         ctypes.addressof(tail), build.stream(f))
             f12_seg_product.launches += 1
             f = out
     return f
-
-
-# ---------------------------------------------------------------- accounting --
-def miller_fp_muls(cfg: MillerCfg, lanes: int) -> int:
-    """Base-field Montgomery products ``miller_lanes`` runs for ``lanes``
-    real lanes (pad lanes run none)."""
-    c = mults_per_step(cfg.tower.n, cfg.tower.twist)
-    nbits, nadd = len(cfg.bits), int(np.count_nonzero(cfg.bits))
-    per = nbits * (c["dbl_step"] + c["f12_sqr"] + c["f12_sparse_mul"])
-    per += nadd * (c["add_step"] + c["f12_sparse_mul"])
-    if cfg.tail is not None:
-        per += 4 * 3 + 2 * (c["add_step"] + c["f12_sparse_mul"])
-    return lanes * per
-
-
-def seg_product_fp_muls(cfg: MillerCfg, lanes: int, seg: int) -> int:
-    """Base-field Montgomery products of ``f12_seg_product`` on ``lanes``."""
-    return (lanes - lanes // seg) * mults_per_step(cfg.tower.n, cfg.tower.twist)["f12_mul"]
 
 
 KERNELS = (miller_lanes, f12_seg_product)

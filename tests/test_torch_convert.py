@@ -62,8 +62,10 @@ def test_check_constants_reports_a_mismatch():
 
 def test_device_helper_never_hands_back_another_device():
     assert mathlib_tpu_torch.device("cpu") == torch.device("cpu")
-    with pytest.raises(ValueError):
-        mathlib_tpu_torch.device("tpu")
+    assert mathlib_tpu_torch.device(torch.device("cpu")) == torch.device("cpu")
+    for kind in ("tpu", "cuda:0", torch.device("meta")):
+        with pytest.raises(ValueError):
+            mathlib_tpu_torch.device(kind)
     if torch.cuda.is_available():
         assert mathlib_tpu_torch.device("cuda").type == "cuda"
     else:

@@ -32,7 +32,7 @@ from mathlib_tpu_torch.batch import BatchEngine
 from mathlib_tpu_torch.host import get_engine
 from mathlib_tpu_torch.ops.kernels import pairing_cuda as pc
 from mathlib_tpu_torch.ops.field import ints_to_limbs
-from mathlib_tpu_torch.ops.kernels.tower_rows import RowTower
+from mathlib_tpu_torch.ops.kernels.tower_rows import RowTower, mults_per_step
 from mathlib_tpu_torch.ops.pairing import PairingCtx
 from mathlib_tpu_torch.ops.tower import TowerCtx
 from test_pairing_pallas import _FakeJax, _FakePl, _FakePltpu, _Ref
@@ -221,7 +221,7 @@ def test_row_tower_counts_the_products_it_queues():
             f2 = one[0, 0]
             T = torch.stack([f2, f2, f2], dim=-4)
             x = tw.one
-            want = pc.mults_per_step(tw.n, tw.twist)
+            want = mults_per_step(tw.n, tw.twist)
             for name, run in (
                 ("f12_sqr", lambda: tw.f12_sqr(one)),
                 ("f12_mul", lambda: tw.f12_mul(one, one)),
