@@ -39,7 +39,31 @@ The second main path, the pairing-product check a BLS verifier pays for
      host, must equal the host engine's pairings.  One warm-up and 3 timed
      runs of (a) and (b); every pairing kernel must have launched.
 
-Inputs come from ``np.random.default_rng(0)``, the points from the port's
+The third main path, the pairings themselves (``BatchEngine.pairing_batch``),
+and the device final exponentiation of the reference's opt-in strategies:
+
+  8. the kernels of pairing_batch (miller_ft, add_step, f12_pow, final_exp,
+     fp_pow) against their plain PyTorch versions on the card, exact, on 64
+     lanes of BLS12-381, BN254 and BLS12-377 with full chains (f12_pow over
+     |x| on BLS12 curves and over the first hard-part digit on BN254, with
+     and without cyclotomic squaring, on a unitary base); then each at phase
+     9's shapes (BLS12-381 at 4,096 lanes: miller_ft, final_exp; BN254 at
+     1,024: add_step, the four digit chains of f12_pow, fp_pow), checked
+     against the plain version and timed beside it;
+  9. pairing_batch at full width: 4,096 BLS12-381 pairs (a g1, b g2), the
+     last 16 of them 8 bilinearity pairs (a g1, g2) beside (g1, a g2), and
+     1,024 BN254 pairs; 8 sampled lanes of each must equal the host engine's
+     pairing and the bilinearity pairs must agree; one warm-up and 3 timed
+     calls each (pairings/s), then one call split into stages.  Then
+     ``MATHLIB_PAIR_FUSED=split`` on phase 7's 4,096-pair check and its
+     twin, and ``MATHLIB_GROUP_FEXP=device`` on phase 7's 1,024 two-pair
+     checks: the verdicts must equal the defaults', timed beside them.  The
+     launch counts are set to 0 just before each curve's pairing_batch runs
+     and read just after: every kernel that curve's path runs must have
+     launched there.  The strategies' launches are counted apart.
+
+Inputs come from ``np.random.default_rng(0)`` (phases 1-7) and
+``np.random.default_rng(1)`` (phases 8-9), the points from the port's
 C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then as its last line
@@ -60,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +114,21 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                      "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
     "f12_seg_product": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                         "mathlib_tpu/ops/kernels/pairing_pallas.py:1244"),
+    "miller_ft": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
+                  "mathlib_tpu/ops/kernels/pairing_pallas.py:788"),
+    "add_step": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
+                 "mathlib_tpu/ops/kernels/pairing_pallas.py:807"),
+    "f12_pow": ("mathlib_tpu_torch/csrc/fexp_kernels.cu",
+                "mathlib_tpu/ops/kernels/pairing_pallas.py:828"),
+    "final_exp": ("mathlib_tpu_torch/csrc/fexp_kernels.cu",
+                  "mathlib_tpu/ops/kernels/pairing_pallas.py:914"),
+    "fp_pow": ("mathlib_tpu_torch/csrc/fp_kernels.cu",
+               "mathlib_tpu/ops/kernels/pairing_pallas.py:1291"),
 }
+N_BATCH = 4096  # phase 9 (a): BLS12-381 pairs of one pairing_batch call
+N_BATCH_BN = 1024  # phase 9 (b): BN254 pairs
+N_BILIN = 8  # phase 9 (a): bilinearity lanes (a g1, g2) beside (g1, a g2)
+N_SAMPLED = 8  # phase 9: lanes checked against the host engine's pairing
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
 # 3.35 TB/s, and 32-bit integer multiply-adds on 64 INT32 lanes per SM
@@ -138,6 +177,24 @@ def seg_product_fp_muls(cfg, lanes: int, seg: int) -> int:
     from mathlib_tpu_torch.ops.kernels.tower_rows import mults_per_step
 
     return (lanes - lanes // seg) * mults_per_step(cfg.tower.n, cfg.tower.twist)["f12_mul"]
+
+
+def ptxas_entries(path: str) -> list:
+    """One line per kernel of the build log's ptxas report: its registers
+    and its own stack frame and spills."""
+    out, name, regs, frame = [], None, None, None
+    for ln in list(open(path)) + ["Compiling entry function '' (end)"]:
+        if "Compiling entry function" in ln:
+            if name:
+                out.append(f"{name}: {regs} registers, {frame}")
+            m = re.search(r"_ZN3mlt\d+(\w+?)ILi(\d+)E", ln)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else ln.split("'")[1]
+            regs = frame = None
+        elif name and "bytes stack frame" in ln and frame is None:
+            frame = ln.split(":", 1)[-1].strip()
+        elif name and "Used" in ln and "registers" in ln and regs is None:
+            regs = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def log(phase: str, **kv) -> None:
@@ -263,9 +320,10 @@ def add_ms_by_curve(dev, rng) -> None:
         log("profile_add", curve=curve, L=g.fp.L, lanes=N_MAIN, ms=f"{ms:.4f}")
 
 
-def pairing_phases(dev, smi: str, results: dict, profile: bool) -> dict:
+def pairing_phases(dev, smi: str, results: dict, profile: bool):
     """Phases 6 and 7; fills ``results`` for the pairing kernels and returns
-    their launch counts over phase 7's main-path runs."""
+    their launch counts over phase 7's main-path runs, and phase 7's checks
+    (engine, inputs, verdicts, timed seconds) for phase 9's strategies."""
     import numpy as np
     import torch
     from mathlib_tpu_torch import get_spec
@@ -405,7 +463,8 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool) -> dict:
             walls[name].append(time.perf_counter() - t0)
             if got != want:
                 raise AssertionError(f"phase 7 ({name}): wrong verdict(s)")
-    launches = {**fp_cuda.launches(), **pc.launches()}
+    launches = {k: v for k, v in {**fp_cuda.launches(), **pc.launches()}.items()
+                if k in ("mont_mul", "miller_lanes", "f12_seg_product")}
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
@@ -449,7 +508,264 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool) -> dict:
             final_exp_host_ms_each=f"{1e3 * (t4 - t3) / len(ok):.3f}")
     if profile:
         profile_run(run_a)
-    return launches
+    checks = {"be": be, "a": (g1s, g2s), "a_bad": (bad_g1s, g2s), "b": (v_g1s, v_g2s),
+              "b_verdicts": verdicts, "seconds": walls}
+    return launches, checks
+
+
+def best_of_3(run, want=None):
+    """One warm-up and 3 host-clock runs of run(), each ending in a
+    synchronise; returns (output, seconds); the outputs must agree (and equal
+    ``want`` when given)."""
+    import torch
+
+    first = run()
+    if want is not None and first != want:
+        raise AssertionError("a run gave the wrong result")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if out != first:
+            raise AssertionError("runs of one call disagree")
+    return first, secs
+
+
+def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
+    """Phases 8 and 9; fills ``results`` for the kernels of pairing_batch and
+    returns their launch counts over phase 9's pairing_batch runs (both
+    curves; mont_mul included)."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.ops.kernels import fp_cuda, pairing_cuda as pc
+    from mathlib_tpu_torch.ops.kernels.tower_rows import (
+        f12_pow_mults, final_exp_mults, mults_per_step, pow_mults)
+
+    rng = np.random.default_rng(1)
+
+    def scalars(spec, count):
+        return [int.from_bytes(rng.bytes(32), "big") % (spec.r - 1) + 1 for _ in range(count)]
+
+    def random_pairs(eng, spec, count):
+        g1s = [eng.g1.mul(eng.gen_g1, k) for k in scalars(spec, count)]
+        return g1s, [eng.g2.mul(eng.gen_g2, k) for k in scalars(spec, count)]
+
+    def check(name, got, want):
+        check_equal(results, name, got, want)
+
+    def hard_digits(spec):
+        e, out = spec.hard_part_exp, []
+        while e:
+            out.append(e % spec.p)
+            e //= spec.p
+        return out
+
+    def unitary(tw, f):
+        """The easy part of the final exp on the tower ops: a unitary base."""
+        t = tw.f12_mul(tw.f12_conj(f), tw.f12_inv(f))
+        return tw.f12_mul(tw.f12_frob(t, 2), t).contiguous()
+
+    # ---- 8. each kernel of pairing_batch against its plain version (exact),
+    # 64 lanes, full chains, on three curves (final_exp on BN254 too, over its
+    # own x: the kernel takes any chain)
+    for curve in ("BLS12_381", "BN254", "BLS12_377"):
+        spec = get_spec(curve)
+        eng, be = get_engine(spec), BatchEngine(spec, dev)
+        cfg, kcfg, tw = be.pair.cfg, be.tw.kcfg, be.tw
+        xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(*random_pairs(eng, spec, N_LANES_CHECK)))
+        f, T = pc.miller_ft(cfg, xP, yP, Qx, Qy)
+        fw, Tw = pc.miller_ft_plain(cfg, xP, yP, Qx, Qy)
+        check("miller_ft", f, fw)
+        check("miller_ft", T, Tw)
+        for got, want in zip(pc.add_step(cfg, f, T, Qx, Qy, xP, yP),
+                             pc.add_step_plain(cfg, f, T, Qx, Qy, xP, yP)):
+            check("add_step", got, want)
+        inv, xb = kcfg.inv_bits, pc.msb_bits(abs(spec.x))
+        check("fp_pow", fp_cuda.fp_pow(be.fp, xP, inv), fp_cuda.fp_pow_plain(be.fp, xP, inv))
+        u = unitary(tw, f)
+        pow_bits = pc.msb_bits(hard_digits(spec)[0]) if spec.family.name == "BN" else xb
+        for cyclo in (True, False):
+            check("f12_pow", pc.f12_pow(kcfg, u, pow_bits, cyclo),
+                  pc.f12_pow_plain(kcfg, u, pow_bits, cyclo))
+        check("final_exp", pc.final_exp(kcfg, f, inv, xb, spec.x < 0),
+              pc.final_exp_plain(kcfg, f, inv, xb, spec.x < 0))
+        log("fexp_kernels_vs_plain", curve=curve, L=be.fp.L, lanes=N_LANES_CHECK,
+            inv_bits=len(inv), x_bits=len(xb), pow_bits=len(pow_bits), equal=True)
+
+    # the same kernels at phase 9's shapes, timed beside their plain versions:
+    # BLS12-381 at 4,096 lanes (miller_ft, final_exp), BN254 at 1,024 (add_step,
+    # the four digit chains of f12_pow, fp_pow on the easy part's norms)
+    bls, bn = get_spec("BLS12_381"), get_spec("BN254")
+    be_bls, be_bn = BatchEngine(bls, dev), BatchEngine(bn, dev)
+    args_bls = be_bls._pair_split_mont(be_bls._encode_pairs(*random_pairs(get_engine(bls), bls, N_BATCH)))
+    args_bn = be_bn._pair_split_mont(be_bn._encode_pairs(*random_pairs(get_engine(bn), bn, N_BATCH_BN)))
+    c_bls, k_bls, c_bn, k_bn = be_bls.pair.cfg, be_bls.tw.kcfg, be_bn.pair.cfg, be_bn.tw.kcfg
+    f_bls = pc.miller_ft(c_bls, *args_bls)[0]
+    f_bn, T_bn = pc.miller_ft(c_bn, *args_bn)
+    u_bn = unitary(be_bn.tw, f_bn)
+    digits = [pc.msb_bits(d) for d in hard_digits(bn)]
+    xP_bn, yP_bn, Qx_bn, Qy_bn = args_bn
+    n_bn = mults_per_step(k_bn.tower.n, bn.twist)
+
+    def joined(fn):
+        """The (f, T) pair of a kernel as one (18 * L, lanes) tensor."""
+        return lambda *a: torch.cat([x.reshape(-1, x.shape[-1]) for x in fn(*a)])
+
+    def four_digits(fn):
+        return lambda base: torch.cat([fn(k_bn, base, d, True) for d in digits])
+
+    Lx, Lb = be_bls.fp.L, be_bn.fp.L
+    row = 4  # bytes per limb word
+    shapes = {  # name: (what, kernel, plain, bytes, field products, L)
+        "miller_ft": (
+            f"{N_BATCH} lanes",
+            lambda: joined(lambda *a: pc.miller_ft(c_bls, *a))(*args_bls),
+            lambda: chunked(joined(lambda *a: pc.miller_ft_plain(c_bls, *a)), N_BATCH, *args_bls,
+                            step=PLAIN_PAIR_CHUNK),
+            (6 + 12 + 6) * Lx * row * N_BATCH, miller_fp_muls(c_bls, N_BATCH), Lx),
+        "final_exp": (
+            f"{N_BATCH} lanes",
+            lambda: pc.final_exp(k_bls, f_bls),
+            lambda: chunked(lambda a: pc.final_exp_plain(k_bls, a, k_bls.inv_bits, k_bls.x_bits,
+                                                         bls.x < 0),
+                            N_BATCH, f_bls, step=PLAIN_PAIR_CHUNK),
+            2 * 12 * Lx * row * N_BATCH,
+            N_BATCH * final_exp_mults(k_bls.tower.n, bls.twist, k_bls.inv_bits, k_bls.x_bits), Lx),
+        "add_step": (
+            f"{N_BATCH_BN} lanes",
+            lambda: joined(lambda: pc.add_step(c_bn, f_bn, T_bn, Qx_bn, Qy_bn, xP_bn, yP_bn))(),
+            lambda: joined(lambda: pc.add_step_plain(c_bn, f_bn, T_bn, Qx_bn, Qy_bn, xP_bn, yP_bn))(),
+            (12 + 6 + 4 + 2 + 12 + 6) * Lb * row * N_BATCH_BN,
+            N_BATCH_BN * (n_bn["add_step"] + n_bn["f12_sparse_mul"]), Lb),
+        "f12_pow": (
+            f"{N_BATCH_BN} lanes, {len(digits)} digits",
+            lambda: four_digits(pc.f12_pow)(u_bn),
+            lambda: four_digits(pc.f12_pow_plain)(u_bn),
+            len(digits) * 2 * 12 * Lb * row * N_BATCH_BN,
+            N_BATCH_BN * sum(f12_pow_mults(1, bn.twist, d, True) for d in digits), Lb),
+        "fp_pow": (
+            f"({Lb}, {N_BATCH_BN})",
+            lambda: fp_cuda.fp_pow(be_bn.fp, xP_bn, k_bn.inv_bits),
+            lambda: fp_cuda.fp_pow_plain(be_bn.fp, xP_bn, k_bn.inv_bits),
+            2 * Lb * row * N_BATCH_BN, N_BATCH_BN * pow_mults(k_bn.inv_bits), Lb),
+    }
+    for name, (what, kern, plain, nbytes, fp_muls, limbs) in shapes.items():
+        ms, got = cuda_ms(kern, reps=3)
+        plain_ms, want = cuda_ms(plain, reps=1)
+        check(name, got, want)
+        del got, want
+        b = bound(nbytes, wide_mads(fp_muls, limbs))
+        results[name].update(ms=ms, plain_ms=plain_ms, **b)
+        log("time", kernel=name, shape=repr(what), equal=True, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], fp_muls=fp_muls)
+    del f_bls, f_bn, T_bn, u_bn, args_bls, args_bn
+
+    # ---- 9. pairing_batch at full width through BatchEngine, then the two
+    # opt-in device final-exp strategies beside their defaults
+    runs = {}
+    for spec, n in ((bls, N_BATCH), (bn, N_BATCH_BN)):
+        eng = get_engine(spec)
+        nrand = n - 2 * N_BILIN if spec is bls else n
+        g1s, g2s = random_pairs(eng, spec, nrand)
+        if spec is bls:  # bilinearity: e(a g1, g2) == e(g1, a g2)
+            for a in scalars(spec, N_BILIN):
+                g1s += [eng.g1.mul(eng.gen_g1, a), eng.gen_g1]
+                g2s += [eng.gen_g2, eng.g2.mul(eng.gen_g2, a)]
+        runs[spec.name] = (eng, BatchEngine(spec, dev), g1s, g2s, nrand)
+    be_a, (g1a, g2a), (bad_g1a, _), (g1b, g2b) = (checks["be"], checks["a"], checks["a_bad"],
+                                                   checks["b"])
+
+    # each curve's pairing_batch runs count their own launches: the counts
+    # are set to 0 just before them and read just after
+    want_kernels = {"BLS12_381": ("mont_mul", "miller_ft", "final_exp"),
+                    "BN254": ("mont_mul", "miller_ft", "add_step", "f12_pow", "fp_pow")}
+    out, batch_launches = {}, {}
+    for name, (eng, be, g1s, g2s, nrand) in runs.items():
+        for mod in (fp_cuda, pc):
+            mod.reset_launches()
+        out[name], secs = best_of_3(lambda: be.pairing_batch(g1s, g2s))
+        counts = {k: v for k, v in {**fp_cuda.launches(), **pc.launches()}.items() if v}
+        missing = [k for k in want_kernels[name] if k not in counts]
+        if missing:
+            raise AssertionError(f"kernels not launched by pairing_batch on {name}: {missing}")
+        for k, v in counts.items():
+            batch_launches[k] = batch_launches.get(k, 0) + v
+        sample = [int(i) for i in rng.choice(nrand, N_SAMPLED, replace=False)]
+        if any(out[name][i] != eng.pairing(g1s[i], g2s[i]) for i in sample):
+            raise AssertionError(f"pairing_batch on {name} differs from the host engine's pairing")
+        bilin = all(out[name][nrand + 2 * i] == out[name][nrand + 2 * i + 1]
+                    for i in range((len(g1s) - nrand) // 2))
+        if not bilin or (name == "BLS12_381" and out[name][nrand] != eng.pairing(g1s[nrand], g2s[nrand])):
+            raise AssertionError(f"pairing_batch on {name} is not bilinear")
+        log("pairing_batch", curve=name, pairs=len(g1s), sampled_equal_host=N_SAMPLED,
+            bilinear_pairs=(len(g1s) - nrand) // 2, seconds=[round(x, 4) for x in secs],
+            pairings_per_s=f"{len(g1s) / min(secs):.1f}", card=repr(smi))
+        log("pairing_batch_launches", curve=name, calls=4, **counts)
+
+    # the strategies, their launches counted apart from pairing_batch's
+    for mod in (fp_cuda, pc):
+        mod.reset_launches()
+    default_s = checks["seconds"]
+    strat = {}
+    try:
+        os.environ["MATHLIB_PAIR_FUSED"] = "split"
+        if be_a.pairing_product_is_one(*checks["a_bad"]) is not False:
+            raise AssertionError("split: the check with one scalar changed did not fail")
+        _, strat["split"] = best_of_3(lambda: be_a.pairing_product_is_one(g1a, g2a), True)
+        del os.environ["MATHLIB_PAIR_FUSED"]
+        os.environ["MATHLIB_GROUP_FEXP"] = "device"
+        _, strat["group_device"] = best_of_3(lambda: be_a.pairing_products_are_one(g1b, g2b, 2),
+                                             checks["b_verdicts"])
+    finally:
+        os.environ.pop("MATHLIB_PAIR_FUSED", None)
+        os.environ.pop("MATHLIB_GROUP_FEXP", None)
+    strat_launches = {k: v for k, v in {**fp_cuda.launches(), **pc.launches()}.items() if v}
+    missing = [k for k in ("mont_mul", "miller_lanes", "f12_seg_product", "final_exp")
+               if k not in strat_launches]
+    if missing:
+        raise AssertionError(f"kernels not launched by the device final-exp strategies: {missing}")
+    log("strategy", name="MATHLIB_PAIR_FUSED=split", pairs=len(g1a), verdicts_equal_default=True,
+        seconds=[round(x, 4) for x in strat["split"]],
+        default_seconds=[round(x, 4) for x in default_s["a"]])
+    log("strategy", name="MATHLIB_GROUP_FEXP=device", checks=len(g1b) // 2,
+        verdicts_equal_default=True, seconds=[round(x, 4) for x in strat["group_device"]],
+        default_seconds=[round(x, 4) for x in default_s["b"]])
+    log("strategy_launches", split_calls=5, group_calls=4, **strat_launches)
+
+    # stages of one more pairing_batch call per curve (host clock; device
+    # time by CUDA events)
+    for name, (eng, be, g1s, g2s, _) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = be._encode_pairs(g1s, g2s)
+        t1 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        split = be._pair_split_mont(packed)
+        ev[1].record()
+        f = be.pair.miller_loop(*split)
+        ev[2].record()
+        f = be.pair.final_exp(f)
+        ev[3].record()
+        f = f.cpu()
+        t2 = time.perf_counter()
+        vals = be.tw.f12_decode(f)
+        t3 = time.perf_counter()
+        if vals != out[name]:
+            raise AssertionError("the stage run of pairing_batch differs")
+        log("pairing_batch_stages", curve=name, encode_host_s=f"{t1 - t0:.4f}",
+            to_mont_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+            miller_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}",
+            final_exp_device_ms=f"{ev[2].elapsed_time(ev[3]):.4f}",
+            device_wall_s=f"{t2 - t1:.4f}", decode_host_s=f"{t3 - t2:.4f}")
+    return {k: batch_launches[k] for k in set(sum(want_kernels.values(), ()))}
 
 
 def main() -> int:
@@ -487,11 +803,9 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     build.load()  # builds here unless an up-to-date library is already there
-    keys = ("Compiling entry", "Function properties", "spill", "registers")
-    spills = [ln.strip() for ln in open(build.BUILD_LOG) if any(k in ln for k in keys)]
     log("build", seconds=f"{time.perf_counter() - t0:.1f}", log=build.BUILD_LOG)
-    for ln in spills:
-        print("  ptxas:", ln)
+    for entry in ptxas_entries(build.BUILD_LOG):
+        print("  ptxas:", entry)
 
     spec = get_spec("BLS12_381")
     eng = get_engine(spec)
@@ -654,8 +968,12 @@ def main() -> int:
         add_ms_by_curve(dev, rng)
 
     # ---- 6 and 7. the pairing-product check
-    pair_launches = pairing_phases(dev, smi, results, args.profile)
+    pair_launches, checks = pairing_phases(dev, smi, results, args.profile)
     launches.update(pair_launches)
+
+    # ---- 8 and 9. pairing_batch and the device final exp; mont_mul runs on
+    # both pairing paths and reports its pairing_batch count
+    launches.update(pairing_batch_phases(dev, smi, results, checks))
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

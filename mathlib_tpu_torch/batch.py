@@ -1,21 +1,27 @@
-"""Batched pairing-product checks (port of ``mathlib_tpu/batch.py``, the
-pairing-check part of ``BatchEngine``).
+"""Batched pairings and pairing-product checks (port of ``mathlib_tpu/batch.py``,
+the pairing part of ``BatchEngine``).
 
-This is how a BLS or BBS+ verifier checks signatures: prod_i e(P_i, Q_i) == 1
-over host point lists, in one device pass.  The device runs every pair's
-Miller loop and multiplies the lanes together (``ops/pairing.py``, the CUDA
-kernels of ``ops/kernels/pairing_cuda.py``); the host C++ engine
-(``host/native.py``) does the single final exponentiation of each product and
-tests it for unity, as the reference's default ``hostfexp`` strategy does.
+``pairing_batch`` returns e(P_i, Q_i), final-exponentiated, for host point
+lists: every lane's Miller loop and final exponentiation run on the card
+(``ops/pairing.py``).  ``pairing_product_is_one(_async)`` and
+``pairing_products_are_one`` are how a BLS or BBS+ verifier checks
+signatures: prod_i e(P_i, Q_i) == 1 in one device pass.  The device runs
+every pair's Miller loop and multiplies the lanes together; by default the
+host C++ engine (``host/native.py``) does the single final exponentiation of
+each product and tests it for unity, as the reference's default
+``hostfexp`` strategy does.  The reference's opt-in all-device strategies
+are read where the reference reads them: ``MATHLIB_PAIR_FUSED=split`` (the
+final exp and unity test of the product on the card; ``check``, its
+one-launch kernel, is not ported and raises) and
+``MATHLIB_GROUP_FEXP=device`` (the grouped checks' final exps on the card).
 
-Not ported here: the all-device strategies (``MATHLIB_PAIR_FUSED=check``
-and ``split``, ``MATHLIB_GROUP_FEXP=device``), which need the device final
-exponentiation, and the MSM, scalar-mul, pairing and BLS entry points of the
-reference engine (ROADMAP.md §1).
+Not ported here: the MSM, scalar-mul and BLS entry points of the reference
+engine (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List
 
@@ -70,8 +76,20 @@ class BatchEngine:
         m = self.fp.to_mont(t)
         return m[0], m[1], m[2:4], m[4:6]
 
+    def pairing_batch(self, g1_points, g2_points) -> List:
+        """e(P_i, Q_i) for affine host point lists, as a list of host Fp12
+        values; always final-exponentiated."""
+        packed = self._encode_pairs(g1_points, g2_points)
+        return self.tw.f12_decode(self.pair.pairing(*self._pair_split_mont(packed)))
+
     def pairing_product_is_one(self, g1_points, g2_points) -> bool:
-        """prod_i e(P_i, Q_i) == 1, with one shared final exponentiation."""
+        """prod_i e(P_i, Q_i) == 1, with one shared final exponentiation: on
+        the host engine, or on the card under ``MATHLIB_PAIR_FUSED=split``
+        (BLS12 curves)."""
+        strat = os.environ.get("MATHLIB_PAIR_FUSED")
+        if strat in ("check", "split") and self.pair.supports_fused_check:
+            packed = self._encode_pairs(g1_points, g2_points)
+            return self.pair.product_check(*self._pair_split_mont(packed))
         return self.pairing_product_is_one_async(g1_points, g2_points)()
 
     def pairing_product_is_one_async(self, g1_points, g2_points) -> Callable[[], bool]:
@@ -105,6 +123,9 @@ class BatchEngine:
             raise ValueError(f"group_size must be a power of two <= {MAX_GROUP}")
         packed = self._encode_pairs(g1_points, g2_points)
         prods = self.pair.products_miller(*self._pair_split_mont(packed), group_size)
+        if os.environ.get("MATHLIB_GROUP_FEXP") == "device" and self.pair.supports_fused_check:
+            # all G final exps as one launch, and the unity tests, on the card
+            return self.tw.f12_is_one(self.tw.f12_final_exp(prods)).tolist()
         vals = self.tw.f12_decode(prods)
 
         def finish(v) -> bool:

@@ -175,6 +175,25 @@ __device__ __forceinline__ void fp_mul_small(uint32_t* r, const uint32_t* a, int
   fp_copy<NW>(r, acc);
 }
 
+// r = a^e, e given by its MSB-first bits (a device array, the same for every
+// thread): square, then multiply by a at each one bit, from acc = 1
+// (RowTower.fp_pow and _fp_pow_kernel; the reference computes the product
+// at every bit and selects it, which gives the same values).  The square is
+// fp_mul(acc, acc): REDC's output depends on the product alone, so it is
+// the reference's RowCtx.sqr bit for bit.  r may alias a.
+template <int NW>
+__device__ __noinline__ void fp_pow(uint32_t* r, const uint32_t* a, const uint8_t* bits,
+                                    int nbits, const FieldConsts& k) {
+  uint32_t base[NW], acc[NW];
+  fp_copy<NW>(base, a);
+  fp_copy<NW>(acc, k.one);
+  for (int i = 0; i < nbits; ++i) {
+    fp_mul<NW>(acc, acc, acc, k);
+    if (bits[i]) fp_mul<NW>(acc, acc, base, k);
+  }
+  fp_copy<NW>(r, acc);
+}
+
 // The constants from the launcher's host array: p[nw], 2p[nw], one[nw], np0.
 inline FieldConsts make_consts(const uint32_t* words, int nw) {
   FieldConsts k = {};

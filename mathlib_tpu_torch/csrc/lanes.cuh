@@ -1,0 +1,94 @@
+// Lane I/O and launch helpers shared by the pairing kernel sources
+// (pairing_kernels.cu, fexp_kernels.cu): one thread owns one lane of
+// (..., L, B) limb arrays (16-bit limbs in 32-bit words, lane batch last);
+// T is (3, 2, L, B), an f12 (2, 3, 2, L, B) = (12, L, B) with coefficient
+// q = (h*3 + j)*2 + c.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fp_rows.cuh"
+#include "tower_rows.cuh"
+
+namespace mlt {
+
+template <int NW>
+__device__ __forceinline__ void load_f12(F12<NW>& f, const uint32_t* src, int64_t n,
+                                         int64_t i) {
+  for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < 3; ++j)
+      for (int c = 0; c < 2; ++c) load_fp<NW>(f.c[h].c[j].c[c], src, (h * 3 + j) * 2 + c, n, i);
+}
+
+template <int NW>
+__device__ __forceinline__ void store_f12(uint32_t* dst, const F12<NW>& f, int64_t n,
+                                          int64_t i) {
+  for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < 3; ++j)
+      for (int c = 0; c < 2; ++c) store_fp<NW>(dst, f.c[h].c[j].c[c], (h * 3 + j) * 2 + c, n, i);
+}
+
+template <int NW>
+__device__ __forceinline__ void load_T(G2Proj<NW>& T, const uint32_t* src, int64_t n, int64_t i) {
+  for (int c = 0; c < 2; ++c) {
+    load_fp<NW>(T.x.c[c], src, 0 * 2 + c, n, i);
+    load_fp<NW>(T.y.c[c], src, 1 * 2 + c, n, i);
+    load_fp<NW>(T.z.c[c], src, 2 * 2 + c, n, i);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void store_T(uint32_t* dst, const G2Proj<NW>& T, int64_t n, int64_t i) {
+  for (int c = 0; c < 2; ++c) {
+    store_fp<NW>(dst, T.x.c[c], 0 * 2 + c, n, i);
+    store_fp<NW>(dst, T.y.c[c], 1 * 2 + c, n, i);
+    store_fp<NW>(dst, T.z.c[c], 2 * 2 + c, n, i);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void load_f2(F2<NW>& a, const uint32_t* src, int64_t n, int64_t i) {
+  for (int c = 0; c < 2; ++c) load_fp<NW>(a.c[c], src, c, n, i);
+}
+
+// 32 threads a block: a 4,096-lane check then spreads over 128 SMs instead
+// of 32 blocks of 128 lanes on 32 SMs.
+constexpr int kPairThreads = 32;
+
+inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int nw) {
+  // ints: n, xi0, twist_m, conj_end, bn_tail; tail: [4][2][nw] words
+  TowerConsts tc = {};
+  tc.n = ints[0];
+  tc.xi0 = ints[1];
+  tc.twist_m = ints[2];
+  tc.conj_end = ints[3];
+  tc.bn_tail = ints[4];
+  for (int a = 0; a < 4; ++a)
+    for (int c = 0; c < 2; ++c)
+      for (int j = 0; j < nw; ++j) tc.tail[a][c][j] = tail[(a * 2 + c) * nw + j];
+  return tc;
+}
+
+inline dim3 pair_grid(int n) { return dim3((unsigned)((n + kPairThreads - 1) / kPairThreads)); }
+
+}  // namespace mlt
+
+#define MLT_PAIR_DISPATCH(L, ...)        \
+  switch (L) {                           \
+    case 16: {                           \
+      constexpr int NW = 8;              \
+      __VA_ARGS__;                       \
+      break;                             \
+    }                                    \
+    case 24: {                           \
+      constexpr int NW = 12;             \
+      __VA_ARGS__;                       \
+      break;                             \
+    }                                    \
+    default:                             \
+      return -1;                         \
+  }                                      \
+  return (int)cudaGetLastError();
+

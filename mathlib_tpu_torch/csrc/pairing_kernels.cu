@@ -1,16 +1,21 @@
-// Pairing-product kernels for Hopper (sm_90a): port of the fused Miller +
-// product kernels of mathlib_tpu/ops/kernels/pairing_pallas.py.
+// Pairing kernels for Hopper (sm_90a): port of the fused Miller + product
+// kernels and the Miller step kernels of
+// mathlib_tpu/ops/kernels/pairing_pallas.py (the pow and final-exponentiation
+// kernels are in fexp_kernels.cu).
 //
 //   miller_lanes_kernel  <- _miller_conj_tail + _mask_pad_to_one, the front
 //                           half of _pairing_prod_kernel (:1188) and
 //                           _pairing_prod_seg_kernel (:1244)
 //   f12_pair_mul_kernel  <- _product_all_positions (:971), the rotation
 //                           all-reduce of the same two kernels
+//   miller_ft_kernel     <- _miller_kernel (:788): (f, T) after the loop, no
+//                           conjugation and no tail
+//   add_step_kernel      <- _add_step_kernel (:807): (f l_{T,Q}(P), T + Q)
 //
-// Layout: field elements are (..., L, B) 16-bit limbs in 32-bit words, lane
-// batch last, as everywhere in the port: xP, yP (L, B); Qx, Qy (2, L, B);
-// an f12 (2, 3, 2, L, B) = (12, L, B) with coefficient q = (h*3 + j)*2 + c.
-// One thread owns one lane; limb pairs are packed into NW = L/2 words.
+// Layout (lanes.cuh): field elements are (..., L, B) 16-bit limbs in 32-bit
+// words, lane batch last, as everywhere in the port: xP, yP (L, B); Qx, Qy
+// (2, L, B); T (3, 2, L, B); an f12 (2, 3, 2, L, B).  One thread owns one
+// lane; limb pairs are packed into NW = L/2 words.
 //
 // The TPU kernels keep f and T in VMEM across the loop, reduce lanes with
 // rotate-and-multiply steps, and carry the product across their sequential
@@ -24,12 +29,13 @@
 //
 // Bound on this card: integer multiplies.  A BLS12-381 lane runs 63
 // doubling and 5 addition steps, 7,786 field muls of 588 32-bit
-// multiply-adds each (fp_rows.cuh), for 288 bytes in and 576 out; the
-// tree's f12 mul is 54 field muls per pair.  What this simple design leaves on the
-// table: the stack traffic of the __noinline__ calls, and occupancy (one
-// lane per thread; a 4,096-pair check is 128 warps on 132 SMs).  The loop
-// bits come in as a device array and the pad-lane count as an argument, so
-// one build serves every curve parameter and batch size.
+// multiply-adds each (fp_rows.cuh), for 288 bytes in and 576 out (miller_ft
+// also writes T, 288 more); the tree's f12 mul is 54 field muls per pair, an
+// add step 83 (BLS12-381).  What this simple design leaves on the table: the
+// stack traffic of the __noinline__ calls, and occupancy (one lane per
+// thread; a 4,096-pair check is 128 warps on 132 SMs).  The loop bits come
+// in as a device array and the pad-lane count as an argument, so one build
+// serves every curve parameter and batch size.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -38,25 +44,10 @@
 #include <cstdint>
 
 #include "fp_rows.cuh"
+#include "lanes.cuh"
 #include "tower_rows.cuh"
 
 namespace mlt {
-
-template <int NW>
-__device__ __forceinline__ void load_f12(F12<NW>& f, const uint32_t* src, int64_t n,
-                                         int64_t i) {
-  for (int h = 0; h < 2; ++h)
-    for (int j = 0; j < 3; ++j)
-      for (int c = 0; c < 2; ++c) load_fp<NW>(f.c[h].c[j].c[c], src, (h * 3 + j) * 2 + c, n, i);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_f12(uint32_t* dst, const F12<NW>& f, int64_t n,
-                                          int64_t i) {
-  for (int h = 0; h < 2; ++h)
-    for (int j = 0; j < 3; ++j)
-      for (int c = 0; c < 2; ++c) store_fp<NW>(dst, f.c[h].c[j].c[c], (h * 3 + j) * 2 + c, n, i);
-}
 
 // out[:, i] = Miller value of lane i for i < nvalid, the f12 one for the pad
 // lanes nvalid <= i < lanes (their inputs are never read).
@@ -99,46 +90,58 @@ __global__ void f12_pair_mul_kernel(const uint32_t* __restrict__ in, uint32_t* _
   store_f12<NW>(out, a, half, i);
 }
 
-// 32 threads a block: a 4,096-lane check then spreads over 128 SMs instead
-// of 32 blocks of 128 lanes on 32 SMs.
-constexpr int kPairThreads = 32;
-
-inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int nw) {
-  // ints: n, xi0, twist_m, conj_end, bn_tail; tail: [4][2][nw] words
-  TowerConsts tc = {};
-  tc.n = ints[0];
-  tc.xi0 = ints[1];
-  tc.twist_m = ints[2];
-  tc.conj_end = ints[3];
-  tc.bn_tail = ints[4];
-  for (int a = 0; a < 4; ++a)
-    for (int c = 0; c < 2; ++c)
-      for (int j = 0; j < nw; ++j) tc.tail[a][c][j] = tail[(a * 2 + c) * nw + j];
-  return tc;
+// f[:, i], T[:, i] = Miller value and final T of lane i (no conjugation, no
+// tail: the caller finishes them, as ops/pairing.py does after miller_pallas)
+template <int NW>
+__global__ void miller_ft_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                                 const uint8_t* __restrict__ bits, int nbits,
+                                 uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out,
+                                 int lanes, FieldConsts k, TowerConsts tc) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes) return;
+  uint32_t xP[NW], yP[NW];
+  F2<NW> Qx, Qy;
+  load_fp<NW>(xP, xp, 0, lanes, i);
+  load_fp<NW>(yP, yp, 0, lanes, i);
+  load_f2<NW>(Qx, qx, lanes, i);
+  load_f2<NW>(Qy, qy, lanes, i);
+  F12<NW> f;
+  G2Proj<NW> T;
+  miller_loop<NW>(f, T, xP, yP, Qx, Qy, bits, nbits, k, tc);
+  store_f12<NW>(f_out, f, lanes, i);
+  store_T<NW>(t_out, T, lanes, i);
 }
 
-inline dim3 pair_grid(int n) { return dim3((unsigned)((n + kPairThreads - 1) / kPairThreads)); }
+// (f, T) <- (f * l_{T,Q}(P), T + Q) per lane
+template <int NW>
+__global__ void add_step_kernel(const uint32_t* __restrict__ f_in, const uint32_t* __restrict__ t_in,
+                                const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                                const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                                uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out,
+                                int lanes, FieldConsts k, TowerConsts tc) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes) return;
+  uint32_t xP[NW], yP[NW];
+  F2<NW> Qx, Qy;
+  F12<NW> f;
+  G2Proj<NW> T;
+  Line<NW> l;
+  load_fp<NW>(xP, xp, 0, lanes, i);
+  load_fp<NW>(yP, yp, 0, lanes, i);
+  load_f2<NW>(Qx, qx, lanes, i);
+  load_f2<NW>(Qy, qy, lanes, i);
+  load_f12<NW>(f, f_in, lanes, i);
+  load_T<NW>(T, t_in, lanes, i);
+  add_step<NW>(T, l, Qx, Qy, xP, yP, k, tc);
+  f12_sparse_mul<NW>(f, f, l, k, tc);
+  store_f12<NW>(f_out, f, lanes, i);
+  store_T<NW>(t_out, T, lanes, i);
+}
 
 }  // namespace mlt
 
 using namespace mlt;
-
-#define MLT_PAIR_DISPATCH(L, ...)        \
-  switch (L) {                           \
-    case 16: {                           \
-      constexpr int NW = 8;              \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    case 24: {                           \
-      constexpr int NW = 12;             \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    default:                             \
-      return -1;                         \
-  }                                      \
-  return (int)cudaGetLastError();
 
 extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
                                         const uint32_t* qx, const uint32_t* qy,
@@ -157,4 +160,25 @@ extern "C" int mlt_f12_pair_mul(const uint32_t* in, uint32_t* out, int half, int
   MLT_PAIR_DISPATCH(L, f12_pair_mul_kernel<NW><<<pair_grid(half), kPairThreads, 0, stream>>>(
                            in, out, half, make_consts(consts, NW),
                            tower_consts(tower_ints, tail, NW)))
+}
+
+extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
+                                     const uint32_t* qy, const uint8_t* bits, int nbits,
+                                     uint32_t* f_out, uint32_t* t_out, int lanes, int L,
+                                     const uint32_t* consts, const int32_t* tower_ints,
+                                     const uint32_t* tail, cudaStream_t stream) {
+  MLT_PAIR_DISPATCH(L, miller_ft_kernel<NW><<<pair_grid(lanes), kPairThreads, 0, stream>>>(
+                           xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes,
+                           make_consts(consts, NW), tower_consts(tower_ints, tail, NW)))
+}
+
+extern "C" int mlt_pairing_add_step(const uint32_t* f_in, const uint32_t* t_in,
+                                    const uint32_t* qx, const uint32_t* qy, const uint32_t* xp,
+                                    const uint32_t* yp, uint32_t* f_out, uint32_t* t_out,
+                                    int lanes, int L, const uint32_t* consts,
+                                    const int32_t* tower_ints, const uint32_t* tail,
+                                    cudaStream_t stream) {
+  MLT_PAIR_DISPATCH(L, add_step_kernel<NW><<<pair_grid(lanes), kPairThreads, 0, stream>>>(
+                           f_in, t_in, qx, qy, xp, yp, f_out, t_out, lanes,
+                           make_consts(consts, NW), tower_consts(tower_ints, tail, NW)))
 }

@@ -13,8 +13,9 @@
 // are built in temporaries first.
 //
 // q_mul (f2_mul), f2_sqr, the f6 products, f12_sqr, f12_mul, f12_sparse_mul,
-// dbl_step and add_step are real calls (__noinline__), each with its field
-// muls inlined.  Inlining a whole Miller loop is far beyond what nvcc 12.9
+// the inverses, f12_frob, f12_cyclo_sqr, dbl_step, add_step and the Miller
+// loop are real calls (__noinline__, as is fp_pow in fp_rows.cuh), each with
+// its field muls inlined.  Inlining a whole Miller loop is far beyond what nvcc 12.9
 // survives (it already crashed on two inlined point formulas in
 // g1_kernels.cu); as calls, their operands pass through the thread's stack
 // (local memory, cached in L1).
@@ -287,6 +288,142 @@ __device__ __noinline__ void f12_mul(F12<NW>& r, const F12<NW>& f, const F12<NW>
   f6_sub<NW>(r.c[1], ts, t1, k);
 }
 
+// ------------------------------------------- inversion / frobenius ------
+// (RowTower.f2_inv, f6_inv, f12_inv, f12_frob, f12_cyclo_sqr: the same
+// products, adds and small multiples in the same order.)
+
+// 1/a via the norm: (a0 - a1 u) / (a0^2 + n a1^2), the base-field inverse
+// by fp_pow over the MSB-first bits of p - 2
+template <int NW>
+__device__ __noinline__ void f2_inv(F2<NW>& r, const F2<NW>& a, const uint8_t* inv_bits,
+                                    int inv_nbits, const FieldConsts& k, const TowerConsts& tc) {
+  uint32_t s0[NW], s1[NW];
+  fp_mul<NW>(s0, a.c[0], a.c[0], k);
+  fp_mul<NW>(s1, a.c[1], a.c[1], k);
+  fp_mul_small<NW>(s1, s1, tc.n, k);  // n == 1: a copy, as the reference
+  fp_add<NW>(s0, s0, s1, k);
+  fp_pow<NW>(s0, s0, inv_bits, inv_nbits, k);
+  fp_mul<NW>(s1, a.c[1], s0, k);
+  fp_mul<NW>(r.c[0], a.c[0], s0, k);
+  fp_neg<NW>(r.c[1], s1, k);
+}
+
+template <int NW>
+__device__ __noinline__ void f6_inv(F6<NW>& r, const F6<NW>& a, const uint8_t* inv_bits,
+                                    int inv_nbits, const FieldConsts& k, const TowerConsts& tc) {
+  F2<NW> c0, c1, c2, t, u;
+  f2_sqr<NW>(c0, a.c[0], k, tc);  // c0 = a0^2 - xi a1 a2
+  f2_mul<NW>(t, a.c[1], a.c[2], k, tc);
+  f2_mul_xi<NW>(t, t, k, tc);
+  f2_sub<NW>(c0, c0, t, k);
+  f2_sqr<NW>(c1, a.c[2], k, tc);  // c1 = xi a2^2 - a0 a1
+  f2_mul_xi<NW>(c1, c1, k, tc);
+  f2_mul<NW>(t, a.c[0], a.c[1], k, tc);
+  f2_sub<NW>(c1, c1, t, k);
+  f2_sqr<NW>(c2, a.c[1], k, tc);  // c2 = a1^2 - a0 a2
+  f2_mul<NW>(t, a.c[0], a.c[2], k, tc);
+  f2_sub<NW>(c2, c2, t, k);
+  // norm = a0 c0 + xi (a2 c1 + a1 c2)
+  f2_mul<NW>(t, a.c[2], c1, k, tc);
+  f2_mul<NW>(u, a.c[1], c2, k, tc);
+  f2_add<NW>(t, t, u, k);
+  f2_mul_xi<NW>(t, t, k, tc);
+  f2_mul<NW>(u, a.c[0], c0, k, tc);
+  f2_add<NW>(u, u, t, k);
+  f2_inv<NW>(u, u, inv_bits, inv_nbits, k, tc);
+  f2_mul<NW>(r.c[0], c0, u, k, tc);
+  f2_mul<NW>(r.c[1], c1, u, k, tc);
+  f2_mul<NW>(r.c[2], c2, u, k, tc);
+}
+
+template <int NW>
+__device__ __forceinline__ void f6_neg(F6<NW>& r, const F6<NW>& a, const FieldConsts& k) {
+  for (int j = 0; j < 3; ++j) f2_neg<NW>(r.c[j], a.c[j], k);
+}
+
+// 1/f = (a0 - a1 w) / (a0^2 - v a1^2)
+template <int NW>
+__device__ __noinline__ void f12_inv(F12<NW>& r, const F12<NW>& f, const uint8_t* inv_bits,
+                                     int inv_nbits, const FieldConsts& k,
+                                     const TowerConsts& tc) {
+  F6<NW> s0, s1;
+  f6_mul<NW>(s0, f.c[0], f.c[0], k, tc);  // f6_sqr
+  f6_mul<NW>(s1, f.c[1], f.c[1], k, tc);
+  f6_mul_v<NW>(s1, s1, k, tc);
+  f6_sub<NW>(s0, s0, s1, k);
+  f6_inv<NW>(s0, s0, inv_bits, inv_nbits, k, tc);
+  f6_mul<NW>(s1, f.c[1], s0, k, tc);
+  f6_mul<NW>(r.c[0], f.c[0], s0, k, tc);
+  f6_neg<NW>(r.c[1], s1, k);
+}
+
+// f^(p^n): conjugate every coefficient when n is odd, then scale
+// coefficient (h, j) of v^j w^h by gamma_n[h][j].  gam holds this n's 12
+// constants as Montgomery words, [h][j][c][NW] (a small device array).
+template <int NW>
+__device__ __noinline__ void f12_frob(F12<NW>& r, const F12<NW>& f, const uint32_t* gam, int n,
+                                      const FieldConsts& k, const TowerConsts& tc) {
+  for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < 3; ++j) {
+      F2<NW> c = f.c[h].c[j], g;
+      if (n & 1) fp_neg<NW>(c.c[1], c.c[1], k);
+      for (int q = 0; q < 2; ++q)
+        for (int w = 0; w < NW; ++w) g.c[q][w] = gam[((h * 3 + j) * 2 + q) * NW + w];
+      f2_mul<NW>(r.c[h].c[j], c, g, k, tc);
+    }
+}
+
+// One Fp4 squaring of the Granger-Scott form: (x + y s)^2 with s^2 = xi,
+// t0 = x^2 + xi y^2, t1 = (x + y)^2 - x^2 - y^2 = 2xy.
+template <int NW>
+__device__ __forceinline__ void fp4_sqr(F2<NW>& t0, F2<NW>& t1, const F2<NW>& x,
+                                        const F2<NW>& y, const FieldConsts& k,
+                                        const TowerConsts& tc) {
+  F2<NW> x2, y2, s;
+  f2_sqr<NW>(x2, x, k, tc);
+  f2_sqr<NW>(y2, y, k, tc);
+  f2_add<NW>(s, x, y, k);
+  f2_sqr<NW>(s, s, k, tc);
+  f2_mul_xi<NW>(t0, y2, k, tc);
+  f2_add<NW>(t0, x2, t0, k);
+  f2_sub<NW>(t1, s, x2, k);
+  f2_sub<NW>(t1, t1, y2, k);
+}
+
+// z' = 2 (t - z) + t (sign < 0) or 2 (t + z) + t (sign > 0)
+template <int NW>
+__device__ __forceinline__ void gs_combine(F2<NW>& r, const F2<NW>& t, const F2<NW>& z, int sign,
+                                           const FieldConsts& k) {
+  F2<NW> d;
+  if (sign < 0)
+    f2_sub<NW>(d, t, z, k);
+  else
+    f2_add<NW>(d, t, z, k);
+  f2_add<NW>(d, d, d, k);
+  f2_add<NW>(r, d, t, k);
+}
+
+// Granger-Scott squaring in the cyclotomic subgroup (unitary f only):
+// Fp4 pairs (a0, b1), (b0, a2), (a1, b2) of f = (a0, a1, a2) + (b0, b1, b2) w,
+// 9 f2 squarings.
+template <int NW>
+__device__ __noinline__ void f12_cyclo_sqr(F12<NW>& r, const F12<NW>& f, const FieldConsts& k,
+                                           const TowerConsts& tc) {
+  F2<NW> t00, t01, t10, t11, t20, t21, xt;
+  fp4_sqr<NW>(t00, t01, f.c[0].c[0], f.c[1].c[1], k, tc);
+  fp4_sqr<NW>(t10, t11, f.c[1].c[0], f.c[0].c[2], k, tc);
+  fp4_sqr<NW>(t20, t21, f.c[0].c[1], f.c[1].c[2], k, tc);
+  f2_mul_xi<NW>(xt, t21, k, tc);
+  F12<NW> o;
+  gs_combine<NW>(o.c[0].c[0], t00, f.c[0].c[0], -1, k);  // z0
+  gs_combine<NW>(o.c[0].c[1], t10, f.c[0].c[1], -1, k);  // z4
+  gs_combine<NW>(o.c[0].c[2], t20, f.c[0].c[2], -1, k);  // z3
+  gs_combine<NW>(o.c[1].c[0], xt, f.c[1].c[0], 1, k);    // z2
+  gs_combine<NW>(o.c[1].c[1], t01, f.c[1].c[1], 1, k);   // z1
+  gs_combine<NW>(o.c[1].c[2], t11, f.c[1].c[2], 1, k);   // z5
+  r = o;
+}
+
 // f * line: M-twist l0 = A v^2, l1 = (D-B) + (-C) v; D-twist l0 = A,
 // l1 = (-C) + (D-B) v; w-Karatsuba, 14 (M) / 13 (D) f2 muls
 template <int NW>
@@ -401,16 +538,13 @@ __device__ __forceinline__ void tail_const(F2<NW>& r, const TowerConsts& tc, int
   fp_copy<NW>(r.c[1], tc.tail[which][1]);
 }
 
-// One lane of _miller_conj_tail: the Miller loop over the loop bits
-// (MSB-first, leading one skipped), conjugation when the loop parameter is
-// negative, and on BN curves the chord lines through Q1 = pi(Q) and
-// Q2 = -pi^2(Q).
+// One lane of _miller_body: f and T after the Miller loop over the loop
+// bits (MSB-first, leading one skipped), from T = (Qx : Qy : 1), f = 1.
 template <int NW>
-__device__ __noinline__ void miller_lane(F12<NW>& f, const uint32_t* xP, const uint32_t* yP,
-                                         const F2<NW>& Qx, const F2<NW>& Qy,
+__device__ __noinline__ void miller_loop(F12<NW>& f, G2Proj<NW>& T, const uint32_t* xP,
+                                         const uint32_t* yP, const F2<NW>& Qx, const F2<NW>& Qy,
                                          const uint8_t* bits, int nbits, const FieldConsts& k,
                                          const TowerConsts& tc) {
-  G2Proj<NW> T;
   Line<NW> l;
   T.x = Qx;
   T.y = Qy;
@@ -426,6 +560,19 @@ __device__ __noinline__ void miller_lane(F12<NW>& f, const uint32_t* xP, const u
       f12_sparse_mul<NW>(f, f, l, k, tc);
     }
   }
+}
+
+// One lane of _miller_conj_tail: the Miller loop, conjugation when the loop
+// parameter is negative, and on BN curves the chord lines through
+// Q1 = pi(Q) and Q2 = -pi^2(Q).
+template <int NW>
+__device__ __noinline__ void miller_lane(F12<NW>& f, const uint32_t* xP, const uint32_t* yP,
+                                         const F2<NW>& Qx, const F2<NW>& Qy,
+                                         const uint8_t* bits, int nbits, const FieldConsts& k,
+                                         const TowerConsts& tc) {
+  G2Proj<NW> T;
+  Line<NW> l;
+  miller_loop<NW>(f, T, xP, yP, Qx, Qy, bits, nbits, k, tc);
   if (tc.conj_end) f12_conj<NW>(f, k);
   if (tc.bn_tail) {
     if (tc.conj_end) f2_neg<NW>(T.y, T.y, k);

@@ -122,7 +122,7 @@ def _f2_mul(a: Fp2Int, b: Fp2Int, p: int, beta: int) -> Fp2Int:
 def _f2_inv(a: Fp2Int, p: int, beta: int) -> Fp2Int:
     a0, a1 = a
     norm = (a0 * a0 - beta * a1 * a1) % p
-    ninv = pow(norm, p - 2, p)
+    ninv = pow(norm, -1, p) if norm else 0  # = norm^(p-2): Euclid, ~10x faster
     return (a0 * ninv % p, (-a1 * ninv) % p)
 
 

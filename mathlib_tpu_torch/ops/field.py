@@ -70,6 +70,14 @@ def limbs_to_ints(arr: np.ndarray) -> list:
     ]
 
 
+def bits_of(e: int, n: int = None) -> np.ndarray:
+    """Little-endian bit array of e >= 0 (length n, or minimal)."""
+    n = max(1, e.bit_length()) if n is None else n
+    if e < 0 or e >= 1 << n:
+        raise ValueError(f"{e} does not fit in {n} bits")
+    return np.array([(e >> i) & 1 for i in range(n)], dtype=np.uint32)
+
+
 def _shift_in(c: Tensor, fill: int = 0) -> Tensor:
     """out[..., k, :] = c[..., k-1, :]; out[..., 0, :] = fill (limb axis -2)."""
     return torch.nn.functional.pad(c[..., :-1, :], (0, 0, 1, 0), value=fill)
@@ -158,6 +166,11 @@ class FpCtx:
         self.r2 = (self.R * self.R) % p
         self.r2_limbs = col(self.r2)
         self.one_mont = col(self.r_mod_p)  # 1 in Montgomery form
+        self._inv_bits = bits_of(p - 2, self.nbits)
+        # sqrt exponent for p = 3 mod 4 (BLS12-381, BN254, FP256BN); BLS12-377
+        # has p = 1 mod 4 and has none
+        self.sqrt_bits = bits_of((p + 1) // 4, self.nbits) if p % 4 == 3 else None
+        self._dev: dict = {}  # device copies of exponent bits (fp_cuda.fp_pow)
 
     # ------------------------------------------------------------ host <-> --
     def encode(self, x: Union[int, Sequence[int], np.ndarray]) -> Tensor:
@@ -278,3 +291,54 @@ class FpCtx:
     def select(self, mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
         """mask ? a : b, mask shaped (..., B)."""
         return torch.where(mask.unsqueeze(-2), a, b)
+
+    # ------------------------------------------------------ exponentiation --
+    def pow_bits(self, a: Tensor, bits: np.ndarray) -> Tensor:
+        """a**e, ``bits`` the little-endian bit array of e: the ``fp_pow``
+        kernel on a card (one launch for the whole chain), its plain version
+        on the CPU."""
+        from .kernels import fp_cuda
+
+        return fp_cuda.fp_pow(self, a, np.asarray(bits)[::-1])
+
+    def inv(self, a: Tensor) -> Tensor:
+        """a^(p-2): the inverse, 0 for 0."""
+        return self.pow_bits(a, self._inv_bits)
+
+    BATCH_INV_CUTOFF = 2048  # lanes of batch_inv's one pow chain, at most
+
+    def batch_inv(self, a: Tensor) -> Tensor:
+        """Elementwise inverse along the lane axis by Montgomery's trick: a
+        product tree up to at most ``BATCH_INV_CUTOFF`` lanes, ONE pow chain
+        on that level, and the tree back down (~3N products instead of N
+        chains).  Zeros map to zero.  (..., L, N) in and out.  The products
+        go to the ``mont_mul`` kernel on a card, as the reference's to its
+        Pallas product."""
+        from .kernels import fp_cuda
+
+        N = a.shape[-1]
+        if N == 1:
+            return self.inv(a)
+        nonzero = ~self.is_zero(a)
+        one = self.one_mont.to(a.device, torch.int32)
+        cur = self.select(nonzero, a, one.expand(a.shape))
+        P2 = 1 << (N - 1).bit_length()
+        if P2 != N:
+            cur = torch.cat([cur, one.expand(a.shape[:-1] + (P2 - N,))], dim=-1)
+        levels = [cur]
+        while levels[-1].shape[-1] > min(self.BATCH_INV_CUTOFF, P2):
+            c = levels[-1]
+            levels.append(fp_cuda.mont_mul(self, c[..., 0::2], c[..., 1::2]))
+        inv = self.inv(levels[-1].contiguous())
+        for c in reversed(levels[:-1]):  # child inverse = parent inverse * sibling
+            m = c.shape[-1]
+            sibling = c.reshape(c.shape[:-1] + (m // 2, 2)).flip(-1).reshape(c.shape)
+            inv = fp_cuda.mont_mul(self, inv.repeat_interleave(2, dim=-1), sibling)
+        return self.select(nonzero, inv[..., :N], torch.zeros_like(a))
+
+    def sqrt(self, a: Tensor) -> Tensor:
+        """a^((p+1)/4) for p = 3 mod 4; the caller checks that it squares
+        back to a."""
+        if self.sqrt_bits is None:
+            raise ValueError(f"{self.name}: p % 4 != 3, no sqrt by one exponentiation")
+        return self.pow_bits(a, self.sqrt_bits)

@@ -1,5 +1,5 @@
-"""Affine G2 points on the sextic twist E'(Fp2) to and from limb tensors (port of
-``mathlib_tpu/ops/g2.py``: only the codecs, the part the pairing check needs).
+"""G2 points on the sextic twist E'(Fp2) as limb tensors (port of
+``mathlib_tpu/ops/g2.py``: the codecs and ``neg``, the part the pairing needs).
 
 A point batch is ``(..., 3, 2, L, B)``, stacking the (X, Y, Z) Fp2
 coordinates in Montgomery form; an affine point encodes with Z = 1 and
@@ -25,6 +25,12 @@ class G2Ctx:
         self.device = _device(device)
         self.fp = FpCtx(spec.p, self.device, spec.name)
         self.host = get_tower(spec)
+
+    def neg(self, P: Tensor) -> Tensor:
+        """-P for projective (..., 3, 2, L, B) points: Y negated."""
+        out = P.clone()
+        out[..., 1, :, :, :] = self.fp.neg(P[..., 1, :, :, :])
+        return out
 
     def encode_points(self, pts) -> Tensor:
         """List of N affine host points ((x0, x1), (y0, y1)) or None ->

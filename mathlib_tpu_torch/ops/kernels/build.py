@@ -59,8 +59,21 @@ SIGNATURES = {
     "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     # in, out, half, L, consts, tower ints, tail words, stream
     "mlt_f12_pair_mul": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # xP, yP, Qx, Qy, bits, nbits, f out, T out, lanes, L, consts, tower ints,
+    # tail words, stream
+    "mlt_pairing_miller_ft": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
+    # tail words, stream
+    "mlt_pairing_add_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # base, bits, nbits, cyclo, out, lanes, L, consts, tower ints, tail words, stream
+    "mlt_f12_pow": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    # f in, inverse bits, n, x bits, n, x < 0, gammas, out, lanes, L, consts,
+    # tower ints, tail words, stream
+    "mlt_final_exp": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
     # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, stream
     "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
+    # a, bits, nbits, out, rows, n, L, consts, stream
+    "mlt_fp_pow": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
 }
 
 

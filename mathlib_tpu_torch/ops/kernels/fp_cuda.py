@@ -1,19 +1,27 @@
-"""Batched Montgomery product for Hopper (port of ``mathlib_tpu/ops/kernels/fp_pallas.py``).
+"""Base-field kernels for Hopper (port of ``mathlib_tpu/ops/kernels/fp_pallas.py``
+and of ``pairing_pallas.py _fp_pow_kernel``).
 
-One kernel, CUDA C++ in ``csrc/fp_kernels.cu``: ``mont_mul`` replaces
-``fp_pallas._mont_mul_kernel`` / ``mont_mul_pallas``, which the reference's
-``FpCtx.mont_mul`` reaches on a TPU.  On the pairing-check path it is the
-Montgomery entry of the encoded pairs (``FpCtx.to_mont``).
+Two kernels, CUDA C++ in ``csrc/fp_kernels.cu``:
 
-On a CPU tensor the wrapper returns its plain version (``FpCtx.mont_mul``).
-On a CUDA tensor it launches the kernel on the current stream, adds one to
-its ``launches`` count, and raises if the launch fails; it never falls back.
+* ``mont_mul`` replaces ``fp_pallas._mont_mul_kernel`` / ``mont_mul_pallas``,
+  which the reference's ``FpCtx.mont_mul`` reaches on a TPU.  On the
+  pairing paths it is the Montgomery entry of the encoded pairs
+  (``FpCtx.to_mont``).
+* ``fp_pow`` replaces ``pairing_pallas._fp_pow_kernel`` / ``fp_pow_pallas``,
+  behind ``FpCtx.pow_bits`` (``inv``, ``batch_inv``, ``sqrt``); on the BN254
+  pairing it is the base-field inverse of the final exponentiation's easy
+  part.
+
+On a CPU tensor each wrapper returns its plain version.  On a CUDA tensor it
+launches the kernel on the current stream, adds one to its ``launches``
+count, and raises if the launch fails; it never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..field import FpCtx
@@ -60,7 +68,58 @@ def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
     return out.reshape(a.shape)
 
 
-KERNELS = (mont_mul,)
+def fp_pow_plain(fp: FpCtx, a: Tensor, bits) -> Tensor:
+    """a**e for (..., L, B) limbs, e's MSB-first bits: square, then multiply
+    by a at each one bit (``_fp_pow_kernel``, and ``RowTower.fp_pow`` in the
+    reference's final exp; the reference computes the product at every bit
+    and selects it, which gives the same values).  The square is a
+    Montgomery product of acc with itself: REDC's output depends on the
+    product alone, so it equals ``RowCtx.sqr``."""
+    acc = fp.one_mont.to(a.device).expand(a.shape)
+    a = a.to(torch.int64)
+    for bit in bits:
+        acc = fp._mont_mul64(acc, acc)
+        if bit:
+            acc = fp._mont_mul64(acc, a)
+    return acc.to(torch.int32)
+
+
+def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
+    """a**e for (..., L, B) limb tensors, e's MSB-first bits (copied to the
+    card once per pattern, so one build serves every exponent).  The result
+    is contiguous, shaped as a."""
+    if a.device.type == "cpu":
+        return fp_pow_plain(fp, a, bits)
+    L = fp.L
+    if L not in (16, 24):
+        raise ValueError(f"the CUDA fp_pow kernel takes L = 16 or 24 limbs, got L={L}")
+    if a.device.type != "cuda":
+        raise ValueError(f"fp_pow runs on CPU (plain) or CUDA tensors, got {a.device}")
+    if a.dtype != torch.int32:
+        raise TypeError("limb tensors must be torch.int32")
+    if a.dim() < 2 or a.shape[-2] != L:
+        raise ValueError(f"expected (..., {L}, B) limbs, got {tuple(a.shape)}")
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    key = ("pow_bits", str(a.device), bits.tobytes())
+    if key not in fp._dev:
+        fp._dev[key] = torch.from_numpy(bits).to(a.device)
+    dev_bits = fp._dev[key]
+    n = a.shape[-1]
+    a3 = a.reshape(-1, L, n).contiguous()
+    out = torch.empty_like(a3)
+    rows = a3.shape[0]
+    if rows * n >= 1 << 31:
+        raise ValueError("the kernel indexes elements with a 32-bit int")
+    if rows * n:
+        with torch.cuda.device(a.device):
+            build.launch("mlt_fp_pow", a3.data_ptr(), dev_bits.data_ptr(), len(bits),
+                         out.data_ptr(), rows, n, L, ctypes.addressof(build.consts(fp.p, L)),
+                         build.stream(a))
+        fp_pow.launches += 1
+    return out.reshape(a.shape)
+
+
+KERNELS = (mont_mul, fp_pow)
 
 
 def reset_launches() -> None:

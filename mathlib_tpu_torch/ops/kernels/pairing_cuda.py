@@ -1,8 +1,8 @@
-"""Pairing-product kernels for Hopper (port of the fused Miller + product kernels of
-``mathlib_tpu/ops/kernels/pairing_pallas.py``).
+"""Pairing kernels for Hopper (port of the fused Miller, product, step, pow and
+final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 
-Two kernels, CUDA C++ in ``csrc/pairing_kernels.cu`` over ``csrc/tower_rows.cuh``,
-each behind a wrapper here:
+CUDA C++ in ``csrc/pairing_kernels.cu`` over ``csrc/tower_rows.cuh``, each
+kernel behind a wrapper here:
 
 ===================  =========================================  ==============================
 wrapper              computes                                   replaces (TPU kernel)
@@ -14,16 +14,27 @@ wrapper              computes                                   replaces (TPU ke
                                                                 ``_mask_pad_to_one``)
 ``f12_seg_product``  product of each aligned segment of ``seg``  their rotation product
                      lanes (a tree, one launch per level)       (``_product_all_positions``)
+``miller_ft``        per lane: (f, T) after the Miller loop     ``_miller_kernel``
+                                                                (``miller_pallas``)
+``add_step``         per lane: (f l_{T,Q}(P), T + Q)            ``_add_step_kernel``
+                                                                (``add_step_pallas``)
+``f12_pow``          per lane: f^e, MSB-first bits, optional    ``_f12_pow_kernel``
+                     cyclotomic squaring                        (``f12_pow_pallas``)
+``final_exp``        per lane: the BLS12 final exponentiation   ``_final_exp_kernel``
+                     (easy part with the Fp12 inverse, x-chain  (``final_exp_pallas``)
+                     hard part)
 ===================  =========================================  ==============================
 
-Together they replace ``_pairing_prod_kernel`` (``pairing_product_pallas``)
-and ``_pairing_prod_seg_kernel`` (``pairing_products_pallas``).  Each
-wrapper takes a ``MillerCfg`` (the curve's ``RowTower``, loop bits, and
-tail constants) and int32 limb tensors.  On a CPU tensor it returns its plain
-PyTorch version (``*_plain``, on ``tower_rows.RowTower``, bit-equal to the
-reference's kernel body).  On a CUDA tensor it launches its kernel on the
-current stream, adds one to its ``launches`` count per launch, and raises if
-a launch fails; it never falls back.
+``miller_lanes`` and ``f12_seg_product`` together replace
+``_pairing_prod_kernel`` (``pairing_product_pallas``) and
+``_pairing_prod_seg_kernel`` (``pairing_products_pallas``).  Each wrapper
+takes a config of the curve (``MillerCfg``: loop bits and tail, beside the
+``TowerCfg`` that ``f12_pow`` and ``final_exp`` take: the ``RowTower``,
+Frobenius constants and x) and int32 limb tensors.  On a CPU tensor it
+returns its plain PyTorch version (``*_plain``, on ``tower_rows.RowTower``,
+bit-equal to the reference's kernel body).  On a CUDA tensor it launches its
+kernel on the current stream, adds one to its ``launches`` count per launch,
+and raises if a launch fails; it never falls back.
 """
 
 from __future__ import annotations
@@ -42,18 +53,59 @@ from .tower_rows import MulBatch, RowTower
 Tensor = torch.Tensor
 
 
+def msb_bits(e: int) -> np.ndarray:
+    """The bits of e > 0, most significant first (uint8)."""
+    return np.array([int(b) for b in bin(e)[2:]], dtype=np.uint8)
+
+
+@dataclass
+class TowerCfg:
+    """What the tower kernels (``f12_pow``, ``final_exp``) need of one curve:
+    its in-kernel tower, the Frobenius constants gamma_1 and gamma_2 as
+    (2, 2, 3, 2, L, 1) Montgomery limbs (``gammas[n - 1]`` laid out as an
+    f12: its coefficient (h, j) scales coefficient (h, j) of a^(p^n)), and
+    the curve parameter x."""
+
+    tower: RowTower
+    gammas: Optional[Tensor] = None
+    x: Optional[int] = None
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def fp(self) -> FpCtx:
+        return self.tower.fp
+
+    def gamma_limbs(self, n: int, device) -> Tensor:
+        """(2, 3, 2, L, 1) int64 Montgomery limbs of gamma_n."""
+        return self.gammas[n - 1].to(device, torch.int64)
+
+    @property
+    def inv_bits(self) -> np.ndarray:
+        """MSB-first bits of p - 2: the exponent of the base-field inverse."""
+        return msb_bits(self.fp.p - 2)
+
+    @property
+    def x_bits(self) -> np.ndarray:
+        """MSB-first bits of |x|: the exponent of the hard part's x-chains."""
+        return msb_bits(abs(self.x))
+
+
 @dataclass
 class MillerCfg:
-    """What the pairing kernels need of one curve: its in-kernel tower, the
+    """What the Miller kernels need of one curve: its ``TowerCfg``, the
     Miller loop's bits (MSB-first, leading one skipped), whether the loop
     parameter is negative, and the BN tail's twist Frobenius constants
     (cx1, cy1, cx2, cy2) as host Fp2 pairs, or None on BLS12 curves."""
 
-    tower: RowTower
+    tc: TowerCfg
     bits: np.ndarray
     conj_end: bool
     tail: Optional[Tuple] = None
     _dev: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def tower(self) -> RowTower:
+        return self.tc.tower
 
     @property
     def fp(self) -> FpCtx:
@@ -65,6 +117,19 @@ class MillerCfg:
 
 
 # ------------------------------------------------------------ plain versions --
+def _miller_loop(tw: RowTower, bits, x: Tensor, y: Tensor, qx: Tensor, qy: Tensor):
+    """(f, T), int64, after the Miller loop over ``bits`` (``_miller_body``)."""
+    f = tw.f12_one_like(x.shape[-1], x.device)
+    T = torch.stack([qx, qy, f[0, 0]], dim=-4)  # f[0, 0]: the f2 one
+    for bit in bits:
+        line, T = tw.dbl_step(T, x, y)
+        f = tw.f12_sparse_mul(tw.f12_sqr(f), *line)
+        if bit:
+            line, T = tw.add_step(T, qx, qy, x, y)
+            f = tw.f12_sparse_mul(f, *line)
+    return f, T
+
+
 def miller_lanes_plain(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
                        n: int) -> Tensor:
     """(2, 3, 2, L, B) int32: the Miller value of lanes < n, one elsewhere."""
@@ -73,15 +138,8 @@ def miller_lanes_plain(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: T
     m = max(0, min(n, B))
     x, y, qx, qy = (t[..., :m].to(torch.int64) for t in (xP, yP, Qx, Qy))
     f = tw.f12_one_like(m, xP.device)
-    one2 = f[0, 0]  # (2, L, m): the f2 one
-    T = torch.stack([qx, qy, one2], dim=-4)
     if m:
-        for bit in cfg.bits:
-            line, T = tw.dbl_step(T, x, y)
-            f = tw.f12_sparse_mul(tw.f12_sqr(f), *line)
-            if bit:
-                line, T = tw.add_step(T, qx, qy, x, y)
-                f = tw.f12_sparse_mul(f, *line)
+        f, T = _miller_loop(tw, cfg.bits, x, y, qx, qy)
         if cfg.conj_end:
             f = tw.f12_conj(f)
         if cfg.tail is not None:
@@ -118,17 +176,75 @@ def _check_seg(f: Tensor, seg: int) -> None:
         raise ValueError(f"seg must be a power of two dividing the {B} lanes, got {seg}")
 
 
+def miller_ft_plain(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor):
+    """(f (2, 3, 2, L, B), T (3, 2, L, B)) int32 after the Miller loop."""
+    f, T = _miller_loop(cfg.tower, cfg.bits, *(t.to(torch.int64) for t in (xP, yP, Qx, Qy)))
+    return f.to(torch.int32), T.to(torch.int32)
+
+
+def add_step_plain(cfg: MillerCfg, f: Tensor, T: Tensor, Qx: Tensor, Qy: Tensor, xP: Tensor,
+                   yP: Tensor):
+    """(f * l_{T,Q}(P), T + Q), int32."""
+    tw = cfg.tower
+    line, T = tw.add_step(*(t.to(torch.int64) for t in (T, Qx, Qy, xP, yP)))
+    f = tw.f12_sparse_mul(f.to(torch.int64), *line)
+    return f.to(torch.int32), T.to(torch.int32)
+
+
+def _f12_pow64(tw: RowTower, base: Tensor, bits, cyclo: bool) -> Tensor:
+    acc = tw.f12_one_like(base.shape[-1], base.device)
+    sqr = tw.f12_cyclo_sqr if cyclo else tw.f12_sqr
+    for bit in bits:
+        acc = sqr(acc)
+        if bit:
+            acc = tw.f12_mul(acc, base)
+    return acc
+
+
+def f12_pow_plain(cfg: TowerCfg, f: Tensor, bits, cyclo: bool = False) -> Tensor:
+    """f^e per lane, e's MSB-first bits; cyclotomic squaring when ``cyclo``
+    (valid for unitary f only)."""
+    return _f12_pow64(cfg.tower, f.to(torch.int64), bits, cyclo).to(torch.int32)
+
+
+def final_exp_plain(cfg: TowerCfg, f: Tensor, inv_bits, x_bits, x_neg: bool) -> Tensor:
+    """The BLS12 final exponentiation of each lane (``_final_exp_body``):
+    the easy part t = conj(f) / f, f1 = frob^2(t) t, with the inverse chain
+    over ``inv_bits``; the hard part with the x-chains over ``x_bits``,
+    conjugated when ``x_neg``."""
+    tw = cfg.tower
+    g1, g2 = (cfg.gamma_limbs(n, f.device) for n in (1, 2))
+    f = f.to(torch.int64)
+    t = tw.f12_mul(tw.f12_conj(f), tw.f12_inv(f, inv_bits))
+    f1 = tw.f12_mul(tw.f12_frob(t, g2, 2), t)
+
+    def exp_x(a):
+        r = _f12_pow64(tw, a, x_bits, True)
+        return tw.f12_conj(r) if x_neg else r
+
+    def exp_xm1(a):
+        return tw.f12_mul(exp_x(a), tw.f12_conj(a))
+
+    y = exp_xm1(exp_xm1(f1))
+    y = tw.f12_mul(exp_x(y), tw.f12_frob(y, g1, 1))
+    y = tw.f12_mul(tw.f12_mul(exp_x(exp_x(y)), tw.f12_frob(y, g2, 2)), tw.f12_conj(y))
+    f3 = tw.f12_mul(tw.f12_sqr(f1), f1)
+    return tw.f12_mul(y, f3).to(torch.int32)
+
+
 # ------------------------------------------------------------------ launches --
-def _tower_args(cfg: MillerCfg):
-    """(int32[5], uint32[4*2*NW]) ctypes arrays: tower flags and tail words."""
+def _tower_args(cfg):
+    """(int32[5], uint32[4*2*NW]) ctypes arrays: tower flags and tail words
+    (no conjugation and no tail for a ``TowerCfg``)."""
     key = "tower_args"
     if key not in cfg._dev:
         tw, nw = cfg.tower, cfg.fp.L // 2
-        ints = [tw.n, tw.xi0, int(tw.twist == "M"), int(cfg.conj_end), int(cfg.tail is not None)]
+        conj_end, tail = (cfg.conj_end, cfg.tail) if isinstance(cfg, MillerCfg) else (False, None)
+        ints = [tw.n, tw.xi0, int(tw.twist == "M"), int(conj_end), int(tail is not None)]
         words = [0] * (8 * nw)
-        if cfg.tail is not None:
+        if tail is not None:
             p, R = cfg.fp.p, cfg.fp.R
-            for a, pair in enumerate(cfg.tail):
+            for a, pair in enumerate(tail):
                 for c, v in enumerate(pair):
                     m = v % p * R % p
                     for j in range(nw):
@@ -137,14 +253,28 @@ def _tower_args(cfg: MillerCfg):
     return cfg._dev[key]
 
 
-def _bits_on(cfg: MillerCfg, device) -> Tensor:
-    key = ("bits", str(device))
+def _bits_on(cfg, device, bits=None) -> Tensor:
+    """A bit array (the loop bits by default) as a uint8 tensor on the card,
+    copied there once per device and bit pattern."""
+    bits = np.ascontiguousarray(cfg.bits if bits is None else bits, dtype=np.uint8)
+    key = ("bits", str(device), bits.tobytes())
     if key not in cfg._dev:
-        cfg._dev[key] = torch.from_numpy(np.asarray(cfg.bits, dtype=np.uint8)).to(device)
+        cfg._dev[key] = torch.from_numpy(bits).to(device)
     return cfg._dev[key]
 
 
-def _check(cfg: MillerCfg, *tensors: Tensor, shapes) -> None:
+def _gammas_on(cfg: TowerCfg, device) -> Tensor:
+    """gamma_1 and gamma_2 as Montgomery words [n-1][h][j][c][NW] on the card:
+    the limbs of ``cfg.gammas``, two to a 32-bit word."""
+    key = ("gammas", str(device))
+    if key not in cfg._dev:
+        limbs = cfg.gammas[..., 0].cpu().numpy().astype(np.uint32)
+        words = limbs[..., 0::2] | limbs[..., 1::2] << 16
+        cfg._dev[key] = torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(device)
+    return cfg._dev[key]
+
+
+def _check(cfg, *tensors: Tensor, shapes) -> None:
     """Refuse what the kernels do not take."""
     L = cfg.fp.L
     if L not in (16, 24):
@@ -157,12 +287,21 @@ def _check(cfg: MillerCfg, *tensors: Tensor, shapes) -> None:
             raise ValueError(f"pairing kernels run on CPU (plain) or CUDA tensors, got {t.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"limb tensors must be torch.int32, got {t.dtype}")
-        if tuple(t.shape) != want:
-            raise ValueError(f"expected shape {want}, got {tuple(t.shape)}")
+        if tuple(t.shape) != want or t.shape[-2] != L:
+            raise ValueError(f"expected shape {want} with L = {L}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("limb tensors must be contiguous")
     if tensors[0].shape[-1] >= 1 << 31:
         raise ValueError("the kernels index lanes with a 32-bit int")
+
+
+def _launch(name: str, like: Tensor, cfg, *args) -> None:
+    """Launch ``name`` on ``like``'s card with the curve's constants last."""
+    ints, tail = _tower_args(cfg)
+    L = cfg.fp.L
+    with torch.cuda.device(like.device):
+        build.launch(name, *args, L, ctypes.addressof(build.consts(cfg.fp.p, L)),
+                     ctypes.addressof(ints), ctypes.addressof(tail), build.stream(like))
 
 
 def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
@@ -177,13 +316,9 @@ def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
     out = torch.empty((2, 3, 2, L, B), dtype=torch.int32, device=xP.device)
     if B:
         bits = _bits_on(cfg, xP.device)
-        ints, tail = _tower_args(cfg)
-        with torch.cuda.device(xP.device):
-            build.launch("mlt_pairing_miller_lanes", xP.data_ptr(), yP.data_ptr(),
-                         Qx.data_ptr(), Qy.data_ptr(), bits.data_ptr(), len(cfg.bits),
-                         max(0, min(n, B)), out.data_ptr(), B, L,
-                         ctypes.addressof(build.consts(cfg.fp.p, L)), ctypes.addressof(ints),
-                         ctypes.addressof(tail), build.stream(xP))
+        _launch("mlt_pairing_miller_lanes", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
+                Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), max(0, min(n, B)),
+                out.data_ptr(), B)
         miller_lanes.launches += 1
     return out
 
@@ -197,20 +332,91 @@ def f12_seg_product(cfg: MillerCfg, f: Tensor, seg: int) -> Tensor:
     L, B = f.shape[-2:]
     _check(cfg, f, shapes=[(2, 3, 2, L, B)])
     _check_seg(f, seg)
-    ints, tail = _tower_args(cfg)
-    with torch.cuda.device(f.device):
-        while f.shape[-1] > B // seg:
-            half = f.shape[-1] // 2
-            out = torch.empty((2, 3, 2, L, half), dtype=torch.int32, device=f.device)
-            build.launch("mlt_f12_pair_mul", f.data_ptr(), out.data_ptr(), half, L,
-                         ctypes.addressof(build.consts(cfg.fp.p, L)), ctypes.addressof(ints),
-                         ctypes.addressof(tail), build.stream(f))
-            f12_seg_product.launches += 1
-            f = out
+    while f.shape[-1] > B // seg:
+        half = f.shape[-1] // 2
+        out = torch.empty((2, 3, 2, L, half), dtype=torch.int32, device=f.device)
+        _launch("mlt_f12_pair_mul", f, cfg, f.data_ptr(), out.data_ptr(), half)
+        f12_seg_product.launches += 1
+        f = out
     return f
 
 
-KERNELS = (miller_lanes, f12_seg_product)
+def miller_ft(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor):
+    """(f (2, 3, 2, L, B), T (3, 2, L, B)) after the Miller loop of each lane
+    of affine G1 (xP, yP: (L, B)) and G2 (Qx, Qy: (2, L, B)) points in
+    Montgomery form; no conjugation and no BN tail (the caller's)."""
+    if xP.device.type == "cpu":
+        return miller_ft_plain(cfg, xP, yP, Qx, Qy)
+    L, B = cfg.fp.L, xP.shape[-1]
+    _check(cfg, xP, yP, Qx, Qy, shapes=[(L, B), (L, B), (2, L, B), (2, L, B)])
+    f = torch.empty((2, 3, 2, L, B), dtype=torch.int32, device=xP.device)
+    T = torch.empty((3, 2, L, B), dtype=torch.int32, device=xP.device)
+    if B:
+        bits = _bits_on(cfg, xP.device)
+        _launch("mlt_pairing_miller_ft", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
+                Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), f.data_ptr(), T.data_ptr(), B)
+        miller_ft.launches += 1
+    return f, T
+
+
+def add_step(cfg: MillerCfg, f: Tensor, T: Tensor, Qx: Tensor, Qy: Tensor, xP: Tensor,
+             yP: Tensor):
+    """(f * l_{T,Q}(P), T + Q) per lane: one Miller addition step through the
+    affine G2 points (Qx, Qy), the line evaluated at (xP, yP)."""
+    if f.device.type == "cpu":
+        return add_step_plain(cfg, f, T, Qx, Qy, xP, yP)
+    L, B = cfg.fp.L, f.shape[-1]
+    _check(cfg, f, T, Qx, Qy, xP, yP, shapes=[(2, 3, 2, L, B), (3, 2, L, B), (2, L, B),
+                                             (2, L, B), (L, B), (L, B)])
+    f_out, T_out = torch.empty_like(f), torch.empty_like(T)
+    if B:
+        _launch("mlt_pairing_add_step", f, cfg, f.data_ptr(), T.data_ptr(), Qx.data_ptr(),
+                Qy.data_ptr(), xP.data_ptr(), yP.data_ptr(), f_out.data_ptr(), T_out.data_ptr(),
+                B)
+        add_step.launches += 1
+    return f_out, T_out
+
+
+def f12_pow(cfg: TowerCfg, f: Tensor, bits, cyclo: bool = False) -> Tensor:
+    """f^e for each lane of f (2, 3, 2, L, B), e's MSB-first bits (one build
+    serves every exponent); Granger-Scott squaring when ``cyclo`` (unitary
+    f only)."""
+    if f.device.type == "cpu":
+        return f12_pow_plain(cfg, f, bits, cyclo)
+    L, B = cfg.fp.L, f.shape[-1]
+    _check(cfg, f, shapes=[(2, 3, 2, L, B)])
+    out = torch.empty_like(f)
+    if B:
+        dev_bits = _bits_on(cfg, f.device, bits)
+        _launch("mlt_f12_pow", f, cfg, f.data_ptr(), dev_bits.data_ptr(), len(dev_bits),
+                int(cyclo), out.data_ptr(), B)
+        f12_pow.launches += 1
+    return out
+
+
+def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None) -> Tensor:
+    """The BLS12 final exponentiation (factor-3 chain) of each lane of f
+    (2, 3, 2, L, B).  The inverse chain runs over ``inv_bits`` (default: p - 2)
+    and the x-chains over ``x_bits`` (default: |x|), conjugated when ``x_neg``
+    (default: x < 0); all three are inputs of the kernel."""
+    inv_bits = cfg.inv_bits if inv_bits is None else inv_bits
+    x_bits = cfg.x_bits if x_bits is None else x_bits
+    x_neg = cfg.x < 0 if x_neg is None else x_neg
+    if f.device.type == "cpu":
+        return final_exp_plain(cfg, f, inv_bits, x_bits, x_neg)
+    L, B = cfg.fp.L, f.shape[-1]
+    _check(cfg, f, shapes=[(2, 3, 2, L, B)])
+    out = torch.empty_like(f)
+    if B:
+        ib, xb = _bits_on(cfg, f.device, inv_bits), _bits_on(cfg, f.device, x_bits)
+        _launch("mlt_final_exp", f, cfg, f.data_ptr(), ib.data_ptr(), len(ib), xb.data_ptr(),
+                len(xb), int(bool(x_neg)), _gammas_on(cfg, f.device).data_ptr(), out.data_ptr(),
+                B)
+        final_exp.launches += 1
+    return out
+
+
+KERNELS = (miller_lanes, f12_seg_product, miller_ft, add_step, f12_pow, final_exp)
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ from typing import Callable, List
 import torch
 
 from ..field import FpCtx
+from . import fp_cuda
 
 Tensor = torch.Tensor
 
@@ -116,10 +117,8 @@ class RowTower:
         """Queue a Karatsuba f2 mul (3 products); returns resolver(outs)."""
         a0, a1 = _c(a, 0, -3), _c(a, 1, -3)
         b0, b1 = _c(b, 0, -3), _c(b, 1, -3)
-        i = mb.push(
-            _stack([a0, a1, self.add(a0, a1)], -3),
-            _stack([b0, b1, self.add(b0, b1)], -3),
-        )
+        sa, sb = self.add(_stack([a0, b0], 0), _stack([a1, b1], 0))  # a0 + a1, b0 + b1
+        i = mb.push(_stack([a0, a1, sa], -3), _stack([b0, b1, sb], -3))
 
         def res(o):
             t0, t1, t2 = (_c(o[i], k, -3) for k in range(3))
@@ -161,8 +160,10 @@ class RowTower:
         """Karatsuba: 6 independent f2 muls."""
         a0, a1, a2 = (_c(a, k, -4) for k in range(3))
         b0, b1, b2 = (_c(b, k, -4) for k in range(3))
-        sa = self.add(_stack([a1, a0, a0], -4), _stack([a2, a1, a2], -4))
-        sb = self.add(_stack([b1, b0, b0], -4), _stack([b2, b1, b2], -4))
+        sa, sb = self.add(  # a1 + a2, a0 + a1, a0 + a2 and the same of b, in one call
+            _stack([_stack([a1, a0, a0], -4), _stack([b1, b0, b0], -4)], 0),
+            _stack([_stack([a2, a1, a2], -4), _stack([b2, b1, b2], -4)], 0),
+        )
         r = self.q_mul(
             mb,
             torch.cat(torch.broadcast_tensors(_stack([a0, a1, a2], -4), sa), -4),
@@ -263,6 +264,90 @@ class RowTower:
         c1 = self.sub(self.sub(cross, a0l0), a1l1)
         return _stack([c0, c1], -5)
 
+    # -------------------------------------------- inversion / frobenius ---
+    def fp_pow(self, a, bits):
+        """a**e over fp, e's MSB-first bits (``RowTower.fp_pow``): the plain
+        version of the ``fp_pow`` kernel."""
+        return fp_cuda.fp_pow_plain(self.fp, a, bits).to(torch.int64)
+
+    def f2_inv(self, a, inv_bits):
+        """1/a via the norm: (a0 - a1 u) / (a0^2 + n a1^2); the base-field
+        inverse by ``fp_pow`` over inv_bits (p - 2, MSB-first)."""
+        mb = MulBatch(self.fp)
+        i = mb.push(a, a)
+        sq = mb.run()[i]
+        s1 = _c(sq, 1, -3)
+        norm = self.add(_c(sq, 0, -3), s1 if self.n == 1 else self.small(s1, self.n))
+        ninv = self.fp_pow(norm, inv_bits)
+        i = mb.push(a, ninv.unsqueeze(-3))
+        m = mb.run()[i]
+        return _stack([_c(m, 0, -3), self.neg(_c(m, 1, -3))], -3)
+
+    def f6_inv(self, a, inv_bits):
+        a0, a1, a2 = (_c(a, k, -4) for k in range(3))
+        mb = MulBatch(self.fp)
+        r00, r12, r22 = self.q_sqr(mb, a0), self.q_mul(mb, a1, a2), self.q_sqr(mb, a2)
+        r01, r11, r02 = self.q_mul(mb, a0, a1), self.q_sqr(mb, a1), self.q_mul(mb, a0, a2)
+        o = mb.run()
+        c = _stack([
+            self.sub(r00(o), self.mul_xi(r12(o))),
+            self.sub(self.mul_xi(r22(o)), r01(o)),
+            self.sub(r11(o), r02(o)),
+        ], -4)
+        r = self.q_mul(mb, _stack([a0, a2, a1], -4), c)  # a0 c0, a2 c1, a1 c2
+        m = r(mb.run())
+        norm = self.add(_c(m, 0, -4), self.mul_xi(self.add(_c(m, 1, -4), _c(m, 2, -4))))
+        ninv = self.f2_inv(norm, inv_bits)
+        r = self.q_mul(mb, c, ninv.unsqueeze(-4))
+        return r(mb.run())
+
+    def f6_sqr(self, a):
+        mb = MulBatch(self.fp)
+        r = self.q_f6_mul(mb, a, a)
+        return r(mb.run())
+
+    def f6_neg(self, a):
+        return self.neg(a)
+
+    def f12_inv(self, f, inv_bits):
+        """1/f = (a0 - a1 w) / (a0^2 - v a1^2)."""
+        s = self.f6_sqr(f)  # a0^2, a1^2 in one batch
+        n6 = self.sub(_c(s, 0, -5), self.f6_mul_v(_c(s, 1, -5)))
+        ninv = self.f6_inv(n6, inv_bits)
+        mb = MulBatch(self.fp)
+        r = self.q_f6_mul(mb, f, ninv.unsqueeze(-5))
+        m = r(mb.run())
+        return _stack([_c(m, 0, -5), self.f6_neg(_c(m, 1, -5))], -5)
+
+    def f12_frob(self, f, gam, n: int):
+        """f^(p^n): conjugate every coefficient when n is odd, then scale
+        coefficient (h, j) by gam[h, j] ((2, 3, 2, L, 1) Montgomery limbs of
+        the Frobenius constants gamma_n, laid out as an f12)."""
+        if n % 2:
+            f = _stack([_c(f, 0, -3), self.neg(_c(f, 1, -3))], -3)
+        mb = MulBatch(self.fp)
+        r = self.q_mul(mb, f, gam)
+        return r(mb.run())
+
+    def f12_cyclo_sqr(self, f):
+        """Granger-Scott squaring in the cyclotomic subgroup (unitary f only):
+        Fp4 pairs (x, y) = (a0, b1), (b0, a2), (a1, b2), each squared as
+        t0 = x^2 + xi y^2, t1 = (x + y)^2 - x^2 - y^2; 9 f2 squarings in one
+        batch; then z' = 2(t - z) + t into a0, a1, a2 and z' = 2(t + z) + t
+        into b0 (from xi t1 of the third pair), b1, b2."""
+        a, b = _c(f, 0, -5), _c(f, 1, -5)
+        X = _stack([_c(a, 0, -4), _c(b, 0, -4), _c(a, 1, -4)], -4)
+        Y = _stack([_c(b, 1, -4), _c(a, 2, -4), _c(b, 2, -4)], -4)
+        mb = MulBatch(self.fp)
+        r = self.q_sqr(mb, torch.stack([X, Y, self.add(X, Y)]))  # the 9 squarings at once
+        x2, y2, s2 = r(mb.run())
+        t0 = self.add(x2, self.mul_xi(y2))  # t00, t10, t20
+        t1 = self.sub(self.sub(s2, x2), y2)  # t01, t11, t21
+        c0 = self.add(self.dbl(self.sub(t0, a)), t0)  # z0, z4, z3
+        tp = _stack([self.mul_xi(_c(t1, 2, -4)), _c(t1, 0, -4), _c(t1, 1, -4)], -4)
+        c1 = self.add(self.dbl(self.add(tp, b)), tp)  # z2, z1, z5
+        return _stack([c0, c1], -5)
+
     # ------------------------------------------------------- miller steps ---
     def dbl_step(self, T, xP, yP):
         """Tangent line at T evaluated at P + incomplete projective double
@@ -357,15 +442,43 @@ class RowTower:
 
 
 # Base-field Montgomery products per routine, as the code above queues them
-# (q_mul 3, q_sqr 2 when n == 1 else 3, q_mul_fp 2).  ``pairing_cuda``'s
-# operation counts rest on these; tests/test_torch_pairing.py counts the
-# products a run queues and holds them to these numbers.
+# (q_mul 3, q_sqr 2 when n == 1 else 3, q_mul_fp 2; the inverses without
+# their fp_pow chain).  The kernels' operation counts in chip_smoke.py rest
+# on these; tests/test_torch_pairing.py and tests/test_torch_final_exp.py
+# count the products a run queues and hold them to these numbers.
 def mults_per_step(n: int, twist: str) -> dict:
     sq = 2 if n == 1 else 3
+    f6_inv = 3 * sq + 3 * 3 + 3 * 3 + 4 + 3 * 3  # c, norm, f2_inv, c / norm
     return {
         "f12_sqr": 36,
         "f12_mul": 54,
         "f12_sparse_mul": 3 * (14 if twist == "M" else 13),
         "dbl_step": 9 * 3 + 4 * sq + 2 * 2,
         "add_step": 11 * 3 + 2 * sq + 2 * 2,
+        "f12_cyclo_sqr": 9 * sq,
+        "f12_frob": 6 * 3,
+        "f2_inv": 4,
+        "f6_inv": f6_inv,
+        "f12_inv": 2 * 18 + f6_inv + 2 * 18,
     }
+
+
+def pow_mults(bits) -> int:
+    """Products of ``fp_pow`` (or the f12 muls of a pow chain): one square
+    per bit, one multiply per one bit."""
+    return len(bits) + sum(1 for b in bits if b)
+
+
+def f12_pow_mults(n: int, twist: str, bits, cyclo: bool) -> int:
+    c = mults_per_step(n, twist)
+    sq = c["f12_cyclo_sqr"] if cyclo else c["f12_sqr"]
+    return len(bits) * sq + (pow_mults(bits) - len(bits)) * c["f12_mul"]
+
+
+def final_exp_mults(n: int, twist: str, inv_bits, x_bits) -> int:
+    """Products of one lane of the final exponentiation (``final_exp``):
+    f12_inv with its fp_pow chain, 9 f12 muls, 1 f12 square, 3 Frobenius
+    maps and 5 cyclotomic x-chains."""
+    c = mults_per_step(n, twist)
+    return (c["f12_inv"] + pow_mults(inv_bits) + 9 * c["f12_mul"] + c["f12_sqr"]
+            + 3 * c["f12_frob"] + 5 * f12_pow_mults(n, twist, x_bits, True))

@@ -1,11 +1,18 @@
-"""Optimal-ate pairing products on the device (port of ``mathlib_tpu/ops/pairing.py``,
-the part the pairing-product check needs).
+"""Optimal-ate pairings and pairing products on the device (port of
+``mathlib_tpu/ops/pairing.py``).
+
+``miller_loop`` follows the reference's TPU dispatch (``_miller_loop_pallas``):
+one ``miller_ft`` kernel launch gives every lane's (f, T); the conjugation
+when the loop parameter is negative and, on BN curves, the two Frobenius
+chord steps (two ``add_step`` launches) follow.  ``final_exp`` is
+``TowerCtx.f12_final_exp``; ``pairing`` is both.
 
 ``product_miller`` and ``products_miller`` run every lane's Miller loop and
 multiply the lanes together, in one or in aligned power-of-two segments, as
-the reference's fused Pallas product kernels do; callers finish each
-unreduced product with one final exponentiation on the host C++ engine
-(``batch.BatchEngine``).  The kernels are ``kernels/pairing_cuda.py``.
+the reference's fused Pallas product kernels do; ``batch.BatchEngine``
+finishes each unreduced product with one final exponentiation on the host C++
+engine by default, or on the card (``product_check``, the reference's
+``split`` strategy).  The kernels are ``kernels/pairing_cuda.py``.
 
 Line convention and Miller loop shape are the reference's (its module
 docstring derives them): the loop runs over the bits of |x| (BLS12) or
@@ -16,6 +23,7 @@ twist-coordinate Frobenius constants come from the port's host tower.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -24,13 +32,11 @@ import torch
 from .. import device as _device
 from ..curves.params import CurveSpec, Family
 from ..host.fields import get_tower
+from .g2 import G2Ctx
 from .kernels import pairing_cuda
-from .kernels.tower_rows import RowTower
 from .tower import TowerCtx
 
 Tensor = torch.Tensor
-
-_LATER = "not ported yet: ROADMAP.md §1 item 13 (the rest of the pairing)"
 
 
 def _fp2_scalar(e12) -> Tuple[int, int]:
@@ -47,6 +53,7 @@ class PairingCtx:
         self.spec = spec
         self.device = _device(device)
         self.tw = TowerCtx(spec, self.device)
+        self.g2c = G2Ctx(spec, self.device)
         if spec.family == Family.BLS12:
             if spec.fexp_factor != 3:
                 raise ValueError("the fused product takes BLS12 curves with the factor-3 final exp")
@@ -78,12 +85,8 @@ class PairingCtx:
             self.cx2 = _fp2_scalar(t.f12_mul(t.f12_frob(ux, 2), iux))
             self.cy2 = _fp2_scalar(t.f12_mul(t.f12_frob(uy, 2), iuy))
             tail = (self.cx1, self.cy1, self.cx2, self.cy2)
-        beta_neg = (spec.p - spec.beta) % spec.p
-        if not 0 < beta_neg < 256 or spec.xi[1] != 1 or not 0 <= spec.xi[0] < 256:
-            raise ValueError("the in-kernel tower takes beta = -n and xi = xi0 + u, n and xi0 small")
         self.cfg = pairing_cuda.MillerCfg(
-            RowTower(self.tw.fp, beta_neg, spec.xi[0], spec.twist),
-            self.loop_bits.astype(np.uint8), self.conj_end, tail,
+            self.tw.kcfg, self.loop_bits.astype(np.uint8), self.conj_end, tail,
         )
 
     # ------------------------------------------------------------ products --
@@ -109,12 +112,58 @@ class PairingCtx:
         f = pairing_cuda.miller_lanes(self.cfg, xP, yP, Qx, Qy, B if n is None else n)
         return pairing_cuda.f12_seg_product(self.cfg, f, seg)
 
-    # ------------------------------------------------------------- later ----
-    def miller_loop(self, xP, yP, Qx, Qy):
-        raise NotImplementedError(_LATER)
+    # ------------------------------------------------------------ pairing ---
+    def miller_loop(self, xP, yP, Qx, Qy) -> Tensor:
+        """Per-lane Miller values (2, 3, 2, L, B) of affine G1 (xP, yP: (L, B))
+        and G2 (Qx, Qy: (2, L, B)) points in Montgomery form; final_exp makes
+        them pairings.  The steps of the reference's ``_miller_loop_pallas``."""
+        t = self.tw
+        f, T = pairing_cuda.miller_ft(self.cfg, xP, yP, Qx, Qy)
+        if self.conj_end:
+            f = t.f12_conj(f)
+            T = self.g2c.neg(T)
+        if self.bn_tail:
+            Q1x = t.f2_mul_const(t.f2_conj(Qx), self.cx1)
+            Q1y = t.f2_mul_const(t.f2_conj(Qy), self.cy1)
+            Q2x = t.f2_mul_const(Qx, self.cx2)
+            Q2y = t.f2_neg(t.f2_mul_const(Qy, self.cy2))
+            f, T = pairing_cuda.add_step(self.cfg, f, T, Q1x, Q1y, xP, yP)
+            f, T = pairing_cuda.add_step(self.cfg, f, T, Q2x, Q2y, xP, yP)
+        return f
 
-    def final_exp(self, f):
-        raise NotImplementedError(_LATER)
+    def final_exp(self, f) -> Tensor:
+        return self.tw.f12_final_exp(f)
 
-    def pairing(self, xP, yP, Qx, Qy, reduce: bool = True):
-        raise NotImplementedError(_LATER)
+    def pairing(self, xP, yP, Qx, Qy, reduce: bool = True) -> Tensor:
+        f = self.miller_loop(xP, yP, Qx, Qy)
+        return self.final_exp(f) if reduce else f
+
+    # ------------------------------------------------------ the strategies --
+    @property
+    def supports_fused_check(self) -> bool:
+        """The all-device product check (final exp and unity test on the
+        card) takes BLS12 curves with the factor-3 final exp, whose device
+        final exp is the one-launch x-chain kernel."""
+        return self.spec.family == Family.BLS12 and self.spec.fexp_factor == 3
+
+    @property
+    def supports_fused_product(self) -> bool:
+        """The fused Miller + product kernels take BLS12 (factor 3) and BN
+        curves: every curve a ``PairingCtx`` accepts."""
+        return True
+
+    def product_check(self, xP, yP, Qx, Qy, n=None) -> bool:
+        """prod_i e(P_i, Q_i) == 1 with everything on the device, for
+        ``supports_fused_check`` curves.  ``MATHLIB_PAIR_FUSED`` picks the
+        reference's strategy: ``split`` (the default here) runs
+        ``product_miller``, the ``final_exp`` kernel on the product and the
+        unity test; ``check`` is the reference's one-launch kernel
+        (``_pairing_check_kernel``), which is not ported and raises."""
+        if os.environ.get("MATHLIB_PAIR_FUSED", "split") == "check":
+            raise NotImplementedError(
+                "MATHLIB_PAIR_FUSED=check needs mathlib_tpu/ops/kernels/pairing_pallas.py:1065 "
+                "_pairing_check_kernel, which is not ported (ROADMAP.md §2)")
+        if not self.supports_fused_check:
+            raise ValueError(f"{self.spec.name}: the device product check takes BLS12 curves")
+        prod = self.product_miller(xP, yP, Qx, Qy, n=n)
+        return bool(self.tw.f12_is_one(self.final_exp(prod))[0])

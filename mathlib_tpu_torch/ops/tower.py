@@ -1,5 +1,4 @@
-"""Batched tower-field arithmetic, Fp2/Fp6/Fp12 (port of ``mathlib_tpu/ops/tower.py``,
-the part the pairing-product check needs).
+"""Batched tower-field arithmetic, Fp2/Fp6/Fp12 (port of ``mathlib_tpu/ops/tower.py``).
 
 Layout (lane batch B last, limbs before it), as in the reference:
 
@@ -7,11 +6,19 @@ Layout (lane batch B last, limbs before it), as in the reference:
     Fp6:  (..., 3, 2, L, B)       a0 + a1*v + a2*v^2,  v^3 = xi
     Fp12: (..., 2, 3, 2, L, B)    b0 + b1*w,  w^2 = v
 
-This is plain PyTorch on ``FpCtx``, for the CPU and for glue; it computes
-what the reference's ``TowerCtx`` computes, limb for limb.  The pairing
-kernels do not use it: they follow the reference's in-kernel tower
-(``kernels/tower_rows.py``), whose relaxed limbs differ.  The host tower
-(``host/fields.py``) is the exactness oracle.
+This is PyTorch on ``FpCtx``, for the CPU and for glue; it computes what
+the reference's ``TowerCtx`` computes.  Its Montgomery products go to the
+``mont_mul`` kernel on a card (``_mul``), as the reference's reach its Pallas
+product on a TPU; adds and subs are plain tensor ops, as there.  The pairing kernels do not use
+it: they follow the reference's in-kernel tower (``kernels/tower_rows.py``),
+whose relaxed limbs differ.  The host tower (``host/fields.py``) is the
+exactness oracle.
+
+``f12_final_exp`` dispatches as the reference does on a TPU: one
+``final_exp`` kernel launch on BLS12 curves (factor-3 chain); on BN curves
+the easy part on the ops here (its base-field inverse is the ``fp_pow``
+kernel) and one cyclotomic ``f12_pow`` launch per base-p digit of the hard
+exponent.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..curves.params import CurveSpec
+from ..curves.params import CurveSpec, Family
 from ..host.fields import get_tower as get_host_tower
 from .field import LIMB_BITS, FpCtx
+from .kernels import fp_cuda, pairing_cuda
+from .kernels.tower_rows import RowTower
 
 Tensor = torch.Tensor
 
@@ -44,6 +53,28 @@ class TowerCtx:
         if x1 != 1:
             raise ValueError("the tower assumes xi = xi0 + u")
         self.xi0 = x0
+        # Frobenius constants gamma_n[k, j] for the coefficient of v^j w^k,
+        # n in {1, 2, 3}: (v^j w^k)^(p^n) = gamma * v^j w^k, from the host
+        # tower, as (2, 3, 2, L, 1) Montgomery limbs laid out as an f12
+        t = self.host
+        self.frob_limbs = {}
+        for n in (1, 2, 3):
+            gam = np.empty((2, 3, 2, 1), dtype=object)
+            for k in range(2):
+                for j in range(3):
+                    c6 = [[(0, 0)] * 3 for _ in range(2)]
+                    c6[k][j] = (1, 0)
+                    gam[k, j, :, 0] = t.f12_frob((tuple(c6[0]), tuple(c6[1])), n)[k][j]
+            self.frob_limbs[n] = self.fp.encode(gam)
+        beta_neg = (spec.p - spec.beta) % spec.p
+        if not 0 < beta_neg < 256 or not 0 <= x0 < 256:
+            raise ValueError("the in-kernel tower takes beta = -n and xi = xi0 + u, n and xi0 small")
+        # what the tower kernels need of this curve (PairingCtx's MillerCfg holds it)
+        self.kcfg = pairing_cuda.TowerCfg(
+            RowTower(self.fp, beta_neg, x0, spec.twist),
+            gammas=torch.stack([self.frob_limbs[1], self.frob_limbs[2]]),
+            x=spec.x if spec.family == Family.BLS12 else None,
+        )
 
     # ---------------------------------------------------------------- Fp2 ---
     def f2_encode(self, a: Tuple[int, int]) -> Tensor:
@@ -65,6 +96,11 @@ class TowerCtx:
     def f2_conj(self, a):
         return _stack([self._c(a, 0), self.fp.neg(self._c(a, 1))], -3)
 
+    def _mul(self, a, b):
+        """Montgomery products of broadcast limb tensors: the ``mont_mul``
+        kernel on a card, its plain version on the CPU."""
+        return fp_cuda.mont_mul(self.fp, *torch.broadcast_tensors(a, b))
+
     def f2_mul(self, a, b):
         """Karatsuba: 3 base muls, stacked into one call."""
         fp = self.fp
@@ -72,7 +108,7 @@ class TowerCtx:
         b0, b1 = self._c(b, 0), self._c(b, 1)
         lhs = _stack([a0, a1, fp.add(a0, a1)], -3)
         rhs = _stack([b0, b1, fp.add(b0, b1)], -3)
-        m = fp.mont_mul(*torch.broadcast_tensors(lhs, rhs))
+        m = self._mul(lhs, rhs)
         t0, t1, t2 = self._c(m, 0), self._c(m, 1), self._c(m, 2)
         c0 = fp.add(t0, fp.mul_int(t1, self.beta))
         c1 = fp.sub(t2, fp.add(t0, t1))
@@ -88,6 +124,15 @@ class TowerCtx:
         c0 = fp.add(fp.mul_int(a0, self.xi0), fp.mul_int(a1, self.beta))
         c1 = fp.add(fp.mul_int(a1, self.xi0), a0)
         return _stack([c0, c1], -3)
+
+    def f2_inv(self, a):
+        """1/a via the norm: (a0 - a1 u) / (a0^2 - beta a1^2); the base-field
+        inverse is ``FpCtx.inv`` (the ``fp_pow`` kernel on a card)."""
+        fp = self.fp
+        sq = self._mul(a, a)
+        norm = fp.sub(self._c(sq, 0), fp.mul_int(self._c(sq, 1), self.beta))
+        m = self._mul(a, fp.inv(norm).unsqueeze(-3))
+        return _stack([self._c(m, 0), fp.neg(self._c(m, 1))], -3)
 
     def f2_mul_const(self, a, c: Tuple[int, int]):
         """a * (c0 + c1 u) for a host constant."""
@@ -126,6 +171,18 @@ class TowerCtx:
     def f6_mul_v(self, a):
         """a * v: (xi*a2, a0, a1)."""
         return _stack([self.f2_mul_xi(self._v(a, 2)), self._v(a, 0), self._v(a, 1)], -4)
+
+    def f6_inv(self, a):
+        """The reference's adjugate formula, its six and three Fp2 products
+        each stacked into one ``f2_mul`` call."""
+        f2a, f2s, mx = self.f2_add, self.f2_sub, self.f2_mul_xi
+        a0, a1, a2 = (self._v(a, i) for i in range(3))
+        m = self.f2_mul(_stack([a0, a1, a2, a0, a1, a0], -4), _stack([a0, a2, a2, a1, a1, a2], -4))
+        a00, a12, a22, a01, a11, a02 = (self._v(m, i) for i in range(6))
+        c = _stack([f2s(a00, mx(a12)), f2s(mx(a22), a01), f2s(a11, a02)], -4)
+        n = self.f2_mul(_stack([a0, a2, a1], -4), c)  # a0 c0, a2 c1, a1 c2
+        norm = f2a(self._v(n, 0), mx(f2a(self._v(n, 1), self._v(n, 2))))
+        return self.f2_mul(c, self.f2_inv(norm).unsqueeze(-4))
 
     # --------------------------------------------------------------- Fp12 ---
     def f12_encode(self, a) -> Tensor:
@@ -168,6 +225,23 @@ class TowerCtx:
     def f12_conj(self, a):
         return _stack([self._h(a, 0), self.f6_neg(self._h(a, 1))], -5)
 
+    def f12_inv(self, a):
+        """1/a = (a0 - a1 w) / (a0^2 - v a1^2)."""
+        a0, a1 = self._h(a, 0), self._h(a, 1)
+        sq = self.f6_sqr(_stack([a0, a1], -5))
+        norm = self.f6_sub(self._h(sq, 0), self.f6_mul_v(self._h(sq, 1)))
+        ninv = self.f6_inv(norm)
+        return self.f6_mul(_stack([a0, self.f6_neg(a1)], -5), ninv.unsqueeze(-5))
+
+    def f12_frob(self, a, n: int = 1):
+        """a^(p^n) for n in {1, 2, 3}: conjugate every coefficient (n odd),
+        then scale coefficient (k, j) by gamma[n][j, k], one stacked f2_mul."""
+        if n not in (1, 2, 3):
+            raise ValueError(f"f12_frob takes n in (1, 2, 3), got {n}")
+        if n % 2:
+            a = self.f2_conj(a)
+        return self.f2_mul(a, self.frob_limbs[n])
+
     def f12_mul(self, a, b):
         """Karatsuba over Fp6: 3 f6 muls, stacked into one f6_mul call."""
         a0, a1 = self._h(a, 0), self._h(a, 1)
@@ -195,3 +269,38 @@ class TowerCtx:
         diff = self.fp.sub(*torch.broadcast_tensors(a, self.f12_one))
         zero = (diff == 0).all(dim=-2) | (diff == self.fp.p_limbs.to(torch.int32)).all(dim=-2)
         return zero.all(dim=-2).all(dim=-2).all(dim=-2)
+
+    # ------------------------------------------------------------ final exp --
+    def f12_final_exp(self, f):
+        """The pairing final exponentiation of each lane of f (2, 3, 2, L, B),
+        equal to the host engine's (``host/fields.py f12_final_exp``).
+
+        BLS12 curves with the factor-3 convention: one ``final_exp`` kernel
+        launch (easy part with the in-kernel Fp12 inverse, hard part as five
+        cyclotomic x-chains, by 3 (p^4 - p^2 + 1)/r =
+        (x-1)^2 (x + p) (x^2 + p^2 - 1) + 3).  BN curves: the easy part
+        f^((p^6 - 1)(p^2 + 1)) on the ops here, then the hard part as
+        prod_i frob^i(f^(d_i)) over the base-p digits d_i, one cyclotomic
+        ``f12_pow`` launch per digit (f is unitary after the easy part)."""
+        spec = self.spec
+        if spec.family == Family.BLS12:
+            if spec.fexp_factor != 3:
+                raise NotImplementedError(f"{spec.name}: only the factor-3 BLS12 final exp is ported")
+            return pairing_cuda.final_exp(self.kcfg, f.contiguous())
+        t = self.f12_mul(self.f12_conj(f), self.f12_inv(f))
+        f = self.f12_mul(self.f12_frob(t, 2), t).contiguous()
+        e, digits = spec.hard_part_exp, []
+        while e:
+            digits.append(e % spec.p)
+            e //= spec.p
+        if len(digits) > 4:
+            raise NotImplementedError(
+                f"{spec.name}: the hard part has {len(digits)} base-p digits; the reference's "
+                "table multi-exponentiation for more than 4 is not ported")
+        acc = None
+        for i, d in enumerate(digits):
+            part = pairing_cuda.f12_pow(self.kcfg, f, pairing_cuda.msb_bits(d), cyclo=True)
+            if i:
+                part = self.f12_frob(part, i)
+            acc = part if acc is None else self.f12_mul(acc, part)
+        return acc

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and the paths through
+them, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a machine with
 one (and nvcc), run this file on its own -- its imports need no jax, and the
@@ -111,8 +112,9 @@ def test_pairing_kernels_equal_plain_versions(pair_ctx):
     for seg in (2, 64):
         assert torch.equal(pairing_cuda.f12_seg_product(cfg, f, seg),
                            pairing_cuda.f12_seg_product_plain(cfg, f, seg))
-    assert fp_cuda.launches() == {"mont_mul": 1}
-    assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 6}
+    assert fp_cuda.launches() == {"mont_mul": 1, "fp_pow": 0}
+    assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 6, "miller_ft": 0,
+                                       "add_step": 0, "f12_pow": 0, "final_exp": 0}
 
 
 def test_product_check_on_the_card(pair_ctx):
@@ -126,3 +128,59 @@ def test_product_check_on_the_card(pair_ctx):
     grp = [P, nP, P, nP] + [g1s[0], g1s[1], P, nP] + [P, nP, P, nP]
     g2g = [G] * 4 + [g2s[0], g2s[1], G, G] + [G] * 4
     assert be.pairing_products_are_one(grp, g2g, 4) == [True, False, True]
+
+
+def test_pairing_batch_kernels_equal_plain_versions(pair_ctx):
+    """miller_ft, add_step, f12_pow, final_exp and fp_pow against their plain
+    versions on 40 lanes, full chains; and pairing_batch against the host
+    engine on 4 of them (BLS12-377 has no ported pairing_batch path: its
+    kernels are checked all the same)."""
+    eng, be = pair_ctx
+    cfg, kcfg = be.pair.cfg, be.tw.kcfg
+    spec = eng.spec
+    g1s, g2s = _pairs(eng, 40, 9)
+    xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1s, g2s))
+    fp_cuda.reset_launches()
+    pairing_cuda.reset_launches()
+    f, T = pairing_cuda.miller_ft(cfg, xP, yP, Qx, Qy)
+    for got, want in zip((f, T), pairing_cuda.miller_ft_plain(cfg, xP, yP, Qx, Qy)):
+        assert torch.equal(got, want)
+    for got, want in zip(pairing_cuda.add_step(cfg, f, T, Qx, Qy, xP, yP),
+                         pairing_cuda.add_step_plain(cfg, f, T, Qx, Qy, xP, yP)):
+        assert torch.equal(got, want)
+    inv_bits = kcfg.inv_bits
+    assert torch.equal(fp_cuda.fp_pow(be.fp, xP, inv_bits), fp_cuda.fp_pow_plain(be.fp, xP, inv_bits))
+    x_bits = pairing_cuda.msb_bits(abs(spec.x))
+    for cyclo in (False, True):
+        assert torch.equal(pairing_cuda.f12_pow(kcfg, f, x_bits, cyclo),
+                           pairing_cuda.f12_pow_plain(kcfg, f, x_bits, cyclo))
+    assert torch.equal(pairing_cuda.final_exp(kcfg, f, inv_bits, x_bits, spec.x < 0),
+                       pairing_cuda.final_exp_plain(kcfg, f, inv_bits, x_bits, spec.x < 0))
+    assert fp_cuda.launches()["fp_pow"] == 1
+    assert {k: v for k, v in pairing_cuda.launches().items()
+            if k in ("miller_ft", "add_step", "f12_pow", "final_exp")} == {
+        "miller_ft": 1, "add_step": 1, "f12_pow": 2, "final_exp": 1}
+    if spec.name != "BLS12_377":
+        assert be.pairing_batch(g1s[:4], g2s[:4]) == [eng.pairing(P, Q) for P, Q in zip(g1s, g2s[:4])]
+
+
+def test_device_strategies_give_the_default_verdicts(pair_ctx, monkeypatch):
+    eng, be = pair_ctx
+    if not be.pair.supports_fused_check:
+        pytest.skip("the device final exp takes BLS12 curves")
+    P = eng.g1.mul(eng.gen_g1, 12345)
+    nP, G = eng.g1.neg(P), eng.gen_g2
+    g1s, g2s = _pairs(eng, 2, 10)
+    grp, g2g = [P, nP] + g1s + [P, nP], [G, G] + g2s + [G, G]
+    want = [be.pairing_product_is_one([P, nP], [G, G]), be.pairing_product_is_one(g1s, g2s),
+            be.pairing_products_are_one(grp, g2g, 2)]
+    assert want == [True, False, [True, False, True]]
+    monkeypatch.setenv("MATHLIB_PAIR_FUSED", "split")
+    monkeypatch.setenv("MATHLIB_GROUP_FEXP", "device")
+    pairing_cuda.reset_launches()
+    assert [be.pairing_product_is_one([P, nP], [G, G]), be.pairing_product_is_one(g1s, g2s),
+            be.pairing_products_are_one(grp, g2g, 2)] == want
+    assert pairing_cuda.launches()["final_exp"] == 3
+    monkeypatch.setenv("MATHLIB_PAIR_FUSED", "check")
+    with pytest.raises(NotImplementedError):
+        be.pairing_product_is_one([P, nP], [G, G])

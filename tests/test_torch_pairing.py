@@ -96,7 +96,7 @@ def test_miller_lanes_plain_is_bit_equal_to_the_reference_body(curve, numpy_pall
     want = np.stack([np.stack([np.stack([np.stack(f[h][j][c]) for c in range(2)])
                                for j in range(3)]) for h in range(2)])[..., 0, :]
 
-    cfg = pc.MillerCfg(pair.cfg.tower, bits.astype(np.uint8), pair.conj_end, pair.cfg.tail)
+    cfg = pc.MillerCfg(pair.cfg.tc, bits.astype(np.uint8), pair.conj_end, pair.cfg.tail)
     got = pc.miller_lanes(cfg, xP, yP, Qx, Qy, n)
     assert got.dtype == torch.int32 and got.shape == (2, 3, 2, L, B)
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
