@@ -62,9 +62,34 @@ and the device final exponentiation of the reference's opt-in strategies:
      and read just after: every kernel that curve's path runs must have
      launched there.  The strategies' launches are counted apart.
 
-Inputs come from ``np.random.default_rng(0)`` (phases 1-7) and
-``np.random.default_rng(1)`` (phases 8-9), the points from the port's
-C++ host engine (built with g++ at first use).  Prints the card's name and
+The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
+
+ 10. the four kernels of the options (dbladd, addselneg, maddsel,
+     maddselneg) against their plain PyTorch versions on the card, bit for
+     bit: first on phase 3's 4,097 lanes and edge lanes (P = inf,
+     P = lift(Q), P = -lift(Q), sel and neg mixed) on BLS12-381 and BN254,
+     then at the path's shapes (the three combiners at the 262,144 lanes of
+     one 2^20, c=16 scan step, dbladd at 2^20 lanes), each timed beside its
+     plain version with its bound; and a 64-bit ladder through
+     ``G1Ctx.dbl_add_select`` (its launches are dbladd's count) against
+     ``scalar_mul``;
+ 11. the entry points at full size, one warm-up and 3 timed calls each
+     (points/s, peak memory), each against a host MSM of the scalars folded
+     per base point (8,192 distinct base points, tiled): (a)
+     ``msm_host_bridge`` on 60,000 BLS12-381 points with some None (padded
+     to 2^16; GLV, c=8, the mixed-add scan), (b) ``msm_host_bridge`` on 2^14
+     BN254 points (c=8, 8-word maddsel), (c) ``BatchEngine.g1_msm`` on 2^16
+     BLS12-381 projective points (GLV, c=8), (d) ``g1_scalar_mul`` on 8,192
+     lanes against the host engine's ``mul``, (e) phase 5's 2^20 MSM again
+     with affine points, with signed digits, and with both, each equal to
+     phase 5's result and timed beside it.  The counts are set to 0 just
+     before each entry point and read just after: every kernel of its path
+     must have launched.
+
+Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
+``np.random.default_rng(1)`` (phases 8-9) and ``np.random.default_rng(2)``
+(phases 10-11), the points from the port's C++ host engine (built with g++
+at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -109,6 +134,10 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
     "addsel": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
     "smul": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
+    "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
+    "addselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
+    "maddsel": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
+    "maddselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
     "mont_mul": ("mathlib_tpu_torch/csrc/fp_kernels.cu", "mathlib_tpu/ops/kernels/fp_pallas.py:40"),
     "miller_lanes": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                      "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
@@ -129,6 +158,11 @@ N_BATCH = 4096  # phase 9 (a): BLS12-381 pairs of one pairing_batch call
 N_BATCH_BN = 1024  # phase 9 (b): BN254 pairs
 N_BILIN = 8  # phase 9 (a): bilinearity lanes (a g1, g2) beside (g1, a g2)
 N_SAMPLED = 8  # phase 9: lanes checked against the host engine's pairing
+N_BRIDGE = 60000  # phase 11 (a): host points of one BLS12-381 bridge call
+N_BRIDGE_BN = 1 << 14  # phase 11 (b): BN254 points
+N_G1_MSM = 1 << 16  # phase 11 (c): BatchEngine.g1_msm points
+N_LADDER_BITS = 64  # phase 10: bits of the dbl_add_select ladder
+MAIN_G1 = ("add", "double", "addsel", "smul")  # the kernels of phase 5's path
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
 # 3.35 TB/s, and 32-bit integer multiply-adds on 64 INT32 lanes per SM
@@ -768,6 +802,233 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
     return {k: batch_launches[k] for k in set(sum(want_kernels.values(), ()))}
 
 
+def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
+    """Phases 10 and 11; fills ``results`` for the kernels of the G1 MSM
+    options and returns their launch counts: dbladd's over phase 10's
+    ladder, the three combiners' summed over phase 11's entry points."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.ops import msm as M
+    from mathlib_tpu_torch.ops.g1 import G1Ctx, get_g1_ctx
+    from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, pairing_cuda
+
+    rng = np.random.default_rng(2)
+    g1, eng, spec = main["g1"], main["eng"], main["spec"]
+    t_phase = time.perf_counter()
+
+    def check(name, got, want):
+        check_equal(results, name, got, want)
+
+    def reset():
+        for mod in (g1_cuda, fp_cuda, pairing_cuda):
+            mod.reset_launches()
+
+    def counts():
+        return {k: v for k, v in {**g1_cuda.launches(), **fp_cuda.launches()}.items() if v}
+
+    # ---- 10. the four kernels against their plain versions (exact): phase
+    # 3's 4,097 lanes on BLS12-381, the same construction on BN254
+    def edge_inputs(g, e, sp):
+        pool = [e.g1.mul(e.gen_g1, int.from_bytes(rng.bytes(32), "big") % sp.r) for _ in range(257)]
+        n = N_CHECK
+        A = [pool[i] for i in rng.integers(0, len(pool), n)]
+        B = [pool[i] for i in rng.integers(0, len(pool), n)]
+        for i in range(0, n, 7):
+            A[i] = B[i]  # P == lift(Q)
+        for i in range(3, n, 17):
+            A[i] = e.g1.neg(B[i])  # P == -lift(Q)
+        for i in range(5, n, 11):
+            A[i] = None
+        P = g.add(g.encode_points(A), g.encode_points(B))  # relaxed [0, 2p)
+        return P, g.encode_points(B), g.encode_points_affine(B)
+
+    sel = torch.from_numpy(rng.random(N_CHECK) < 15 / 16).to(dev)
+    neg = torch.from_numpy(rng.random(N_CHECK) < 0.5).to(dev)
+    for curve in ("BLS12_381", "BN254"):
+        sp = get_spec(curve)
+        g = g1 if curve == spec.name else G1Ctx(sp, dev)
+        P, Q, Qa = edge_inputs(g, get_engine(sp), sp)
+        F = g.F
+        check("dbladd", g1_cuda.dbladd(F, P, Q, sel), g1_cuda.dbladd_plain(F, P, Q, sel))
+        check("addselneg", g1_cuda.addselneg(F, P, Q, sel, neg),
+              g1_cuda.addselneg_plain(F, P, Q, sel, neg))
+        check("maddsel", g1_cuda.maddsel(F, P, Qa, sel), g1_cuda.maddsel_plain(F, P, Qa, sel))
+        check("maddselneg", g1_cuda.maddselneg(F, P, Qa, sel, neg),
+              g1_cuda.maddselneg_plain(F, P, Qa, sel, neg))
+        log("option_kernels_vs_plain", curve=curve, L=g.fp.L, lanes=N_CHECK, equal=True)
+
+    # at the path's shapes, timed beside the plain versions (PLAIN_CHUNK-lane
+    # slices): the combiners on the W*C lanes of one scan step, dbladd on 2^20
+    F = g1.F
+    P, Q, Qa = edge_inputs(g1, eng, spec)
+    WC = M.n_windows(g1, C) * (N_MAIN // K)
+    lanes_b = max(N_MAIN, WC)
+    reps = -(-lanes_b // N_CHECK)
+    Pb = P.repeat(1, 1, reps)[..., :lanes_b].contiguous()
+    Qb = Q.repeat(1, 1, reps)[..., :lanes_b].contiguous()
+    Qab = Qa.repeat(1, 1, reps)[..., :WC].contiguous()
+    selb = torch.from_numpy(rng.random(lanes_b) < 15 / 16).to(dev)
+    negb = torch.from_numpy(rng.random(WC) < 0.5).to(dev)
+    Pw, Qw, sw = Pb[..., :WC], Qb[..., :WC], selb[:WC]
+    Pb, Qb, selb = Pb[..., :N_MAIN], Qb[..., :N_MAIN], selb[:N_MAIN]
+    pt = 3 * g1.fp.L * 4  # bytes of a projective point
+    af = 2 * g1.fp.L * 4
+    n_sel_w, n_sel = int(sw.sum()), int(selb.sum())
+    shapes = {  # name: (lanes, kernel, plain, bytes, field products)
+        "maddsel": (WC, lambda: g1_cuda.maddsel(F, Pw, Qab, sw),
+                    lambda: chunked(lambda a, b, c_: g1_cuda.maddsel_plain(F, a, b, c_), WC,
+                                    Pw, Qab, sw),
+                    (2 * pt + af + 1) * WC, 11 * n_sel_w),
+        "addselneg": (WC, lambda: g1_cuda.addselneg(F, Pw, Qw, sw, negb),
+                      lambda: chunked(lambda a, b, c_, d: g1_cuda.addselneg_plain(F, a, b, c_, d),
+                                      WC, Pw, Qw, sw, negb),
+                      (3 * pt + 2) * WC, 12 * n_sel_w),
+        "maddselneg": (WC, lambda: g1_cuda.maddselneg(F, Pw, Qab, sw, negb),
+                       lambda: chunked(lambda a, b, c_, d: g1_cuda.maddselneg_plain(F, a, b, c_, d),
+                                       WC, Pw, Qab, sw, negb),
+                       (2 * pt + af + 2) * WC, 11 * n_sel_w),
+        "dbladd": (N_MAIN, lambda: g1_cuda.dbladd(F, Pb, Qb, selb),
+                   lambda: chunked(lambda a, b, c_: g1_cuda.dbladd_plain(F, a, b, c_), N_MAIN,
+                                   Pb, Qb, selb),
+                   (3 * pt + 1) * N_MAIN, 8 * N_MAIN + 12 * n_sel),
+    }
+    for name, (lanes, kern, plain, nbytes, fp_muls) in shapes.items():
+        ms, got = cuda_ms(kern, reps=5)
+        plain_ms, want = cuda_ms(plain, reps=1)
+        check(name, got, want)
+        del got, want
+        results[name].update(ms=ms, plain_ms=plain_ms, lanes=lanes,
+                             **bound(nbytes, wide_mads(fp_muls, g1.fp.L)))
+        log("time", kernel=name, lanes=lanes, equal=True, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+            bound_ms=f"{results[name]['bound_ms']:.4f}", bound_by=results[name]["bound_by"],
+            fp_muls=fp_muls)
+    del Pb, Qb, Qab, selb, negb, Pw, Qw, sw
+
+    # dbladd on its path: a 64-bit double-and-add ladder through
+    # G1Ctx.dbl_add_select, as the reference's XLA scalar_mul runs, against
+    # the one-launch ladder of scalar_mul
+    base = main["base"]
+    ks64 = [int.from_bytes(rng.bytes(8), "big") >> (64 - N_LADDER_BITS) for _ in range(N_BASE)]
+    K64 = g1.encode_scalars(ks64)
+    reset()
+    acc = g1.inf.expand(base.shape)
+    for i in range(N_LADDER_BITS - 1, -1, -1):
+        acc = g1.dbl_add_select(acc, base, g1_cuda.scalar_bit(K64, i))
+    ladder = counts()
+    if ladder.get("dbladd", 0) != N_LADDER_BITS:
+        raise AssertionError(f"the dbl_add_select ladder did not run on dbladd: {ladder}")
+    if not bool(g1.eq(acc, g1.scalar_mul(base, K64)).all()):
+        raise AssertionError("the dbl_add_select ladder disagrees with scalar_mul")
+    log("dbladd_ladder", lanes=N_BASE, bits=N_LADDER_BITS, equals_scalar_mul=True, **ladder)
+    log("phase10", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+    # ---- 11. the entry points at full size
+    t_phase = time.perf_counter()
+    new_launches = {"dbladd": ladder["dbladd"], "addselneg": 0, "maddsel": 0, "maddselneg": 0}
+
+    def entry(name, run, want, points, need):
+        """One warm-up and 3 timed calls of run(), its launches counted
+        apart; every kernel in ``need`` must have launched."""
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out, secs = best_of_3(run, want)
+        got = counts()
+        missing = [k for k in need if k not in got]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched on its path: {missing}")
+        for k in new_launches:
+            if k != "dbladd":
+                new_launches[k] += got.get(k, 0)
+        peak = torch.cuda.max_memory_allocated()
+        log("entry", name=name, points=points, equals_folded_host_oracle=True,
+            seconds=[round(x, 4) for x in secs], points_per_s=f"{points / min(secs):.1f}",
+            path_peak_GB=f"{(peak - held) / 1e9:.3f}", card=repr(smi))
+        log("entry_launches", name=name, calls=4, **got)
+        return secs
+
+    def tiled(base_aff, n, sp, nones):
+        """n points tiling the base points, None at ``nones``; scalars mod r;
+        the host oracle: the MSM of the scalars folded per base point."""
+        pts = [base_aff[i % len(base_aff)] for i in range(n)]
+        for i in nones:
+            pts[i] = None
+        ks = [int.from_bytes(rng.bytes(32), "big") % sp.r for _ in range(n)]
+        folded = [0] * len(base_aff)
+        for i, (P, k) in enumerate(zip(pts, ks)):
+            if P is not None:
+                folded[i % len(base_aff)] += k
+        return pts, ks, get_engine(sp).g1.msm(base_aff, [f % sp.r for f in folded])
+
+    base_aff = main["base_aff"]
+    nones = [int(i) for i in rng.choice(N_BRIDGE, 24, replace=False)]
+    pts, ks, want = tiled(base_aff, N_BRIDGE, spec, nones)
+    entry("msm_host_bridge BLS12_381", lambda: M.msm_host_bridge(spec, pts, ks), want,
+          N_BRIDGE, ("maddsel", "add", "double", "addsel", "mont_mul"))
+    # stages of one more bridge call, as msm_host_bridge runs them (host
+    # clock, synchronised between stages)
+    g = get_g1_ctx(spec)
+    n_pad = 1 << (N_BRIDGE - 1).bit_length()
+    pad = pts + [None] * (n_pad - N_BRIDGE)
+    t0 = time.perf_counter()
+    A = g.encode_points_affine(pad)
+    S = g.encode_scalars([0 if P is None else k for P, k in zip(pad, ks + [0] * n_pad)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = M.msm(g, A, S, c=M.auto_window(n_pad, g.nbits), glv=M.auto_glv(spec, n_pad))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if g.decode_point(out) != want:
+        raise AssertionError("the stage run of the bridge differs")
+    log("bridge_stages", n_pad=n_pad, encode_host_s=f"{t1 - t0:.4f}",
+        msm_device_s=f"{t2 - t1:.4f}", decode_host_s=f"{time.perf_counter() - t2:.4f}")
+
+    bn = get_spec("BN254")
+    g_bn = get_g1_ctx(bn)
+    bn_ks = [int.from_bytes(rng.bytes(32), "big") % bn.r for _ in range(N_BASE)]
+    bn_base = g_bn.decode_points(g_bn.scalar_mul(g_bn.gen, g_bn.encode_scalars(bn_ks)))
+    pts_bn, ks_bn, want_bn = tiled(bn_base, N_BRIDGE_BN, bn, [1, N_BRIDGE_BN // 3, N_BRIDGE_BN - 2])
+    entry("msm_host_bridge BN254", lambda: M.msm_host_bridge(bn, pts_bn, ks_bn), want_bn,
+          N_BRIDGE_BN, ("maddsel", "add", "double", "addsel"))
+
+    be = BatchEngine(spec, dev)
+    pts_c, ks_c, want_c = tiled(base_aff, N_G1_MSM, spec, [7])
+    entry("BatchEngine.g1_msm BLS12_381", lambda: be.g1_msm(pts_c, ks_c), want_c, N_G1_MSM,
+          ("addsel", "add", "double", "mont_mul"))
+
+    ks_d = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(N_BASE)]
+    ks_d[:2] = [0, spec.r - 1]
+    want_d = [eng.g1.mul(P, k) for P, k in zip(base_aff, ks_d)]
+    entry("BatchEngine.g1_scalar_mul BLS12_381", lambda: be.g1_scalar_mul(base_aff, ks_d),
+          want_d, N_BASE, ("smul", "mont_mul", "fp_pow"))
+
+    # (e) phase 5's 2^20 MSM with the options, each equal to phase 5's result
+    points, scalars = main["points"], main["scalars"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aff = g1.to_affine_rows(points)
+    torch.cuda.synchronize()
+    log("to_affine_rows", lanes=N_MAIN, seconds=f"{time.perf_counter() - t0:.4f}")
+    runs = {"affine (maddsel)": (aff, {}, "maddsel"),
+            "signed (addselneg)": (points, {"signed": True}, "addselneg"),
+            "affine signed (maddselneg)": (aff, {"signed": True}, "maddselneg")}
+    for name, (pts_e, kw, kern) in runs.items():
+        secs = entry(f"msm_totals 2^20 {name}",
+                     lambda: M.horner_host(g1, M.msm_totals(g1, pts_e, scalars, c=C, K=K,
+                                                            capture="dense", **kw), C),
+                     main["result"], N_MAIN, (kern, "add", "double"))
+        log("options_vs_unsigned", run=name, seconds_best=f"{min(secs):.4f}",
+            unsigned_projective_best=f"{min(main['seconds']):.4f}")
+    del aff
+    log("phase11", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return new_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -936,7 +1197,7 @@ def main() -> int:
         times.append(time.perf_counter() - t0)
         if out != got:
             raise AssertionError("main-path MSM is not deterministic across runs")
-    launches = g1_cuda.launches()
+    launches = {k: v for k, v in g1_cuda.launches().items() if k in MAIN_G1}
     peak = torch.cuda.max_memory_allocated()
     folded = [sum(ks_main[j::N_BASE]) % spec.r for j in range(N_BASE)]
     if got != eng.g1.msm(base_aff, folded):
@@ -974,6 +1235,11 @@ def main() -> int:
     # ---- 8 and 9. pairing_batch and the device final exp; mont_mul runs on
     # both pairing paths and reports its pairing_batch count
     launches.update(pairing_batch_phases(dev, smi, results, checks))
+
+    # ---- 10 and 11. the G1 MSM options, the bridge and BatchEngine's G1 entry points
+    launches.update(g1_option_phases(dev, smi, results, {
+        "g1": g1, "eng": eng, "spec": spec, "base": base, "base_aff": base_aff,
+        "points": points, "scalars": scalars, "result": got, "seconds": times}))
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

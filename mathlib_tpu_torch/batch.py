@@ -15,23 +15,32 @@ final exp and unity test of the product on the card; ``check``, its
 one-launch kernel, is not ported and raises) and
 ``MATHLIB_GROUP_FEXP=device`` (the grouped checks' final exps on the card).
 
-Not ported here: the MSM, scalar-mul and BLS entry points of the reference
-engine (ROADMAP.md §1).
+The G1 entry points: ``g1_msm`` (host points and scalars to one affine
+point; the window and GLV from ``auto_window``/``auto_glv`` unless pinned),
+``g1_msm_device`` (the same on device tensors) and ``g1_scalar_mul`` (one
+per-lane ladder launch, then affine on the card: one batch inversion).
+``for_curve`` and ``get_batch_engine`` give one engine per curve and device.
+
+Not ported here: the G2 scalar-mul, hash and BLS entry points of the
+reference engine (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List
+from functools import lru_cache
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from . import device as _device
-from .curves.params import CurveSpec
+from .curves.params import CURVE_ID_SPEC, CurveID, CurveSpec, get_spec
 from .host import get_engine
 from .ops.field import ints_to_limbs
+from .ops.g1 import G1Ctx
+from .ops.msm import auto_glv, auto_window, msm
 from .ops.pairing import PairingCtx
 
 Tensor = torch.Tensor
@@ -48,7 +57,43 @@ class BatchEngine:
         self.pair = PairingCtx(spec, self.device)
         self.tw = self.pair.tw
         self.fp = self.tw.fp
+        self.g1 = G1Ctx(spec, self.device)
         self.host = get_engine(spec)
+
+    @classmethod
+    def for_curve(cls, curve_id: CurveID, device=None) -> "BatchEngine":
+        return get_batch_engine(get_spec(CURVE_ID_SPEC[curve_id]), device)
+
+    # ------------------------------------------------------------- G1 -------
+    def _msm_params(self, n: int, c: Optional[int], glv: Optional[bool]):
+        """The window width and the GLV split from n, unless pinned."""
+        if c is None:
+            c = auto_window(n, self.g1.nbits)
+        if glv is None:
+            glv = auto_glv(self.spec, n)
+        return c, glv
+
+    def g1_msm(self, points, scalars, c: Optional[int] = None, glv: Optional[bool] = None):
+        """MSM over host inputs (affine points, None = infinity; ints):
+        one affine host point (None = infinity)."""
+        P = self.g1.encode_points(points)
+        S = self.g1.encode_scalars([int(k) for k in scalars])
+        return self.g1.decode_point(self.g1_msm_device(P, S, c, glv))
+
+    def g1_msm_device(self, P: Tensor, S: Tensor, c: Optional[int] = None,
+                      glv: Optional[bool] = None) -> Tensor:
+        """MSM over device tensors: (3, L, N) points, (S, N) scalar limbs ->
+        one (3, L, 1) point."""
+        c, glv = self._msm_params(P.shape[-1], c, glv)
+        return msm(self.g1, P, S, c=c, glv=glv)
+
+    def g1_scalar_mul(self, points, scalars) -> List:
+        """[k_i] P_i for host lists, as affine host points: the ladder in one
+        launch, then affine on the card (one batch inversion), so the host
+        decode does no modular inverse."""
+        P = self.g1.encode_points(points)
+        S = self.g1.encode_scalars([int(k) for k in scalars])
+        return self.g1.decode_points_affine(self.g1.to_affine_rows(self.g1.scalar_mul(P, S)))
 
     # ---------------------------------------------------------- pairing -----
     def _encode_pairs(self, g1_points, g2_points) -> np.ndarray:
@@ -143,3 +188,9 @@ class BatchEngine:
         single Fp12, final-exponentiate on the host engine, test unity."""
         val = self.tw.f12_decode(prod)[0]
         return bool(self.host.gt_is_one(self.host.final_exp(val)))
+
+
+@lru_cache(maxsize=None)
+def get_batch_engine(spec: CurveSpec, device=None) -> BatchEngine:
+    """One BatchEngine per curve and device (the card unless ``device="cpu"``)."""
+    return BatchEngine(spec, device)

@@ -2,9 +2,11 @@
 
 The PyTorch port keeps its own copy of the curve constants so that it never
 imports the JAX package.  ``tests/test_torch_host.py`` holds every field of
-every spec here equal to the reference's.  Left out of the copy: the wire
-formats, the curve-ID registry and the serialized sizes, which only the
-reference's API and codecs use.
+every spec here equal to the reference's.  The curve-ID registry
+(``CurveID``, ``CURVE_ID_SPEC``) is copied for ``BatchEngine.for_curve``;
+left out of the copy: the wire formats and the serialized sizes, which only
+the reference's API and codecs use (so ``FP256BN_MIRACL``, which differs
+from ``FP256BN`` only in its wire format, is the same curve here).
 
 Four curves, all derived from the family polynomials and the group orders
 pinned by the upstream IBM/mathlib test suite (math_test.go:261-270):
@@ -471,6 +473,14 @@ def _make_fp256bn() -> CurveSpec:
     )
 
 
+def _make_fp256bn_miracl() -> CurveSpec:
+    """The miracl-core flavour of FP256BN: the same curve arithmetic under
+    another wire format and hash-to-point."""
+    import dataclasses
+
+    return dataclasses.replace(get_spec("FP256BN"), name="FP256BN_MIRACL")
+
+
 @lru_cache(maxsize=None)
 def get_spec(name: str) -> CurveSpec:
     builders = {
@@ -478,6 +488,34 @@ def get_spec(name: str) -> CurveSpec:
         "BLS12_377": _make_bls12_377,
         "BN254": _make_bn254,
         "FP256BN": _make_fp256bn,
+        "FP256BN_MIRACL": _make_fp256bn_miracl,
     }
     return builders[name]()
+
+
+class CurveID(enum.IntEnum):
+    """Mirrors the reference registry order (math.go:70-103)."""
+
+    FP256BN_AMCL = 0
+    BN254 = 1
+    FP256BN_AMCL_MIRACL = 2
+    BLS12_381 = 3
+    BLS12_377_GURVY = 4
+    BLS12_381_GURVY = 5
+    BLS12_381_BBS = 6
+    BLS12_381_BBS_GURVY = 7
+
+
+#: CurveID -> underlying CurveSpec name (several IDs share a spec; they differ
+#: only in hash-to-curve variant and backend provenance in the reference).
+CURVE_ID_SPEC = {
+    CurveID.FP256BN_AMCL: "FP256BN",
+    CurveID.BN254: "BN254",
+    CurveID.FP256BN_AMCL_MIRACL: "FP256BN_MIRACL",
+    CurveID.BLS12_381: "BLS12_381",
+    CurveID.BLS12_377_GURVY: "BLS12_377",
+    CurveID.BLS12_381_GURVY: "BLS12_381",
+    CurveID.BLS12_381_BBS: "BLS12_381",
+    CurveID.BLS12_381_BBS_GURVY: "BLS12_381",
+}
 

@@ -261,7 +261,17 @@ class FpCtx:
         return _i32(acc)
 
     def mont_mul(self, a: Tensor, b: Tensor) -> Tensor:
-        """Montgomery product a*b*R^{-1} mod p, relaxed [0, 2p) in and out."""
+        """Montgomery product a*b*R^{-1} mod p, relaxed [0, 2p) in and out,
+        of broadcast limb tensors: the ``mont_mul`` kernel on a card, as the
+        reference's reaches its Pallas kernel on a TPU; its plain version on
+        the CPU."""
+        from .kernels import fp_cuda
+
+        return fp_cuda.mont_mul(self, a, b)
+
+    def mont_mul_plain(self, a: Tensor, b: Tensor) -> Tensor:
+        """``mont_mul`` in plain PyTorch on any device: the plain versions of
+        the kernels build on it."""
         return _i32(self._mont_mul64(_i64(a), _i64(b)))
 
     def sqr(self, a: Tensor) -> Tensor:

@@ -54,6 +54,12 @@ SIGNATURES = {
     "mlt_g1_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel)
+    "mlt_g1_dbladd": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "mlt_g1_maddsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # P, Q, sel, neg, out, n, L, consts, b3, stream
+    "mlt_g1_addselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "mlt_g1_maddselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     # (csrc/pairing_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, out, lanes, L,
     # consts, tower ints, tail words, stream
     "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],

@@ -4,9 +4,11 @@ and of ``pairing_pallas.py _fp_pow_kernel``).
 Two kernels, CUDA C++ in ``csrc/fp_kernels.cu``:
 
 * ``mont_mul`` replaces ``fp_pallas._mont_mul_kernel`` / ``mont_mul_pallas``,
-  which the reference's ``FpCtx.mont_mul`` reaches on a TPU.  On the
-  pairing paths it is the Montgomery entry of the encoded pairs
-  (``FpCtx.to_mont``).
+  which the reference's ``FpCtx.mont_mul`` reaches on a TPU; the port's
+  ``FpCtx.mont_mul``, ``sqr``, ``from_mont`` and ``to_mont`` reach it on a
+  card.  On the pairing paths it is the Montgomery entry of the encoded
+  pairs; on the G1 paths the products of ``G1Ctx.eq``/``to_affine`` and
+  the GLV endomorphism.
 * ``fp_pow`` replaces ``pairing_pallas._fp_pow_kernel`` / ``fp_pow_pallas``,
   behind ``FpCtx.pow_bits`` (``inv``, ``batch_inv``, ``sqrt``); on the BN254
   pairing it is the base-field inverse of the final exponentiation's easy
@@ -31,13 +33,14 @@ Tensor = torch.Tensor
 
 
 def mont_mul_plain(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
-    return fp.mont_mul(a, b)
+    return fp.mont_mul_plain(a, b)
 
 
 def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
-    """a * b * R^-1 mod p for (..., L, B) limb tensors; b is one (L, 1)
-    constant (broadcast over every element of a) or has a's shape.  The
-    result is contiguous, shaped as a."""
+    """a * b * R^-1 mod p for broadcast (..., L, B) limb tensors.  One (L, 1)
+    constant operand goes to the kernel as it is (the product commutes);
+    otherwise both are broadcast to one shape.  The result is contiguous,
+    shaped as the broadcast."""
     if a.device.type == "cpu":
         return mont_mul_plain(fp, a, b)
     L = fp.L
@@ -47,11 +50,13 @@ def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
         raise ValueError(f"mont_mul runs on CPU (plain) or CUDA tensors, got {a.device}, {b.device}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError("limb tensors must be torch.int32")
+    if tuple(a.shape) == (L, 1) and tuple(b.shape) != (L, 1):
+        a, b = b, a
+    if tuple(b.shape) != (L, 1):
+        a, b = torch.broadcast_tensors(a, b)
     if a.dim() < 2 or a.shape[-2] != L:
         raise ValueError(f"expected (..., {L}, B) limbs, got {tuple(a.shape)}")
     const = tuple(b.shape) == (L, 1)
-    if not const and b.shape != a.shape:
-        raise ValueError(f"b must be (L, 1) or a's shape, got {tuple(b.shape)}")
     n = a.shape[-1]
     a3 = a.reshape(-1, L, n).contiguous()
     b3 = b.contiguous() if const else b.reshape(-1, L, n).contiguous()

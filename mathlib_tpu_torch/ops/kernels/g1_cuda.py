@@ -1,23 +1,37 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
-Four kernels, CUDA C++ in ``csrc/g1_kernels.cu``, each behind a wrapper here:
+Eight kernels, CUDA C++ in ``csrc/g1_kernels.cu``, each behind a wrapper here:
 
-=========  ==========================  ======================================
-wrapper    computes                    replaces (TPU kernel)
-=========  ==========================  ======================================
-``add``    P + Q (RCB Alg 7)           ``g1_pallas._add_kernel`` / ``add_pallas``
-``double`` 2P (RCB Alg 9)              ``g1_pallas._double_kernel`` / ``double_pallas``
-``addsel`` select(sel, P + Q, Q)       ``g1_pallas._addsel_kernel`` / ``addsel_pallas``
-``smul``   [k]Q, per-lane scalars      ``g1_pallas._smul_kernel`` / ``smul_pallas``
-=========  ==========================  ======================================
+==============  ================================  ===============================================
+wrapper         computes                          replaces (TPU kernel)
+==============  ================================  ===============================================
+``add``         P + Q (RCB Alg 7)                 ``g1_pallas._add_kernel`` / ``add_pallas``
+``double``      2P (RCB Alg 9)                    ``g1_pallas._double_kernel`` / ``double_pallas``
+``addsel``      select(sel, P + Q, Q)             ``g1_pallas._addsel_kernel`` / ``addsel_pallas``
+``smul``        [k]Q, per-lane scalars            ``g1_pallas._smul_kernel`` / ``smul_pallas``
+``dbladd``      select(sel, 2P + Q, 2P)           ``g1_pallas._dbladd_kernel`` / ``dbladd_pallas``
+``addselneg``   select(sel, P + Q', Q'),          ``g1_pallas._addselneg_kernel`` / ``addselneg_pallas``
+                Q' = neg ? -Q : Q
+``maddsel``     select(sel, P + lift(Q), lift(Q)) ``g1_pallas._maddsel_kernel`` / ``maddsel_pallas``
+                for affine Q (``_madd_rows``)
+``maddselneg``  the mixed add with Q' as above    ``g1_pallas._maddselneg_kernel`` / ``maddselneg_pallas``
+==============  ================================  ===============================================
 
 Each wrapper takes a ``weier.FieldAdapter`` over the port's ``FpCtx`` (with
-``.fp`` and ``.b3``) and int32 point tensors ``(..., 3, L, B)``.  On a CPU
-tensor it returns its plain PyTorch version (``*_plain``, built on
-``ops/field.py`` + ``ops/weier.py``).  On a CUDA tensor it launches its kernel
-on the current stream, adds one to its ``launches`` count, and raises if the
-launch fails; it never falls back.  Leading batch dims are folded into the
-lane axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
+``.fp``, ``.b3`` and ``.plain``, its twin on the plain field product) and
+int32 point tensors ``(..., 3, L, B)`` (affine ``(..., 2, L, B)`` for the
+mixed adds).  On a CPU tensor it returns its plain PyTorch version
+(``*_plain``, built on ``ops/field.py`` + ``ops/weier.py`` with the plain
+product on any device).  On a CUDA tensor it launches its kernel on the
+current stream, adds one to its ``launches`` count, and raises if the launch
+fails; it never falls back.  Leading batch dims are folded into the lane
+axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
+
+The negation of the signed combiners is ``F.sub(0, Y)``, the relaxed
+subtraction (``p2`` added back below zero), not a canonical ``p - Y``.  The
+mixed add follows ``_madd_rows`` operation for operation (11 products), not
+the reference's XLA fallback (lift Q, full add), so its relaxed limbs are
+the TPU kernel's; its unselected output is lift(Q) = (X2, Y2, R mod p).
 """
 
 from __future__ import annotations
@@ -46,12 +60,12 @@ def _inf_like(F, shape: tuple) -> Tensor:
 
 # ------------------------------------------------------------ plain versions --
 def add_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor) -> Tensor:
-    X3, Y3, Z3 = weier.add_complete(F, _unstack(P), _unstack(Q))
+    X3, Y3, Z3 = weier.add_complete(F.plain, _unstack(P), _unstack(Q))
     return torch.stack([X3, Y3, Z3], dim=-3)
 
 
 def double_plain(F: weier.FieldAdapter, P: Tensor) -> Tensor:
-    X3, Y3, Z3 = weier.double_complete(F, _unstack(P))
+    X3, Y3, Z3 = weier.double_complete(F.plain, _unstack(P))
     return torch.stack([X3, Y3, Z3], dim=-3)
 
 
@@ -60,26 +74,94 @@ def addsel_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Te
     return torch.where(sel[..., None, None, :], add_plain(F, P, Q), Q)
 
 
+def dbladd_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
+    D = double_plain(F, P)
+    D, Q = torch.broadcast_tensors(D, Q)
+    return torch.where(sel[..., None, None, :], add_plain(F, D, Q), D)
+
+
+def _neg_y(F, Q: Tensor, neg: Tensor) -> Tensor:
+    """Q with Y replaced by sub(0, Y) on the ``neg`` lanes (X, Z and any
+    further coordinates kept)."""
+    Y = Q[..., 1, :, :]
+    Yn = torch.where(neg[..., None, :], F.fp.sub(torch.zeros_like(Y), Y), Y)
+    return torch.cat([Q[..., :1, :, :], Yn[..., None, :, :], Q[..., 2:, :, :]], dim=-3)
+
+
+def addselneg_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor,
+                    neg: Tensor) -> Tensor:
+    P, Q = torch.broadcast_tensors(P, Q)
+    return addsel_plain(F, P, _neg_y(F, Q, neg), sel)
+
+
+def madd_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor) -> Tensor:
+    """P + lift(Qa) for affine Qa (..., 2, L, B), ``_madd_rows`` operation for
+    operation: t4 = Z1 Y2 + Y1, ln = Z1 X2 + X1, t2b = 3b Z1 (11 products)."""
+    F = F.plain
+    X1, Y1, Z1 = _unstack(P)
+    X2, Y2 = Qa[..., 0, :, :], Qa[..., 1, :, :]
+    t0, t1, s3, zy, zx = F.mul_many([X1, Y1, F.add(X1, Y1), Z1, Z1],
+                                    [X2, Y2, F.add(X2, Y2), Y2, X2])
+    t3 = F.sub(s3, F.add(t0, t1))
+    t4 = F.add(zy, Y1)
+    ln = F.add(zx, X1)
+    t0_3 = F.add(F.add(t0, t0), t0)
+    t2b = F.mul_b3(Z1)
+    lnb = F.mul_b3(ln)
+    z3t = F.add(t1, t2b)
+    t1m = F.sub(t1, t2b)
+    xa, xb, ya, yb, za, zb = F.mul_many([t3, t4, t1m, lnb, z3t, t0_3],
+                                        [t1m, lnb, z3t, t0_3, t4, t3])
+    return torch.stack([F.sub(xa, xb), F.add(ya, yb), F.add(za, zb)], dim=-3)
+
+
+def lift(F, Qa: Tensor) -> Tensor:
+    """Affine (..., 2, L, B) -> projective with Z = 1 in Montgomery form."""
+    one = F.fp.one_mont.to(Qa.device, torch.int32).expand(Qa.shape[:-3] + Qa.shape[-2:])
+    return torch.cat([Qa, one[..., None, :, :]], dim=-3)
+
+
+def _affine_like(P: Tensor, Qa: Tensor) -> Tensor:
+    return Qa.expand(P.shape[:-3] + (2,) + P.shape[-2:])
+
+
+def maddsel_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor) -> Tensor:
+    Qa = _affine_like(P, Qa)
+    return torch.where(sel[..., None, None, :], madd_plain(F, P, Qa), lift(F, Qa))
+
+
+def maddselneg_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor,
+                     neg: Tensor) -> Tensor:
+    return maddsel_plain(F, P, _neg_y(F, _affine_like(P, Qa), neg), sel)
+
+
 def _acc_shape(Q: Tensor, scalars: Tensor) -> tuple:
     lanes = torch.broadcast_shapes(Q.shape[-1:], scalars.shape[-1:])
     lead = torch.broadcast_shapes(Q.shape[:-3], scalars.shape[:-2])
     return lead + Q.shape[-3:-1] + lanes
 
 
+def scalar_bit(scalars: Tensor, i: int) -> Tensor:
+    """Bit i of batched 16-bit scalar limbs (..., S, B) -> (..., B) bool."""
+    return ((scalars[..., i // 16, :] >> (i % 16)) & 1) != 0
+
+
 def smul_plain(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tensor:
     """[k]Q: MSB-first double-and-add from infinity, select per lane."""
     acc = _inf_like(F, _acc_shape(Q, scalars))
     for i in range(nbits - 1, -1, -1):
-        bit = ((scalars[..., i // 16, :] >> (i % 16)) & 1) != 0
+        bit = scalar_bit(scalars, i)
         D = double_plain(F, acc)
         acc = torch.where(bit[..., None, None, :], add_plain(F, D, Q), D)
     return acc
 
 
 # ------------------------------------------------------------------ launches --
-def _check(F, *points: Tensor, scalars: Optional[Tensor] = None) -> None:
+def _check(F, *points: Tensor, scalars: Optional[Tensor] = None,
+           affine: Optional[Tensor] = None) -> None:
     """Refuse what the kernels do not take: a limb count other than 16 or 24,
-    points not shaped (..., 3, L, B), dtypes other than int32, mixed devices."""
+    points not shaped (..., 3, L, B) (affine: (..., 2, L, B)), dtypes other
+    than int32, mixed devices."""
     L = F.fp.L
     if L not in (16, 24):
         raise ValueError(
@@ -88,7 +170,9 @@ def _check(F, *points: Tensor, scalars: Optional[Tensor] = None) -> None:
     for t in points:
         if t.shape[-3:-1] != (3, L):
             raise ValueError(f"points must be (..., 3, {L}, B), got {tuple(t.shape)}")
-    tensors = points if scalars is None else points + (scalars,)
+    if affine is not None and affine.shape[-3:-1] != (2, L):
+        raise ValueError(f"affine points must be (..., 2, {L}, B), got {tuple(affine.shape)}")
+    tensors = points + tuple(t for t in (scalars, affine) if t is not None)
     for t in tensors:
         if t.device != points[0].device:
             raise ValueError("all operands must be on one device")
@@ -97,7 +181,7 @@ def _check(F, *points: Tensor, scalars: Optional[Tensor] = None) -> None:
 
 
 def _to_lanes(P: Tensor):
-    """(..., 3, L, B) -> ((3, L, n) contiguous, restore)."""
+    """(..., k, L, B) -> ((k, L, n) contiguous, restore)."""
     shape = P.shape
     flat = P.movedim((-3, -2), (0, 1)).reshape(shape[-3], shape[-2], -1).contiguous()
     if flat.shape[-1] >= 1 << 31:
@@ -112,6 +196,32 @@ def _to_lanes(P: Tensor):
 def _require_cuda(t: Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"G1 kernels run on CPU (plain) or CUDA tensors, got {t.device}")
+
+
+def _lane_mask(m: Tensor, P: Tensor, what: str) -> Tensor:
+    """A (..., B) bool mask, broadcast to P's lanes, flat and contiguous."""
+    m = m.to(torch.bool).expand(P.shape[:-3] + P.shape[-1:]).reshape(-1).contiguous()
+    if m.device != P.device:
+        raise ValueError(f"{what} must be on the points' device")
+    return m
+
+
+def _launch_sel(kernel, name: str, F, P: Tensor, Q: Tensor, masks, affine: bool) -> Tensor:
+    """Launch one of the select kernels: points P (..., 3, L, B), Q projective
+    or affine, and the bool lane masks ``masks`` (sel, then neg)."""
+    _check(F, P, *(() if affine else (Q,)), affine=Q if affine else None)
+    flat = [_lane_mask(m, P, what) for m, what in zip(masks, ("sel", "neg"))]
+    P2, restore = _to_lanes(P)
+    Q2, _ = _to_lanes(Q)
+    out = torch.empty_like(P2)
+    n = P2.shape[-1]
+    if n:
+        with torch.cuda.device(P.device):
+            build.launch(name, P2.data_ptr(), Q2.data_ptr(), *(m.data_ptr() for m in flat),
+                         out.data_ptr(), n, F.fp.L,
+                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(P))
+        kernel.launches += 1
+    return restore(out)
 
 
 def add(F: weier.FieldAdapter, P: Tensor, Q: Tensor) -> Tensor:
@@ -158,21 +268,7 @@ def addsel(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
         return addsel_plain(F, P, Q, sel)
     _require_cuda(P)
     P, Q = torch.broadcast_tensors(P, Q)
-    _check(F, P, Q)
-    sel = sel.to(torch.bool).expand(P.shape[:-3] + P.shape[-1:]).reshape(-1).contiguous()
-    if sel.device != P.device:
-        raise ValueError("sel must be on the points' device")
-    P2, restore = _to_lanes(P)
-    Q2, _ = _to_lanes(Q)
-    out = torch.empty_like(P2)
-    n = P2.shape[-1]
-    if n:
-        with torch.cuda.device(P.device):
-            build.launch("mlt_g1_addsel", P2.data_ptr(), Q2.data_ptr(), sel.data_ptr(),
-                         out.data_ptr(), n, F.fp.L,
-                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(P))
-        addsel.launches += 1
-    return restore(out)
+    return _launch_sel(addsel, "mlt_g1_addsel", F, P, Q, (sel,), affine=False)
 
 
 def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tensor:
@@ -200,8 +296,47 @@ def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tenso
     return restore(out)
 
 
+def dbladd(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
+    """select(sel, 2P + Q, 2P), sel a (..., B) bool tensor: one scalar-mul
+    step in one launch."""
+    if P.device.type == "cpu":
+        return dbladd_plain(F, P, Q, sel)
+    _require_cuda(P)
+    P, Q = torch.broadcast_tensors(P, Q)
+    return _launch_sel(dbladd, "mlt_g1_dbladd", F, P, Q, (sel,), affine=False)
+
+
+def addselneg(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
+    """select(sel, P + Q', Q') with Q' = neg ? (X, sub(0, Y), Z) : Q: the
+    signed-digit scan combiner."""
+    if P.device.type == "cpu":
+        return addselneg_plain(F, P, Q, sel, neg)
+    _require_cuda(P)
+    P, Q = torch.broadcast_tensors(P, Q)
+    return _launch_sel(addselneg, "mlt_g1_addselneg", F, P, Q, (sel, neg), affine=False)
+
+
+def maddsel(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor) -> Tensor:
+    """select(sel, P + lift(Qa), lift(Qa)) for affine Qa (..., 2, L, B): the
+    mixed-add scan combiner.  Qa must not be the (0, 0) of infinity on a
+    selected lane (the MSM zeroes the scalars of infinity inputs)."""
+    if P.device.type == "cpu":
+        return maddsel_plain(F, P, Qa, sel)
+    _require_cuda(P)
+    return _launch_sel(maddsel, "mlt_g1_maddsel", F, P, _affine_like(P, Qa), (sel,), affine=True)
+
+
+def maddselneg(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
+    """The mixed-add combiner with the signed combiner's negation of Y."""
+    if P.device.type == "cpu":
+        return maddselneg_plain(F, P, Qa, sel, neg)
+    _require_cuda(P)
+    return _launch_sel(maddselneg, "mlt_g1_maddselneg", F, P, _affine_like(P, Qa), (sel, neg),
+                       affine=True)
+
+
 # launch counts: a plain integer on each wrapper, raised only where it launches
-KERNELS = (add, double, addsel, smul)
+KERNELS = (add, double, addsel, smul, dbladd, addselneg, maddsel, maddselneg)
 
 
 def reset_launches() -> None:

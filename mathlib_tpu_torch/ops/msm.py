@@ -22,19 +22,24 @@ plain int64 value here).  Sorts are stable, as ``jnp.argsort`` is, so ties
 add in the reference's order and every window total comes out as the same
 projective representative, limb for limb.
 
-Only the main path's options are ported: unsigned digits, dense capture and
-projective points.  Signed digits, GLV, ``capture="scatter"`` and affine
-``(2, L, N)`` points raise ``NotImplementedError`` (see ROADMAP).
+The options of the reference are ported with it: signed (balanced) digits
+(``signed=True``, the ``add_select_neg`` combiner, half the buckets), affine
+``(2, L, N)`` points (the mixed-add combiners ``madd_select(_neg)``), the
+GLV split on BLS12 curves (``glv=True``: 2N points with 128-bit
+sub-scalars, ``GlvCtx``), and the host bridge behind the API's
+``MultiScalarMul`` (``msm_host_bridge``).  Only ``capture="scatter"`` (the
+in-scan scatter) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .field import LIMB_BITS
-from .g1 import G1Ctx
+from .field import LIMB_BITS, _conv, _normalize, _pad_top
+from .g1 import G1Ctx, get_g1_ctx
 
 Tensor = torch.Tensor
 
@@ -53,6 +58,30 @@ def _digits(scalars: Tensor, c: int, nwin: int) -> Tensor:
         for w in range(nwin)
     ]
     return torch.stack(wins).to(torch.int64)
+
+
+def _signed_digits(scalars: Tensor, c: int, nwin: int, nbits: Optional[int] = None):
+    """Balanced (signed) window digits: k = sum_w d_w 2^(cw) with d_w in
+    [-(2^(c-1)-1), 2^(c-1)].
+
+    Returns (abs, neg): int64 magnitudes in [0, 2^(c-1)] and bool sign flags,
+    (nwin, N) -- or (nwin + 1, N) when scalars may reach 2^(c*nwin - 1)
+    (``nbits`` None or >= c*nwin), where the extra top window holds the
+    outgoing carry."""
+    raw = _digits(scalars, c, nwin)  # (nwin, N) in [0, 2^c)
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros_like(raw[0])
+    absd, neg = [], []
+    for d in raw:
+        t = d + carry
+        ng = t > half
+        absd.append(torch.where(ng, full - t, t))
+        neg.append(ng)
+        carry = ng.to(raw.dtype)
+    if nbits is None or nbits >= c * nwin:
+        absd.append(carry)
+        neg.append(torch.zeros_like(neg[0]))
+    return torch.stack(absd), torch.stack(neg)
 
 
 def _seg_scan_inclusive(g1: G1Ctx, keys: Tensor, pts: Tensor, K: int = 64) -> Tensor:
@@ -106,23 +135,42 @@ def _seg_scan_inclusive(g1: G1Ctx, keys: Tensor, pts: Tensor, K: int = 64) -> Te
     return local[..., :N] if pad else local
 
 
-def _bucket_table(g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64) -> Tensor:
-    """Bucket sums for all windows: (3, L, W, B), B = 2^c, bucket = digit
-    (bucket 0 is computed but unused downstream).
+def _bucket_table(
+    g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64, neg: Optional[Tensor] = None
+) -> Tensor:
+    """Bucket sums for all windows: (3, L, W, B).
 
-    points: (3, L, N) projective; digits: (W, N).  Dense capture: the scan
-    emits every step's running sums into a capture buffer; segment-end
-    positions come from the sorted keys alone, so the bucket table is ONE
-    row gather from that buffer after the scan.
+    points: (3, L, N) projective, or (2, L, N) affine (the mixed-add
+    combiners; infinity inputs must carry zero digits); digits: (W, N).
+    Unsigned (neg None): digits in [0, 2^c), B = 2^c buckets indexed by
+    digit (bucket 0 is computed but unused downstream).  Signed: digits are
+    |d| in [0, 2^(c-1)] with ``neg`` (W, N) sign flags, B = 2^(c-1) buckets
+    indexed by |d| - 1 (|d| = 0 contributes nothing), and the gathered
+    point's Y is negated inside the combiner.
+
+    Dense capture: the scan emits every step's running sums into a capture
+    buffer; segment-end positions come from the sorted keys alone, so the
+    bucket table is ONE row gather from that buffer after the scan.
     """
     W, N = digits.shape
     L = points.shape[-2]
-    B = 1 << c
-    R = 3 * L  # words per point row
+    signed = neg is not None
+    B = 1 << (c - 1) if signed else 1 << c
+    lo = 1 if signed else 0  # smallest digit that owns a bucket
+    RP = points.shape[-3] * L  # words per GATHERED point row (2L affine)
+    R = 3 * L  # words per accumulator/bucket row (projective)
+    mixed = points.shape[-3] == 2
     dev = points.device
 
-    order = torch.argsort(digits, dim=1, stable=True)  # (W, N)
-    keys = torch.gather(digits, 1, order)
+    # signed: the sign rides in bit 0 of the sort key, so one stable sort
+    # gives consistent (|d|, neg) pairs
+    key = (digits << 1) | neg.to(digits.dtype) if signed else digits
+    order = torch.argsort(key, dim=1, stable=True)  # (W, N)
+    keys = torch.gather(key, 1, order)
+    negs = None
+    if signed:
+        negs = (keys & 1) != 0
+        keys = keys >> 1
 
     pad = (-N) % K
     NP = N + pad
@@ -132,11 +180,13 @@ def _bucket_table(g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64
         )
         # gathered points for sentinel keys are never used
         order = torch.cat([order, torch.zeros((W, pad), dtype=order.dtype, device=dev)], dim=1)
+        if signed:
+            negs = torch.cat([negs, torch.zeros((W, pad), dtype=torch.bool, device=dev)], dim=1)
     C = NP // K
     win_ids = torch.arange(W, device=dev)[:, None]
 
     def bucket_of(k):  # digit -> flat bucket index (W*B = out of range)
-        return torch.where((k >= 0) & (k < B), win_ids * B + k, W * B)
+        return torch.where((k >= lo) & (k - lo < B), win_ids * B + (k - lo), W * B)
 
     # last element of each segment (flat sorted order)
     is_last = torch.cat(
@@ -149,10 +199,22 @@ def _bucket_table(g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64
 
     keys_t = to_steps(keys)
     order_t = to_steps(order)
+    negs_t = to_steps(negs) if signed else None
 
     # point-major copy for the streaming gather: one row = one point
-    points_rows = points.reshape(R, N).T.contiguous()  # (N, R)
+    # (affine rows when mixed: 2L words instead of 3L)
+    points_rows = points.reshape(RP, N).T.contiguous()  # (N, RP)
     inf_row = g1.inf.reshape(R)
+
+    def combine(run, gathered, sel, ng):
+        """One segmented-scan step on freshly gathered points."""
+        if mixed:
+            if signed:
+                return g1.madd_select_neg(run, gathered, sel, ng)
+            return g1.madd_select(run, gathered, sel)
+        if signed:
+            return g1.add_select_neg(run, gathered, sel, ng)
+        return g1.add_select(run, gathered, sel)
 
     # flat index into the (K, W*C) capture buffer of the running sum AT
     # sorted position (w, i): i = chunk*K + step
@@ -171,8 +233,8 @@ def _bucket_table(g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64
     ck = torch.full((W * C,), _SENTINEL, dtype=keys.dtype, device=dev)
     run = g1.inf.expand(3, L, W * C)
     for s in range(K):
-        gathered = points_rows[order_t[s]].T.reshape(3, L, W * C)
-        ys[s] = g1.add_select(run, gathered, keys_t[s] == ck)
+        gathered = points_rows[order_t[s]].T.reshape(points.shape[-3], L, W * C)
+        ys[s] = combine(run, gathered, keys_t[s] == ck, negs_t[s] if signed else None)
         run, ck = ys[s], keys_t[s]
 
     flat = pos.clamp(max=K * W * C - 1)
@@ -197,9 +259,9 @@ def _bucket_table(g1: G1Ctx, points: Tensor, digits: Tensor, c: int, K: int = 64
             dim=1,
         )
         ends_here = first_key != next_first
-        in_range = (first_key >= 0) & (first_key < B)
+        in_range = (first_key >= lo) & (first_key - lo < B)
         fix = (valid & ends_here & in_range).reshape(-1)
-        tgt = (win_ids * B + first_key).reshape(-1)[fix]  # distinct buckets
+        tgt = (win_ids * B + first_key - lo).reshape(-1)[fix]  # distinct buckets
         cur = bucket_rows[tgt].T.reshape(3, L, -1)
         carry_flat = carry_pt.movedim(0, -2).reshape(3, L, W * C)[..., fix]
         bucket_rows[tgt] = g1.add(cur, carry_flat).reshape(R, -1).T
@@ -272,23 +334,22 @@ def _weighted_bucket_sum_bits(g1: G1Ctx, buckets: Tensor, c: int) -> Tensor:
     return acc
 
 
-def n_windows(g1: G1Ctx, c: int, nbits: Optional[int] = None) -> int:
-    """Static window count of the (unsigned) bucket table."""
-    return -(-(nbits or g1.nbits) // c)
+def n_windows(g1: G1Ctx, c: int, signed: bool = False, nbits: Optional[int] = None) -> int:
+    """Static window count of the bucket table (with the signed-carry window
+    when the scalars can fill the top window, e.g. GLV's 128-bit halves)."""
+    nbits = nbits or g1.nbits
+    nwin = -(-nbits // c)
+    if signed and nbits >= c * nwin:
+        nwin += 1
+    return nwin
 
 
-def _check_ported(c: int, points: Tensor, signed: bool, glv: bool, capture: str) -> None:
-    """Raise for the options only the reference has (see ROADMAP)."""
+def _check_ported(c: int, capture: str) -> None:
+    """Raise for what only the reference has (see ROADMAP)."""
     if LIMB_BITS % c:
         raise ValueError(f"window bits c={c} must divide {LIMB_BITS}")
     if capture not in ("auto", "dense"):
         raise NotImplementedError(f"capture={capture!r}: only dense capture is ported")
-    if signed:
-        raise NotImplementedError("signed digits are not ported yet (ROADMAP)")
-    if glv:
-        raise NotImplementedError("the GLV split is not ported yet (ROADMAP)")
-    if points.shape[-3] != 3:
-        raise NotImplementedError("affine (2, L, N) points are not ported yet (ROADMAP)")
 
 
 def _capture_limit(capture: str, limit: Optional[int] = None) -> Optional[int]:
@@ -300,20 +361,25 @@ def _capture_limit(capture: str, limit: Optional[int] = None) -> Optional[int]:
 
 
 def _split_table(
-    g1: G1Ctx, points: Tensor, scalars: Tensor, c: int, K: int, limit: Optional[int], nbits: int
+    g1: G1Ctx, points: Tensor, scalars: Tensor, c: int, K: int, limit: Optional[int], nbits: int,
+    signed: bool,
 ) -> Tensor:
     """``bucket_table``'s body.  While the dense-capture buffer would reach
     ``limit`` bytes (None: never), split the points in half -- bucket tables
     are pointwise-addable -- and recurse with half the default budget."""
-    nwin = n_windows(g1, c, nbits)
+    nwin = -(-nbits // c)
     N = points.shape[-1]
     NP = N + ((-N) % K)  # _bucket_table pads to a K multiple
-    if limit is not None and N % 2 == 0 and NP * nwin * 3 * g1.fp.L * 4 >= limit:
+    nwin_eff = n_windows(g1, c, signed, nbits)
+    if limit is not None and N % 2 == 0 and NP * nwin_eff * 3 * g1.fp.L * 4 >= limit:
         h, half = N // 2, _DENSE_CAPTURE_LIMIT // 2
-        t0 = _split_table(g1, points[..., :h], scalars[..., :h], c, K, half, nbits)
-        t1 = _split_table(g1, points[..., h:], scalars[..., h:], c, K, half, nbits)
+        t0 = _split_table(g1, points[..., :h], scalars[..., :h], c, K, half, nbits, signed)
+        t1 = _split_table(g1, points[..., h:], scalars[..., h:], c, K, half, nbits, signed)
         L, W, B = t0.shape[1], t0.shape[-2], t0.shape[-1]
         return g1.add(t0.reshape(3, L, W * B), t1.reshape(3, L, W * B)).reshape(3, L, W, B)
+    if signed:
+        absd, neg = _signed_digits(scalars, c, nwin, nbits=nbits)
+        return _bucket_table(g1, points, absd, c, K=K, neg=neg)
     return _bucket_table(g1, points, _digits(scalars, c, nwin), c, K=K)
 
 
@@ -328,21 +394,176 @@ def bucket_table(
     _limit: Optional[int] = None,
     nbits: Optional[int] = None,
 ) -> Tensor:
-    """Stage 1 of Pippenger: per-window bucket sums, (3, L, nwin, 2^c).
+    """Stage 1 of Pippenger: per-window bucket sums, (3, L, nwin, 2^c)
+    unsigned (bucket = digit) or (3, L, nwin, 2^(c-1)) signed (bucket b =
+    magnitude b+1).  Points are projective (3, L, N) or affine (2, L, N)
+    (mixed-add scan; the caller zeroes the scalars of infinity inputs).
 
     ``capture="auto"`` splits the points while the capture buffer would
     reach ``_limit`` bytes (default ``_DENSE_CAPTURE_LIMIT``); ``"dense"``
     never splits."""
-    _check_ported(c, points, signed, False, capture)
+    _check_ported(c, capture)
     limit = _capture_limit(capture, _limit)
-    return _split_table(g1, points, scalars, c, K, limit, nbits or g1.nbits)
+    return _split_table(g1, points, scalars, c, K, limit, nbits or g1.nbits, signed)
 
 
 def window_totals(g1: G1Ctx, buckets: Tensor, c: int, signed: bool = False) -> Tensor:
-    """Stage 2: weighted bucket sums per window, (3, L, nwin)."""
-    if signed:
-        raise NotImplementedError("signed digits are not ported yet (ROADMAP)")
-    return _weighted_bucket_sum(g1, buckets, c)
+    """Stage 2: weighted bucket sums per window, (3, L, nwin).
+
+    Unsigned: sum_b b * S_b over B = 2^c.  Signed: bucket b holds the
+    magnitude-(b+1) sum, so the total is (sum_b b S_b) + (sum_b S_b): the
+    weighted sum over half the buckets plus one plain tree reduction."""
+    if not signed:
+        return _weighted_bucket_sum(g1, buckets, c)
+    L = buckets.shape[1]
+    W, B = buckets.shape[-2], buckets.shape[-1]
+    if B != 1 << (c - 1):
+        raise ValueError(f"a signed table has 2^(c-1) = {1 << (c - 1)} buckets, got {B}")
+    weighted = _weighted_bucket_sum(g1, buckets, c - 1)
+    plain = _tree_reduce_last(g1, buckets.reshape(3, L, W * B), B)
+    return g1.add(weighted, plain)
+
+
+# ---------------------------------------------------------------------------
+# GLV: k = k2 * lam + k1 by exact device divmod (BLS12: lam = x^2 - 1, so the
+# plain quotient/remainder split is balanced at ~sqrt(r) with NO signs)
+# ---------------------------------------------------------------------------
+
+
+def _limb_col(x: int, n: int) -> np.ndarray:
+    """x as an (n, 1) column of 16-bit limbs."""
+    return np.array([(x >> (LIMB_BITS * k)) & 0xFFFF for k in range(n)], dtype=np.uint32)[:, None]
+
+
+class GlvCtx:
+    """Device GLV split for BLS12 G1 (endomorphism phi(P) = (beta x, y)).
+
+    With lam = x^2 - 1 and r = x^4 - x^2 + 1, k = k2*lam + k1 gives
+    0 <= k1 < lam < 2^128 and 0 <= k2 <= x^2 < 2^128: balanced halves
+    without lattice rounding or signs.  The split is exact integer Barrett
+    on the limb convolution of ``ops/field.py``; beta is the cube root of
+    unity with [lam]G = (beta gx, gy) on the host engine."""
+
+    def __init__(self, g1: G1Ctx):
+        from ..curves.params import Family
+        from ..host import get_engine
+
+        spec = g1.spec
+        if spec.family != Family.BLS12:
+            raise ValueError("device GLV split: BLS12 curves only")
+        lam = (spec.x * spec.x - 1) % spec.r
+        if (lam * lam + lam + 1) % spec.r:
+            raise ValueError("lam is not a cube root of unity mod r")
+        gx, gy = spec.g1_gen
+        want = get_engine(spec).g1.mul(spec.g1_gen, lam)
+        p = spec.p
+        beta = next((b for b in self._cube_roots(p) if (gx * b % p, gy) == want), None)
+        if beta is None:
+            raise ValueError("no beta matches the lam eigenvalue")
+        self.lam, self.beta = lam, beta
+        self.g1 = g1
+        self.nbits = 128
+        self.SL = self.nbits // LIMB_BITS  # 8 sub-scalar limbs
+        S = g1.fr.L
+        # Barrett: mu = floor(2^(16*S) / lam) (k < 2^(16*S) gives q_hat in
+        # {q-2, q-1, q}); the quotient q <= x^2 < 2^128
+        self.shift_limbs = S
+        mu = (1 << (LIMB_BITS * S)) // lam
+        self.mu = _limb_col(mu, -(-mu.bit_length() // LIMB_BITS))
+        self.lam_limbs = _limb_col(lam, self.SL)
+        self.beta_mont = g1.fp.encode(beta)  # (L, 1) on the context's device
+        dev = g1.device
+        self._mu = torch.from_numpy(self.mu.astype(np.int64)).to(dev)
+        self._lam = torch.from_numpy(self.lam_limbs.astype(np.int64)).to(dev)
+
+    @staticmethod
+    def _cube_roots(m: int) -> list:
+        """The roots of z^2 + z + 1 mod m: (-1 +- sqrt(-3)) / 2."""
+        from ..curves.params import _fp_sqrt
+
+        s = _fp_sqrt(m - 3, m)  # Tonelli-Shanks where m = 1 mod 4 (BLS12-377)
+        if s is None:
+            return []
+        inv2 = pow(2, -1, m)
+        return [((-1 + s) * inv2) % m, ((-1 - s) * inv2) % m]
+
+    @staticmethod
+    def _sub_limbs(a: Tensor, b: Tensor, n: int) -> Tensor:
+        """a - b on (n, N) canonical int64 16-bit limbs, a >= b."""
+        out, borrow = [], torch.zeros_like(a[0])
+        for k in range(n):
+            v = a[k] + 0x10000 - (b[k] if k < b.shape[0] else 0) - borrow
+            out.append(v & 0xFFFF)
+            borrow = 1 - (v >> 16)
+        return torch.stack(out)
+
+    @staticmethod
+    def _geq(a: Tensor, b: Tensor, n: int) -> Tensor:
+        """a >= b (b an (m, 1) limb column), lexicographic from the top."""
+        ge = torch.ones(a.shape[1:], dtype=torch.bool, device=a.device)
+        decided = torch.zeros_like(ge)
+        for k in range(n - 1, -1, -1):
+            bv = b[k] if k < b.shape[0] else torch.zeros_like(b[0])
+            ne = a[k] != bv
+            ge = torch.where(~decided & ne, a[k] > bv, ge)
+            decided = decided | ne
+        return ge
+
+    def split(self, scalars: Tensor):
+        """(S, N) canonical limbs of k in [0, r) -> (k1, k2) int32, each
+        (SL, N), with k = k2*lam + k1 exactly and both < 2^128."""
+        S = self.g1.fr.L
+        k = scalars.to(torch.int64)
+        # q_hat = floor(k * mu / 2^(16*S)), at most 2 below the true q
+        prod = _normalize(_pad_top(_conv(k, self._mu)))
+        q = prod[self.shift_limbs : self.shift_limbs + self.SL]
+        # rem = k - q*lam (non-negative, fits S limbs)
+        ql = _conv(q, self._lam)
+        ql = _normalize(_pad_top(ql, max(1, S - ql.shape[0])))[:S]
+        rem = self._sub_limbs(k, ql, S)
+        # at most two corrections: rem >= lam -> rem -= lam, q += 1
+        for _ in range(2):
+            fix = self._geq(rem, self._lam, S)
+            rem = torch.where(fix[None, :], self._sub_limbs(rem, self._lam, S), rem)
+            carry = fix.to(torch.int64)
+            qf = []
+            for j in range(self.SL):
+                v = q[j] + carry
+                qf.append(v & 0xFFFF)
+                carry = v >> 16
+            q = torch.stack(qf)
+        return rem[: self.SL].to(torch.int32), q.to(torch.int32)
+
+    def endo_points(self, points: Tensor) -> Tensor:
+        """phi(P): X scaled by beta (the ``mont_mul`` kernel on a card) --
+        exact on affine (beta x, y) and projective (beta X : Y : Z) alike."""
+        X = self.g1.fp.mont_mul(points[..., 0, :, :], self.beta_mont)
+        return torch.cat([X[..., None, :, :], points[..., 1:, :, :]], dim=-3)
+
+
+_GLV_CACHE: dict = {}
+
+
+def get_glv_ctx(g1: G1Ctx) -> GlvCtx:
+    key = (g1.spec.name, g1.device)
+    ctx = _GLV_CACHE.get(key)
+    if ctx is None:
+        ctx = _GLV_CACHE[key] = GlvCtx(g1)
+    return ctx
+
+
+def _glv_table(g1: G1Ctx, points: Tensor, scalars: Tensor, c: int, signed: bool, K: int,
+               capture: str) -> Tensor:
+    """The bucket table of the GLV split: 2N points (P, phi(P)) with the
+    128-bit halves (k1, k2).  Infinity projective inputs get zero scalars, so
+    both halves vanish."""
+    gl = get_glv_ctx(g1)
+    if points.shape[-3] == 3:
+        scalars = torch.where(g1.is_inf(points)[None, :], 0, scalars)
+    k1, k2 = gl.split(scalars)
+    pts2 = torch.cat([points, gl.endo_points(points)], dim=-1)
+    return bucket_table(g1, pts2, torch.cat([k1, k2], dim=-1), c, signed=signed, K=K,
+                        capture=capture, nbits=gl.nbits)
 
 
 def horner_windows(g1: G1Ctx, totals: Tensor, c: int) -> Tensor:
@@ -368,8 +589,8 @@ def msm(
 ) -> Tensor:
     """Pippenger MSM: sum_i [scalars_i] points_i.
 
-    points: (3, L, N) projective; scalars: (S, N) plain 16-bit limbs.
-    ``c`` must divide 16.  Returns a single (3, L, 1) point."""
+    points: (3, L, N) projective or (2, L, N) affine; scalars: (S, N) plain
+    16-bit limbs.  ``c`` must divide 16.  Returns a single (3, L, 1) point."""
     totals = msm_totals(g1, points, scalars, c=c, signed=signed, K=K, capture=capture, glv=glv)
     return horner_windows(g1, totals, c)
 
@@ -385,10 +606,14 @@ def msm_totals(
     glv: bool = False,
 ) -> Tensor:
     """The device part of the host-Horner MSM split: per-window totals
-    (3, L, nwin).  Finish with ``horner_host``."""
-    _check_ported(c, points, signed, glv, capture)
-    buckets = _split_table(g1, points, scalars, c, K, _capture_limit(capture), g1.nbits)
-    return _weighted_bucket_sum(g1, buckets, c)
+    (3, L, nwin).  Finish with ``horner_host``.  ``glv`` (BLS12 curves)
+    halves the windows for twice the points."""
+    _check_ported(c, capture)
+    if glv:
+        buckets = _glv_table(g1, points, scalars, c, signed, K, capture)
+    else:
+        buckets = bucket_table(g1, points, scalars, c, signed=signed, K=K, capture=capture)
+    return window_totals(g1, buckets, c, signed=signed)
 
 
 def horner_host(g1: G1Ctx, totals, c: int) -> Optional[tuple]:
@@ -424,3 +649,32 @@ def auto_window(n: int, nbits: int = 255) -> int:
         if cost < best_cost:
             best, best_cost = c, cost
     return best
+
+
+def auto_glv(spec, n: int) -> bool:
+    """The reference's GLV rule: on for BLS12 curves up to 2^17 points (its
+    measured crossover, where the O(W 2^c) tail stops dominating)."""
+    from ..curves.params import Family
+
+    return spec.family == Family.BLS12 and n <= (1 << 17)
+
+
+def msm_host_bridge(spec, points, scalars, device=None):
+    """Host-level MSM: list of affine points (None = infinity) + int scalars
+    -> affine point (None = infinity), on the card unless ``device="cpu"``.
+
+    Pads n up to a power of two >= 64 with infinity, zeroes the scalars of
+    every infinity entry ([k]inf = inf), encodes the points affine (the
+    mixed-add scan), and runs ``msm`` with ``auto_window`` and ``auto_glv``
+    of the padded size.  Backs the API's ``MultiScalarMul`` for n >= 64."""
+    g1 = get_g1_ctx(spec, device)
+    n = len(points)
+    if len(scalars) != n:
+        raise ValueError("points and scalars differ in length")
+    n_pad = 1 << max(6, (n - 1).bit_length())
+    pts = list(points) + [None] * (n_pad - n)
+    scs = [0 if P is None else int(k) for P, k in zip(pts, list(scalars) + [0] * (n_pad - n))]
+    c = auto_window(n_pad, g1.nbits)
+    out = msm(g1, g1.encode_points_affine(pts), g1.encode_scalars(scs), c=c,
+              glv=auto_glv(spec, n_pad))
+    return g1.decode_point(out)

@@ -84,13 +84,24 @@ def test_kernel_wrappers_refuse_other_devices():
         g1_cuda.addsel(g1.F, P, P, torch.ones(1, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError):
         g1_cuda.smul(g1.F, P, g1.encode_scalars([3]).to("meta"), g1.nbits)
+    sel = torch.ones(1, dtype=torch.bool, device="meta")
+    for fn, args in ((g1_cuda.dbladd, (P, P, sel)), (g1_cuda.addselneg, (P, P, sel, sel)),
+                     (g1_cuda.maddsel, (P, P[:2], sel)), (g1_cuda.maddselneg, (P, P[:2], sel, sel))):
+        with pytest.raises(ValueError):
+            fn(g1.F, *args)
 
 
 def test_plain_versions_launch_nothing():
     g1 = G1Ctx(get_spec("BLS12_381"), "cpu")
     g1_cuda.reset_launches()
-    g1.add_select(g1.gen, g1.gen, torch.ones(1, dtype=torch.bool))
-    assert g1_cuda.launches() == {"add": 0, "double": 0, "addsel": 0, "smul": 0}
+    one = torch.ones(1, dtype=torch.bool)
+    g1.add_select(g1.gen, g1.gen, one)
+    g1.dbl_add_select(g1.gen, g1.gen, one)
+    g1.add_select_neg(g1.gen, g1.gen, one, one)
+    g1.madd_select(g1.gen, g1.gen[:2], one)
+    g1.madd_select_neg(g1.gen, g1.gen[:2], one, one)
+    assert g1_cuda.launches() == {"add": 0, "double": 0, "addsel": 0, "smul": 0, "dbladd": 0,
+                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0}
 
 
 def _fake_nvcc(tmp_path, body):

@@ -53,7 +53,81 @@ def test_kernels_equal_plain_versions(ctx):
     assert torch.equal(
         g1_cuda.smul(F, S[..., :32], ks, g1.nbits), g1_cuda.smul_plain(F, S[..., :32], ks, g1.nbits)
     )
-    assert g1_cuda.launches() == {"add": 1, "double": 1, "addsel": 1, "smul": 1}
+    assert g1_cuda.launches() == {"add": 1, "double": 1, "addsel": 1, "smul": 1, "dbladd": 0,
+                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0}
+
+
+def test_msm_option_kernels_equal_plain_versions(ctx):
+    """dbladd, addselneg, maddsel and maddselneg against their plain versions
+    on relaxed inputs with the edge lanes P = inf, P = lift(Q), P = -lift(Q)."""
+    eng, g1 = ctx
+    F = g1.F
+    n = 1000
+    rng = np.random.default_rng(7)
+    pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 31)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        A[i] = B[i]
+    for i in range(3, n, 11):
+        A[i] = eng.g1.neg(B[i])
+    for i in range(5, n, 13):
+        A[i] = None
+    P = g1.add(g1.encode_points(A), g1.encode_points(B))  # relaxed [0, 2p)
+    Q, Qa = g1.encode_points(B), g1.encode_points_affine(B)
+    sel = torch.from_numpy(rng.random(n) < 0.8).to(P.device)
+    neg = torch.from_numpy(rng.random(n) < 0.5).to(P.device)
+    g1_cuda.reset_launches()
+    pairs = [
+        (g1_cuda.dbladd(F, P, Q, sel), g1_cuda.dbladd_plain(F, P, Q, sel)),
+        (g1_cuda.addselneg(F, P, Q, sel, neg), g1_cuda.addselneg_plain(F, P, Q, sel, neg)),
+        (g1_cuda.maddsel(F, P, Qa, sel), g1_cuda.maddsel_plain(F, P, Qa, sel)),
+        (g1_cuda.maddselneg(F, P, Qa, sel, neg), g1_cuda.maddselneg_plain(F, P, Qa, sel, neg)),
+    ]
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    counts = g1_cuda.launches()
+    assert [counts[k] for k in ("dbladd", "addselneg", "maddsel", "maddselneg")] == [1, 1, 1, 1]
+
+
+def test_field_product_and_affine_run_on_the_kernels(ctx):
+    """FpCtx.mont_mul on a CUDA tensor launches the mont_mul kernel, and
+    G1Ctx.to_affine reaches it (and fp_pow) on the card."""
+    eng, g1 = ctx
+    pts = [eng.g1.mul(eng.gen_g1, k) for k in (3, 5, 7)] + [None]
+    P = g1.add(g1.encode_points(pts), g1.encode_points([eng.gen_g1] * 4))
+    fp_cuda.reset_launches()
+    x = g1.fp.mont_mul(P[0], P[1])
+    assert fp_cuda.launches()["mont_mul"] == 1
+    assert torch.equal(x, g1.fp.mont_mul_plain(P[0], P[1]))
+    xy = g1.to_affine_rows(P)
+    assert fp_cuda.launches()["mont_mul"] > 1 and fp_cuda.launches()["fp_pow"] == 1
+    assert g1.decode_points_affine(xy) == [eng.g1.add(a, eng.gen_g1) for a in pts]
+
+
+def test_msm_options_on_the_card_equal_the_host(ctx):
+    from mathlib_tpu_torch.ops import msm
+
+    eng, g1 = ctx
+    spec = eng.spec
+    rng = np.random.default_rng(8)
+    pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 16)]
+    pts = [pool[i] for i in rng.integers(0, 16, 300)]
+    pts[7] = None
+    ks = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(300)]
+    want = eng.g1.msm([P for P in pts if P], [k for P, k in zip(pts, ks) if P])
+    zk = [0 if P is None else k for P, k in zip(pts, ks)]
+    P, Pa = g1.encode_points(pts), g1.encode_points_affine(pts)
+    glv = spec.family.name == "BLS12"
+    for points, scal, kw in ((P, ks, {"signed": True}), (Pa, zk, {}), (Pa, zk, {"signed": True}),
+                             (P, ks, {"glv": glv}), (Pa, zk, {"glv": glv, "signed": True})):
+        tot = msm.msm_totals(g1, points, g1.encode_scalars(scal), c=8, K=16, **kw)
+        assert msm.horner_host(g1, tot, 8) == want, kw
+    assert msm.msm_host_bridge(spec, pts, ks) == want
+    be = BatchEngine(spec)
+    assert be.g1_msm(pts, ks) == want
+    assert be.g1_scalar_mul(pts[:4], ks[:4]) == [eng.g1.mul(Q, k) if Q else None
+                                                for Q, k in zip(pts[:4], ks[:4])]
 
 
 def test_leading_batch_dims_fold_into_lanes(ctx):
@@ -78,6 +152,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(ctx):
     odd = G1Ctx(get_spec("FP256BN"), P.device)  # p has L = 17
     with pytest.raises(ValueError):
         odd.add(odd.gen, odd.gen)
+    with pytest.raises(ValueError):  # no plain version on the card
+        odd.fp.mont_mul(odd.gen[0], odd.gen[1])
+    from mathlib_tpu_torch.ops import msm
+
+    spec = odd.spec
+    with pytest.raises(ValueError):
+        msm.msm_host_bridge(spec, [spec.g1_gen] * 3, [1, 2, 3])
+    with pytest.raises(ValueError):
+        BatchEngine(spec).g1_msm([spec.g1_gen] * 3, [1, 2, 3])
 
 
 @pytest.fixture(params=["BLS12_381", "BN254", "BLS12_377"])

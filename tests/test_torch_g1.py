@@ -1,14 +1,23 @@
 """Port ``G1Ctx`` (mathlib_tpu_torch) against the reference ``G1Ctx`` (JAX).
 
-These are the G1 operations that carry the four CUDA kernels (add, double,
-add_select, scalar_mul; ``sum_reduce`` is tested with the MSM).  On CPU
-tensors the port runs each kernel's plain PyTorch version, and the reference
-runs its XLA path.  Same seeded points
-through both, with infinity, P == Q and P == -Q lanes; every comparison is
-exact limb equality (tolerance: zero), plus a decode against the host engine.
+These are the G1 operations that carry the CUDA kernels of the MSM main path
+(add, double, add_select, dbl_add_select, scalar_mul; ``sum_reduce`` is
+tested with the MSM, the slice's options in ``test_torch_g1_options.py``).
+On CPU tensors the port runs each kernel's plain PyTorch version, and the
+reference runs its XLA path.  Same seeded points through both, with
+infinity, P == Q and P == -Q lanes; every comparison is exact limb equality
+(tolerance: zero), plus a decode against the host engine.
+
+The reference's ``add`` and ``double`` are jitted once per curve at the
+tests' 8 lanes and shared (``_Jitted``); its ``add_select``,
+``dbl_add_select`` and the steps of its ``scalar_mul`` ladder run as they
+are on top of them.  The reference's own code and arithmetic: only the XLA
+program boundaries move (one jit of its whole ladder compiles for longer
+than this file runs).
 """
 
 import random
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,16 +34,50 @@ from mathlib_tpu_torch.ops.g1 import G1Ctx
 torch.set_num_threads(1)
 
 
+class _Jitted:
+    """The reference G1Ctx with ``add`` and ``double`` jitted; its other
+    methods run as they are, calling these."""
+
+    def __init__(self, g1):
+        self._g1 = g1
+        self.add = jax.jit(g1.add)
+        self.double = jax.jit(g1.double)
+
+    def __getattr__(self, name):
+        attr = getattr(type(self._g1), name, None)
+        if callable(attr):
+            return types.MethodType(attr, self)
+        return getattr(self._g1, name)
+
+    def scalar_mul(self, P, scalars):
+        """The reference's ``scalar_mul`` ladder (XLA path), its scan body
+        run once per bit: dbl_add_select on bit nbits-1-t, from infinity."""
+        acc = jnp.broadcast_to(jnp.asarray(self.inf), self._acc_shape(P, scalars))
+        for t in range(self.nbits):
+            bit = self._scalar_bit(scalars, self.nbits - 1 - t)
+            acc = self.dbl_add_select(acc, P, bit.astype(bool))
+        return acc
+
+
+_JITTED = {}
+
+
+def _ref_ctx(spec):
+    if spec.name not in _JITTED:
+        _JITTED[spec.name] = _Jitted(get_g1_ctx(spec))
+    return _JITTED[spec.name]
+
+
 @pytest.fixture(params=["BLS12_381", "BN254"], scope="module")
 def ctx(request):
     spec = get_spec(request.param)
-    return get_engine(spec), get_g1_ctx(spec), G1Ctx(spec, "cpu")
+    return get_engine(spec), _ref_ctx(spec), G1Ctx(spec, "cpu")
 
 
 @pytest.fixture(scope="module")
 def bls():
     spec = get_spec("BLS12_381")
-    return get_engine(spec), get_g1_ctx(spec), G1Ctx(spec, "cpu")
+    return get_engine(spec), _ref_ctx(spec), G1Ctx(spec, "cpu")
 
 
 def _lanes(eng, seed):
@@ -53,7 +96,7 @@ def _relaxed_inputs(eng, ref, port, seed=0):
     left, right = _lanes(eng, seed)
     a, b = ref.encode_points(left), ref.encode_points(right)
     np.testing.assert_array_equal(to_numpy(port.encode_points(left)), a)
-    s = np.asarray(jax.jit(ref.add)(a, b))
+    s = np.asarray(ref.add(a, b))
     return left, right, a, b, s
 
 
@@ -76,9 +119,9 @@ def test_add_and_double_match_reference(ctx):
     np.testing.assert_array_equal(to_numpy(got), s)
     assert port.decode_points(got) == [eng.g1.add(x, y) for x, y in zip(left, right)]
     # relaxed inputs
-    want = np.asarray(jax.jit(ref.double)(s))
+    want = np.asarray(ref.double(s))
     np.testing.assert_array_equal(to_numpy(port.double(to_torch(s, "cpu"))), want)
-    want = np.asarray(jax.jit(ref.add)(s, a))
+    want = np.asarray(ref.add(s, a))
     np.testing.assert_array_equal(to_numpy(port.add(to_torch(s, "cpu"), to_torch(a, "cpu"))), want)
 
 
@@ -86,7 +129,7 @@ def test_add_select_matches_reference(ctx):
     eng, ref, port = ctx
     _, _, a, b, s = _relaxed_inputs(eng, ref, port)
     sel = np.array([1, 1, 0, 1, 0, 1, 1, 0], dtype=bool)
-    want = np.asarray(jax.jit(ref.add_select)(s, b, sel))
+    want = np.asarray(ref.add_select(s, b, sel))
     got = port.add_select(to_torch(s, "cpu"), to_torch(b, "cpu"), torch.from_numpy(sel))
     np.testing.assert_array_equal(to_numpy(got), want)
 
@@ -95,7 +138,7 @@ def test_dbl_add_select_neg_is_inf_match_reference(bls):
     eng, ref, port = bls
     _, _, a, b, s = _relaxed_inputs(eng, ref, port, seed=1)
     sel = np.array([0, 1, 1, 1, 0, 1, 0, 1], dtype=bool)
-    want = np.asarray(jax.jit(ref.dbl_add_select)(s, a, sel))
+    want = np.asarray(ref.dbl_add_select(s, a, sel))
     got = port.dbl_add_select(to_torch(s, "cpu"), to_torch(a, "cpu"), torch.from_numpy(sel))
     np.testing.assert_array_equal(to_numpy(got), want)
     want = np.asarray(ref.neg(jnp.asarray(s)))
@@ -111,7 +154,7 @@ def test_scalar_mul_matches_reference(bls):
     ks = [0, 1, r - 1, 2] + [rng.randrange(r) for _ in range(4)]
     base = [eng.g1.mul(eng.gen_g1, rng.randrange(1, r)) for _ in range(7)] + [None]
     pts, scs = ref.encode_points(base), ref.encode_scalars(ks)
-    want = np.asarray(jax.jit(ref.scalar_mul)(pts, scs))
+    want = np.asarray(ref.scalar_mul(pts, scs))
     got = port.scalar_mul(to_torch(pts, "cpu"), to_torch(scs, "cpu"))
     np.testing.assert_array_equal(to_numpy(got), want)
     assert port.decode_points(got) == [eng.g1.mul(P, k) if P else None for P, k in zip(base, ks)]

@@ -35,6 +35,20 @@ def test_every_spec_field_equals_the_reference(curve):
         assert getattr(spec, prop) == getattr(ref, prop)
 
 
+def test_curve_id_registry_equals_the_reference():
+    from mathlib_tpu.curves import params as ref_params
+    from mathlib_tpu_torch.curves import params
+
+    assert [(c.name, c.value) for c in params.CurveID] == [
+        (c.name, c.value) for c in ref_params.CurveID]
+    assert {c.name: v for c, v in params.CURVE_ID_SPEC.items()} == {
+        c.name: v for c, v in ref_params.CURVE_ID_SPEC.items()}
+    spec, ref = get_spec("FP256BN_MIRACL"), ref_get_spec("FP256BN_MIRACL")
+    for f in dataclasses.fields(spec):
+        if f.name != "family":
+            assert getattr(spec, f.name) == getattr(ref, f.name), f.name
+
+
 @pytest.mark.parametrize("curve", CURVES)
 def test_native_and_python_engines_equal_the_reference_engine(curve):
     spec = get_spec(curve)

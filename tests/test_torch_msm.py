@@ -8,13 +8,15 @@ XLA:CPU.  Both sort stably, so bucket tables and window totals must be equal
 limb for limb (tolerance: zero), and the Horner result must equal the host
 engine's MSM.
 
-A single ``jax.jit`` of the reference's window-sum tail compiles for over a
-minute on XLA:CPU (it unrolls ~20 point additions), so the reference's
-``window_totals`` and ``sum_reduce`` run eagerly here, with the point
-additions and doublings outside the scans each compiled once at a fixed lane
-count (``_FixedLaneG1``).  The reference's bucket table is jitted once per
-(n, K) shape, and the split path reuses the n=16 compilation for its halves.
-It is the reference's own code and arithmetic; only the XLA program
+A ``jax.jit`` of the reference's MSM compiles its point additions for
+minutes on XLA:CPU, so here the reference's point arithmetic runs as its
+Pallas kernel bodies on numpy rows (``BodyG1`` of
+``tests/_torch_ref_bodies.py``: the XLA path's RCB formulas in the same
+operation order, so the same limbs), reached from the reference's jitted
+``bucket_table`` and ``window_totals`` through ``jax.pure_callback``: XLA
+compiles only the sorts, gathers and scans.  The bucket table is jitted once
+per (n, K) shape, and the split path reuses the n=16 compilation for its
+halves.  It is the reference's own code and arithmetic; only the program
 boundaries move.
 """
 
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ref_bodies import BodyG1
 from mathlib_tpu.curves.params import get_spec
 from mathlib_tpu.host.engine import get_engine
 from mathlib_tpu.ops import msm as ref_msm
@@ -39,49 +42,26 @@ torch.set_num_threads(1)
 C = 4
 
 
-class _FixedLaneG1:
-    """The reference G1Ctx with ``add``/``double`` compiled once each at
-    ``lanes`` lanes: operands (3, L, n) are zero-padded to a multiple of that
-    width, run a slice at a time, and cropped (lanes are independent)."""
-
-    def __init__(self, g1, lanes: int):
-        self._g1 = g1
-        self._lanes = lanes
-        self._add = jax.jit(g1.add)
-        self._double = jax.jit(g1.double)
-
-    def __getattr__(self, name):
-        return getattr(self._g1, name)
-
-    def _fixed(self, fn, *pts):
-        n, w = pts[0].shape[-1], self._lanes
-        pad = [(0, 0)] * (pts[0].ndim - 1) + [(0, -n % w)]
-        pts = [jnp.pad(p, pad) for p in pts]
-        outs = [fn(*[p[..., i : i + w] for p in pts]) for i in range(0, n, w)]
-        return jnp.concatenate(outs, axis=-1)[..., :n]
-
-    def add(self, P, Q):
-        return self._fixed(self._add, P, Q)
-
-    def double(self, P):
-        return self._fixed(self._double, P)
-
-
 @pytest.fixture(scope="module")
 def env():
     spec = get_spec("BLS12_381")
     ref = get_g1_ctx(spec)
-    W = ref_msm.n_windows(ref, C)
-    return get_engine(spec), ref, G1Ctx(spec, "cpu"), _FixedLaneG1(ref, W << (C - 1))
+    return get_engine(spec), ref, G1Ctx(spec, "cpu"), BodyG1(ref)
 
 
 @pytest.fixture(scope="module")
-def ref_table():
-    """The reference's bucket_table, jitted once per (n, K) shape."""
-    spec = get_spec("BLS12_381")
-    ref = get_g1_ctx(spec)
-    fn = jax.jit(lambda p, s, K: ref_msm.bucket_table(ref, p, s, C, K=K), static_argnums=2)
+def ref_table(env):
+    """The reference's bucket_table, jitted once per (n, K) shape, its point
+    arithmetic on the numpy bodies."""
+    fn = jax.jit(lambda p, s, K: ref_msm.bucket_table(env[3], p, s, C, K=K), static_argnums=2)
     return lambda P, S, K: np.asarray(fn(jnp.asarray(P), jnp.asarray(S), K))
+
+
+@pytest.fixture(scope="module")
+def ref_totals(env):
+    """The reference's window_totals, jitted once, on the numpy bodies."""
+    fn = jax.jit(lambda t: ref_msm.window_totals(env[3], t, C))
+    return lambda table: np.asarray(fn(jnp.asarray(table)))
 
 
 def _inputs(eng, n, seed, collide):
@@ -108,7 +88,7 @@ CASES = [(16, 4, True), (64, 64, False)]
 
 
 @pytest.mark.parametrize("n,K,collide", CASES, ids=["n16-K4-collide", "n64-K64"])
-def test_msm_totals_match_reference(env, ref_table, n, K, collide):
+def test_msm_totals_match_reference(env, ref_table, ref_totals, n, K, collide):
     eng, ref, port, ref_fixed = env
     pts, ks = _inputs(eng, n, seed=n, collide=collide)
     P, S = ref.encode_points(pts), ref.encode_scalars(ks)
@@ -117,14 +97,14 @@ def test_msm_totals_match_reference(env, ref_table, n, K, collide):
     table = msm.bucket_table(port, to_torch(P, "cpu"), to_torch(S, "cpu"), C, K=K)
     np.testing.assert_array_equal(to_numpy(table), want_table)
 
-    ref_totals = np.asarray(ref_msm.window_totals(ref_fixed, jnp.asarray(want_table), C))
+    want_totals = ref_totals(want_table)
     totals = msm.msm_totals(port, to_torch(P, "cpu"), to_torch(S, "cpu"), c=C, K=K)
-    np.testing.assert_array_equal(to_numpy(totals), ref_totals)
-    assert port.decode_points(totals) == ref.decode_points(ref_totals)
+    np.testing.assert_array_equal(to_numpy(totals), want_totals)
+    assert port.decode_points(totals) == ref.decode_points(want_totals)
 
     want = _host_msm(eng, pts, ks)
     assert msm.horner_host(port, totals, C) == want
-    assert ref_msm.horner_host(ref, ref_totals, C) == want
+    assert ref_msm.horner_host(ref, want_totals, C) == want
 
 
 def test_split_path_matches_reference(env, ref_table):
@@ -177,16 +157,15 @@ def test_digits_windows_and_auto_window_match_reference(env):
 
 
 def test_unported_options_raise(env):
+    """What stays unported: the in-scan scatter capture, and a window width
+    that does not divide 16 (as in the reference)."""
     _, _, port, _ = env
     P = port.gen.expand(3, port.fp.L, 4)
     S = port.encode_scalars([1, 2, 3, 4])
-    for kwargs in ({"signed": True}, {"glv": True}, {"capture": "scatter"}):
+    for fn in (msm.msm_totals, msm.bucket_table, msm.msm):
         with pytest.raises(NotImplementedError):
-            msm.msm_totals(port, P, S, c=C, **kwargs)
-    with pytest.raises(NotImplementedError):
-        msm.msm_totals(port, P[:2], S, c=C)  # affine (2, L, N) points
-    with pytest.raises(NotImplementedError):
+            fn(port, P, S, c=C, capture="scatter")
+        with pytest.raises(ValueError):
+            fn(port, P, S, c=3)
+    with pytest.raises(ValueError):  # an unsigned table is not a signed one
         msm.window_totals(port, msm.bucket_table(port, P, S, c=C), C, signed=True)
-    with pytest.raises(ValueError):
-        msm.bucket_table(port, P, S, c=3)
-
