@@ -86,10 +86,35 @@ The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
      before each entry point and read just after: every kernel of its path
      must have launched.
 
+Hash-to-G1 and ``BatchEngine``'s BLS sign and verify:
+
+ 12. the two kernels of the hash path against their plain PyTorch versions
+     on the card, bit for bit: ``hash_g1`` on 1,024 lanes under both signs
+     (the first lanes u = 0, 1, p - 1 and a pair with t2 = 0; eight edge
+     lanes also against the host map), then timed at 4,096 lanes with its
+     bound; ``smul_static`` on 4,097 lanes (infinity among them) with
+     h_eff's bits and a 255-bit static scalar, then timed at 4,096 lanes;
+     their ptxas lines;
+ 13. the entry points at full width on BLS12-381, 4,096 messages, DST
+     ``BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_``: ``hash_to_g1_batch``
+     on (a) 32-byte messages (the word path), (b) 30-byte messages (the
+     block path), (c) ``b"msg-%d"`` of mixed lengths (the host
+     hash_to_field path); (d) ``hash_to_g1_bbs_batch``; (e)
+     ``bls_sign_batch``; (f) ``bls_verify_batch``, True on (e)'s
+     signatures and False with one signature replaced or one message
+     changed; (g) BN254 ``bls_sign_batch`` and ``bls_verify_batch`` at
+     1,024 messages (the host hasher, outside the device hash's gate); (h)
+     the ``sign="none"`` tensor pipeline, whose cofactor ladder is
+     ``smul_static``.  64 sampled lanes of each equal the port's host
+     hasher (or [sk] of it); each is a warm-up and 3 timed calls, the
+     launch counts set to 0 just before and read just after; a
+     ``hash_stages`` line splits one (a) call into host pack, XMD on the
+     device, the kernel and host decode.
+
 Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
-``np.random.default_rng(1)`` (phases 8-9) and ``np.random.default_rng(2)``
-(phases 10-11), the points from the port's C++ host engine (built with g++
-at first use).  Prints the card's name and
+``np.random.default_rng(1)`` (phases 8-9), ``np.random.default_rng(2)``
+(phases 10-11) and ``np.random.default_rng(3)`` (phases 12-13), the points
+from the port's C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -153,6 +178,9 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                   "mathlib_tpu/ops/kernels/pairing_pallas.py:914"),
     "fp_pow": ("mathlib_tpu_torch/csrc/fp_kernels.cu",
                "mathlib_tpu/ops/kernels/pairing_pallas.py:1291"),
+    "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
+                "mathlib_tpu/ops/kernels/hash_pallas.py:258"),
+    "smul_static": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
 }
 N_BATCH = 4096  # phase 9 (a): BLS12-381 pairs of one pairing_batch call
 N_BATCH_BN = 1024  # phase 9 (b): BN254 pairs
@@ -163,6 +191,12 @@ N_BRIDGE_BN = 1 << 14  # phase 11 (b): BN254 points
 N_G1_MSM = 1 << 16  # phase 11 (c): BatchEngine.g1_msm points
 N_LADDER_BITS = 64  # phase 10: bits of the dbl_add_select ladder
 MAIN_G1 = ("add", "double", "addsel", "smul")  # the kernels of phase 5's path
+N_HASH = 4096  # phase 13: messages of one BLS12-381 call; phase 12: timed lanes
+N_HASH_CHECK = 1024  # phase 12: lanes of hash_g1 against its plain version
+N_HASH_BN = 1024  # phase 13 (g): BN254 messages
+N_HASH_SAMPLED = 64  # phase 13: lanes of each call held to the host hasher
+HASH_DST = b"BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_"
+BLS_SK = 0x2B1E5F0D3C7A9B4E6D8F1A3C5E7B9D2F4A6C8E1B3D5F7A9C2E4B6D8F1A3C5E7B
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
 # 3.35 TB/s, and 32-bit integer multiply-adds on 64 INT32 lanes per SM
@@ -211,6 +245,26 @@ def seg_product_fp_muls(cfg, lanes: int, seg: int) -> int:
     from mathlib_tpu_torch.ops.kernels.tower_rows import mults_per_step
 
     return (lanes - lanes // seg) * mults_per_step(cfg.tower.n, cfg.tower.twist)["f12_mul"]
+
+
+def hash_g1_fp_muls(ctx, lanes: int) -> int:
+    """Field products of ``hash_g1`` for ``lanes`` lanes, counted from the
+    kernel's code: per map 13 (the pre-step, x1, g(x1), x2, g(x2), the
+    is-square test, the two signs), the inversion chain and two square-root
+    chains (each 14 for the table and 5 a window); per isogeny one a Horner
+    step and 4 for X, Y, Z; the add (12); the ladder (8 a double after the
+    first bit, 12 an add at each later one-bit)."""
+    from mathlib_tpu_torch.ops.kernels.hash_cuda import chain_bits
+
+    def chain(bits):
+        return 14 + 5 * ((len(bits) - len(bits) % 4) // 4)
+
+    inv_bits, sqrt_bits = chain_bits(ctx.spec.p)
+    per_map = 13 + chain(inv_bits) + 2 * chain(sqrt_bits)
+    per_iso = sum(len(cs) - 1 for cs in ctx.iso) + 4
+    h = [int(b) for b in ctx.h_bits]
+    ladder = 8 * (len(h) - 1) + 12 * (sum(h) - 1)
+    return lanes * (2 * (per_map + per_iso) + 12 + ladder)
 
 
 def ptxas_entries(path: str) -> list:
@@ -1029,6 +1083,300 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     return new_launches
 
 
+def _host_hash_none(hasher, u0: int, u1: int):
+    """The host oracle of the ``sign="none"`` pipeline: the SSWU maps without
+    the sign fix, added on E', mapped through the isogeny, cofactor-cleared."""
+    from mathlib_tpu_torch.host.curve import WeierstrassCurve
+    from mathlib_tpu_torch.host.hash_to_curve import apply_isogeny
+
+    m, isod = hasher._g1_sswu
+    F = hasher.e.fp_ops
+    Q = WeierstrassCurve(F, m.A, m.B).add(hasher._sswu_no_sign(m, u0), hasher._sswu_no_sign(m, u1))
+    return hasher._clear_cofactor_g1(apply_isogeny(F, isod, Q))
+
+
+class _OpCount:
+    """Counts the aten operators dispatched inside a ``with`` block (one
+    CUDA launch each, views aside)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
+    """Phases 12 and 13; fills ``results`` for hash_g1 and smul_static and
+    returns their launch counts: hash_g1's summed over phase 13's entry
+    points (a)-(f), smul_static's over the ``sign="none"`` pipeline (h)."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.curves import isogeny_data
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+    from mathlib_tpu_torch.ops import xmd
+    from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, hash_cuda, pairing_cuda
+
+    rng = np.random.default_rng(3)
+    spec, eng = main["spec"], main["eng"]
+    ctx = get_hash_g1_ctx(spec, dev)
+    g1, p, L = ctx.g1, spec.p, ctx.fp.L
+    hasher = get_hasher(spec)
+    t_phase = time.perf_counter()
+
+    def check(name, got, want):
+        check_equal(results, name, got, want)
+
+    def rand_fp(n):
+        return [int.from_bytes(rng.bytes(64), "big") % p for _ in range(n)]
+
+    # ---- 12. hash_g1 and smul_static against their plain versions (exact)
+    for entry in ptxas_entries(build.BUILD_LOG):
+        if "hash_g1" in entry or "smul_static" in entry:
+            log("ptxas", entry=repr(entry))
+    a = (-pow(isogeny_data.G1[spec.name]["Z"], -1, p)) % p  # t2 = 0 <=> u^2 = -1/Z
+    r = pow(a, (p + 1) // 4, p)
+    if r * r % p != a:
+        raise AssertionError("no nonzero u with t2 = 0 on this curve")
+    us0 = [0, 1, p - 1, r] + rand_fp(N_HASH_CHECK - 4)
+    us1 = [1, 0, 7, p - r] + rand_fp(N_HASH_CHECK - 4)
+    u0, u1 = ctx.fp.encode(us0), ctx.fp.encode(us1)
+    for sign in hash_cuda.SIGNS:
+        got = hash_cuda.hash_g1(ctx, u0, u1, sign)
+        check("hash_g1", got, hash_cuda.hash_g1_plain(ctx, u0, u1, sign))
+    # the edge lanes, canonically, against the host map ("be": the hasher's
+    # BBS sign; the "none" oracle with the sign fixes applied)
+    host = g1.decode_points(got[..., :8])
+    m = hasher._g1_sswu[0]
+
+    def host_map_be(u):
+        x, y = hasher._sswu_no_sign(m, u)
+        return (x, (p - y) % p) if ((p - y) % p >= y) != ((p - u) % p >= u) else (x, y)
+
+    from mathlib_tpu_torch.host.curve import WeierstrassCurve
+    from mathlib_tpu_torch.host.hash_to_curve import apply_isogeny
+
+    Ep = WeierstrassCurve(hasher.e.fp_ops, m.A, m.B)
+    want = [hasher._clear_cofactor_g1(apply_isogeny(hasher.e.fp_ops, hasher._g1_sswu[1],
+                                                    Ep.add(host_map_be(x), host_map_be(y))))
+            for x, y in zip(us0[:8], us1[:8])]
+    if host != want:
+        raise AssertionError("hash_g1 (be) disagrees with the host map on the edge lanes")
+    log("hash_g1_vs_plain", lanes=N_HASH_CHECK, signs=list(hash_cuda.SIGNS), equal=True,
+        edge_lanes_equal_host=len(host))
+
+    # at the path's 4,096 lanes, timed beside the plain version
+    U0, U1 = ctx.fp.encode(rand_fp(N_HASH)), ctx.fp.encode(rand_fp(N_HASH))
+    ms, got = cuda_ms(lambda: hash_cuda.hash_g1(ctx, U0, U1, "parity"), reps=3)
+    plain_ms, want = cuda_ms(lambda: hash_cuda.hash_g1_plain(ctx, U0, U1, "parity"), reps=1)
+    check("hash_g1", got, want)
+    fp_muls = hash_g1_fp_muls(ctx, N_HASH)
+    results["hash_g1"].update(ms=ms, plain_ms=plain_ms, lanes=N_HASH,
+                              **bound(5 * L * 4 * N_HASH, wide_mads(fp_muls, L)))
+    log("time", kernel="hash_g1", lanes=N_HASH, equal=True, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+        bound_ms=f"{results['hash_g1']['bound_ms']:.4f}", bound_by=results["hash_g1"]["bound_by"],
+        fp_muls=fp_muls, fp_muls_per_lane=fp_muls // N_HASH)
+
+    # smul_static: 4,097 lanes (the hash outputs, relaxed, infinity at two
+    # lanes) with h_eff's bits and with one 255-bit static scalar
+    Q = torch.cat([got, got[..., :1]], dim=-1).clone()
+    Q[..., 5] = g1.inf[..., 0]
+    Q[..., N_HASH] = g1.inf[..., 0]
+    k255 = int.from_bytes(rng.bytes(32), "big") | (1 << 254)
+    k255 &= (1 << 255) - 1
+    bits255 = [int(b) for b in bin(k255)[2:]]
+    for bits in (ctx.h_bits, bits255):
+        check("smul_static", g1_cuda.smul_static(g1.F, Q, bits),
+              g1_cuda.smul_static_plain(g1.F, Q, bits))
+    log("smul_static_vs_plain", lanes=Q.shape[-1], scalars=["h_eff", "255-bit"], equal=True)
+    Qt = Q[..., :N_HASH].contiguous()
+    ms, got_s = cuda_ms(lambda: g1_cuda.smul_static(g1.F, Qt, ctx.h_bits), reps=5)
+    plain_ms, want_s = cuda_ms(lambda: g1_cuda.smul_static_plain(g1.F, Qt, ctx.h_bits), reps=1)
+    check("smul_static", got_s, want_s)
+    h = [int(b) for b in ctx.h_bits]
+    fp_muls = N_HASH * (8 * len(h) + 12 * sum(h))
+    results["smul_static"].update(ms=ms, plain_ms=plain_ms, lanes=N_HASH,
+                                  **bound(2 * 3 * L * 4 * N_HASH, wide_mads(fp_muls, L)))
+    log("time", kernel="smul_static", lanes=N_HASH, bits=len(h), equal=True, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+        bound_ms=f"{results['smul_static']['bound_ms']:.4f}",
+        bound_by=results["smul_static"]["bound_by"], fp_muls=fp_muls)
+    del Q, Qt, got, want, got_s, want_s, U0, U1
+    log("phase12", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+    # ---- 13. the entry points at full width
+    t_phase = time.perf_counter()
+    mods = (g1_cuda, fp_cuda, pairing_cuda, hash_cuda)
+
+    def reset():
+        for mod in mods:
+            mod.reset_launches()
+
+    def counts():
+        out = {}
+        for mod in mods:
+            out.update({k: v for k, v in mod.launches().items() if v})
+        return out
+
+    new_launches = {"hash_g1": 0, "smul_static": 0}
+
+    def timed(name, run, same, need, n, unit):
+        """A warm-up and 3 host-clock calls of run() (their outputs equal),
+        the launch counts set to 0 just before and read just after; every
+        kernel in ``need`` must have launched."""
+        reset()
+        first = run()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not same(out, first):
+                raise AssertionError(f"{name}: runs of one call disagree")
+        got = counts()
+        missing = [k for k in need if k not in got]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched on its path: {missing}")
+        for k in new_launches:
+            new_launches[k] += got.get(k, 0)
+        log("hash_entry", name=name, n=n, seconds=[round(x, 4) for x in secs],
+            **{f"{unit}_per_s": f"{n / min(secs):.1f}"}, card=repr(smi))
+        log("hash_entry_launches", name=name, calls=4, **got)
+        return first
+
+    sample = sorted(int(i) for i in rng.choice(N_HASH, N_HASH_SAMPLED, replace=False))
+    be = BatchEngine(spec, dev)
+    need_hash = ("hash_g1", "mont_mul")
+    msgs = {"a": [rng.bytes(32) for _ in range(N_HASH)],
+            "b": [rng.bytes(30) for _ in range(N_HASH)],
+            "c": [b"msg-%d" % i for i in range(N_HASH)]}
+    titles = {"a": "(a) hash_to_g1_batch, 32-byte messages (word path)",
+              "b": "(b) hash_to_g1_batch, 30-byte messages (block path)",
+              "c": "(c) hash_to_g1_batch, b'msg-%d' (host hash_to_field)"}
+    host_a = None
+    for key in ("a", "b", "c"):
+        ms_ = msgs[key]
+        out = timed(titles[key], lambda: be.hash_to_g1_batch(ms_, HASH_DST), torch.equal,
+                    need_hash, N_HASH, "hashes")
+        want = [hasher.hash_to_g1(ms_[i], HASH_DST) for i in sample]
+        if g1.decode_points(out[..., sample]) != want:
+            raise AssertionError(f"{titles[key]}: sampled lanes differ from the host hasher")
+        host_a = want if key == "a" else host_a
+    msgs_d = [b"bbs-%d" % i for i in range(N_HASH)]
+    out = timed("(d) hash_to_g1_bbs_batch", lambda: be.hash_to_g1_bbs_batch(msgs_d, HASH_DST),
+                torch.equal, need_hash, N_HASH, "hashes")
+    if g1.decode_points(out[..., sample]) != [hasher.hash_to_g1_bbs(msgs_d[i], HASH_DST)
+                                              for i in sample]:
+        raise AssertionError("(d): sampled lanes differ from the host hasher")
+    log("hash_sampled", entries="a-d", lanes=N_HASH_SAMPLED, equal_host_hasher=True)
+
+    # stages of one more (a) call: host pack, XMD on the device (PyTorch ops
+    # and the embedding's mont_mul), the kernel, host decode of every lane
+    ms_a = msgs["a"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = xmd.to_device_words(xmd.pack_msg_words(ms_a, 32), dev)
+    tmpl = xmd.b0_template(32, HASH_DST, 128)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    reset()
+    ev[0].record()
+    uu = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
+    ev[1].record()
+    out = ctx.hash_to_g1(*uu)
+    ev[2].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pts = g1.decode_points(out)
+    t3 = time.perf_counter()
+    if [pts[i] for i in sample] != host_a:
+        raise AssertionError("the stage run of (a) differs from the host hasher")
+    stage_counts = counts()
+    with _OpCount() as ops:
+        xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
+    log("hash_stages", n=N_HASH, pack_host_s=f"{t1 - t0:.4f}",
+        xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+        hash_g1_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}", device_wall_s=f"{t2 - t1:.4f}",
+        decode_host_s=f"{t3 - t2:.4f}", xmd_aten_ops=ops.n, **stage_counts)
+
+    # (e) bls_sign_batch, (f) bls_verify_batch, on (a)'s messages
+    sigs = timed("(e) bls_sign_batch", lambda: be.bls_sign_batch(BLS_SK, ms_a, HASH_DST),
+                 lambda x, y: x == y, need_hash + ("smul",), N_HASH, "signatures")
+    if [sigs[i] for i in sample] != [eng.g1.mul(h, BLS_SK) for h in host_a]:
+        raise AssertionError("(e): sampled signatures differ from [sk] of the host hasher")
+    pk = eng.g2.mul(eng.gen_g2, BLS_SK)
+    bad_sig = list(sigs)
+    bad_sig[1] = sigs[2]
+    bad_msg = list(ms_a)
+    bad_msg[3] = bytes(32)
+    verdicts = [be.bls_verify_batch(pk, bad_sig, ms_a, HASH_DST),
+                be.bls_verify_batch(pk, sigs, bad_msg, HASH_DST)]
+    if verdicts != [False, False]:
+        raise AssertionError(f"(f): tampered verifies gave {verdicts}")
+    ok = timed("(f) bls_verify_batch", lambda: be.bls_verify_batch(pk, sigs, ms_a, HASH_DST),
+               lambda x, y: x == y, need_hash + ("addsel", "add", "double", "miller_lanes",
+                                                 "f12_seg_product"), N_HASH, "verifies")
+    if ok is not True:
+        raise AssertionError("(f): the verify of (e)'s signatures failed")
+    log("bls_verdicts", true_on_signed=True, one_signature_replaced=False,
+        one_message_changed=False)
+
+    # (g) BN254, outside the device hash's gate: the host hasher, then the card
+    bn = get_spec("BN254")
+    eng_bn, hasher_bn = get_engine(bn), get_hasher(bn)
+    be_bn = BatchEngine(bn, dev)
+    msgs_g = [rng.bytes(32) for _ in range(N_HASH_BN)]
+    samp_bn = sorted(int(i) for i in rng.choice(N_HASH_BN, N_HASH_SAMPLED, replace=False))
+    sigs_bn = timed("(g) BN254 bls_sign_batch", lambda: be_bn.bls_sign_batch(BLS_SK, msgs_g, HASH_DST),
+                    lambda x, y: x == y, ("smul", "mont_mul", "fp_pow"), N_HASH_BN, "signatures")
+    if [sigs_bn[i] for i in samp_bn] != [eng_bn.g1.mul(hasher_bn.hash_to_g1(msgs_g[i], HASH_DST),
+                                                       BLS_SK) for i in samp_bn]:
+        raise AssertionError("(g): sampled BN254 signatures differ from the host")
+    pk_bn = eng_bn.g2.mul(eng_bn.gen_g2, BLS_SK)
+    bad_bn = list(sigs_bn)
+    bad_bn[1] = sigs_bn[2]
+    if be_bn.bls_verify_batch(pk_bn, bad_bn, msgs_g, HASH_DST) is not False:
+        raise AssertionError("(g): the BN254 verify with one signature replaced passed")
+    ok = timed("(g) BN254 bls_verify_batch",
+               lambda: be_bn.bls_verify_batch(pk_bn, sigs_bn, msgs_g, HASH_DST),
+               lambda x, y: x == y, ("addsel", "add", "double", "miller_lanes", "f12_seg_product"),
+               N_HASH_BN, "verifies")
+    if ok is not True:
+        raise AssertionError("(g): the BN254 verify failed")
+
+    # (h) the sign="none" tensor pipeline on (a)'s field elements: the
+    # clear_cofactor ladder on smul_static
+    u_ints = [ctx.fp.decode(u[..., sample]) for u in uu]
+    out = timed("(h) HashG1Ctx.hash_to_g1 sign=none (tensor pipeline)",
+                lambda: ctx.hash_to_g1(uu[0], uu[1], "none"), torch.equal,
+                ("smul_static", "fp_pow", "mont_mul", "add"), N_HASH, "hashes")
+    if g1.decode_points(out[..., sample]) != [_host_hash_none(hasher, int(x), int(y))
+                                              for x, y in zip(*u_ints)]:
+        raise AssertionError("(h): sampled lanes differ from the host pipeline")
+    log("phase13", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return new_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1064,7 +1412,8 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     build.load()  # builds here unless an up-to-date library is already there
-    log("build", seconds=f"{time.perf_counter() - t0:.1f}", log=build.BUILD_LOG)
+    log("build", seconds=f"{time.perf_counter() - t0:.1f}", log=build.BUILD_LOG,
+        nvcc_seconds=build.SECONDS)
     for entry in ptxas_entries(build.BUILD_LOG):
         print("  ptxas:", entry)
 
@@ -1240,6 +1589,9 @@ def main() -> int:
     launches.update(g1_option_phases(dev, smi, results, {
         "g1": g1, "eng": eng, "spec": spec, "base": base, "base_aff": base_aff,
         "points": points, "scalars": scalars, "result": got, "seconds": times}))
+
+    # ---- 12 and 13. hash-to-G1 and BatchEngine's hash and BLS entry points
+    launches.update(hash_phases(dev, smi, results, {"spec": spec, "eng": eng}))
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

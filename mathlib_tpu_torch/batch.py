@@ -21,16 +21,23 @@ point; the window and GLV from ``auto_window``/``auto_glv`` unless pinned),
 per-lane ladder launch, then affine on the card: one batch inversion).
 ``for_curve`` and ``get_batch_engine`` give one engine per curve and device.
 
-Not ported here: the G2 scalar-mul, hash and BLS entry points of the
-reference engine (ROADMAP.md §1).
+The hash and BLS entry points (min-signature layout: signatures in G1, public
+keys in G2): ``hash_to_g1_batch`` and ``hash_to_g1_bbs_batch`` (the device
+hash of ``ops/hash.py``), ``bls_sign_batch`` (the device hash, one ladder
+launch, affine on the card) and ``bls_verify_batch`` (a random linear
+combination: two MSMs on the card, then one two-pair product check).  Curves
+outside the device hash's gate (BN254, BLS12-377) hash on the host hasher.
+
+Not ported here: the G2 scalar mul of the reference engine (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
 import os
+import random
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ import torch
 from . import device as _device
 from .curves.params import CURVE_ID_SPEC, CurveID, CurveSpec, get_spec
 from .host import get_engine
+from .host.hash_to_curve import get_hasher
 from .ops.field import ints_to_limbs
 from .ops.g1 import G1Ctx
 from .ops.msm import auto_glv, auto_window, msm
@@ -158,14 +166,22 @@ class BatchEngine:
         return lambda: self._host_finish_product(prod)
 
     def pairing_products_are_one(self, g1_points, g2_points, group_size: int) -> List[bool]:
-        """Many independent product checks in one device pass: pairs are
-        consecutive groups of ``group_size`` (a power of two, at most 1024);
-        returns one verdict per group."""
+        """Many independent product checks: pairs are consecutive groups of
+        ``group_size``; returns one verdict per group.  A power of two up to
+        1024 runs in one device pass; any other size that divides the pair
+        count runs one ``pairing_product_is_one`` per group, as the
+        reference does."""
         n = len(g1_points)
         if n != len(g2_points) or group_size < 1 or n % group_size:
             raise ValueError("the pair count must be a multiple of group_size")
-        if group_size & (group_size - 1) or group_size > MAX_GROUP:
-            raise ValueError(f"group_size must be a power of two <= {MAX_GROUP}")
+        if group_size & (group_size - 1):
+            return [
+                self.pairing_product_is_one(g1_points[k : k + group_size],
+                                            g2_points[k : k + group_size])
+                for k in range(0, n, group_size)
+            ]
+        if group_size > MAX_GROUP:
+            raise ValueError(f"a power-of-two group_size must be <= {MAX_GROUP}")
         packed = self._encode_pairs(g1_points, g2_points)
         prods = self.pair.products_miller(*self._pair_split_mont(packed), group_size)
         if os.environ.get("MATHLIB_GROUP_FEXP") == "device" and self.pair.supports_fused_check:
@@ -188,6 +204,74 @@ class BatchEngine:
         single Fp12, final-exponentiate on the host engine, test unity."""
         val = self.tw.f12_decode(prod)[0]
         return bool(self.host.gt_is_one(self.host.final_exp(val)))
+
+    # ------------------------------------------------------------- BLS ------
+    def _device_hash_ctx(self):
+        """The device hash-to-G1 context, or None where this curve hashes on
+        the host (no SSWU isogeny data, or p % 4 != 3: ops/hash.py's gate)."""
+        from .ops.hash import get_hash_g1_ctx
+
+        try:
+            return get_hash_g1_ctx(self.spec, self.device)
+        except ValueError:
+            return None
+
+    def hash_to_g1_batch(self, messages: Sequence[bytes], dst: bytes = b"") -> Tensor:
+        """Messages -> (3, L, N) projective points on the device: the XMD
+        expansion, the embedding and the map all on the card (ops/hash.py)."""
+        from .ops.hash import hash_to_g1_batch
+
+        return hash_to_g1_batch(self.spec, messages, dst, device=self.device)
+
+    def hash_to_g1_bbs_batch(self, messages: Sequence[bytes], dst: bytes = b"") -> Tensor:
+        """Messages -> (3, L, N) points by the BBS+ legacy big-endian-sign
+        SSWU (kilic/custom.go:134-237), on the device apart from the BLAKE2b
+        XMD bytes."""
+        from .ops.hash import hash_to_g1_bbs_batch
+
+        return hash_to_g1_bbs_batch(self.spec, messages, dst, device=self.device)
+
+    def bls_sign_batch(self, sk: int, messages: Sequence[bytes], dst: bytes = b"") -> List:
+        """sig_i = [sk] H(m_i), as affine host points.
+
+        Inside the device hash's gate the hashes feed one ladder launch and
+        the affine exit on the card; other curves hash on the host hasher."""
+        if self._device_hash_ctx() is not None:
+            H = self.hash_to_g1_batch(messages, dst)
+            S = self.g1.encode_scalars([sk] * len(messages))
+            return self.g1.decode_points_affine(self.g1.to_affine_rows(self.g1.scalar_mul(H, S)))
+        hasher = get_hasher(self.spec)
+        pts = [hasher.hash_to_g1(m, dst) for m in messages]
+        return self.g1_scalar_mul(pts, [sk] * len(pts))
+
+    def bls_verify_batch(self, pk, signatures, messages: Sequence[bytes],
+                         dst: bytes = b"") -> bool:
+        """Verify all (sig_i, m_i) under the G2 public key pk with one random
+        linear combination and a single two-pair product check:
+        e(sum w_i sig_i, -g2) e(sum w_i H(m_i), pk) == 1.  The weights come
+        from ``random.SystemRandom``: they must stay unpredictable.
+
+        Inside the device hash's gate the hashes and both weighted MSMs run
+        on the card; other curves hash on the host hasher."""
+        rng = random.SystemRandom()
+        weights = [rng.randrange(1, self.spec.r) for _ in signatures]
+        if self._device_hash_ctx() is not None:
+            H = self.hash_to_g1_batch(messages, dst)
+            P = self.g1.encode_points(list(signatures))
+            W = self.g1.encode_scalars(weights)
+            c, glv = self._msm_params(len(messages), None, None)
+            sums = torch.cat([msm(self.g1, P, W, c=c, glv=glv), msm(self.g1, H, W, c=c, glv=glv)],
+                             dim=-1)
+            Spt, Hpt = self.g1.decode_points_affine(self.g1.to_affine_rows(sums))
+        else:
+            hasher = get_hasher(self.spec)
+            hs = [hasher.hash_to_g1(m, dst) for m in messages]
+            Spt = self.g1_msm(list(signatures), weights, c=4)
+            Hpt = self.g1_msm(hs, weights, c=4)
+        if Spt is None or Hpt is None:
+            return False
+        neg_g2 = self.host.g2.neg(self.spec.g2_gen)
+        return self.pairing_product_is_one([Spt, Hpt], [neg_g2, pk])
 
 
 @lru_cache(maxsize=None)

@@ -170,7 +170,7 @@ class FpCtx:
         # sqrt exponent for p = 3 mod 4 (BLS12-381, BN254, FP256BN); BLS12-377
         # has p = 1 mod 4 and has none
         self.sqrt_bits = bits_of((p + 1) // 4, self.nbits) if p % 4 == 3 else None
-        self._dev: dict = {}  # device copies of exponent bits (fp_cuda.fp_pow)
+        self._dev: dict = {}  # device copies of exponent bits (device_bits)
 
     # ------------------------------------------------------------ host <-> --
     def encode(self, x: Union[int, Sequence[int], np.ndarray]) -> Tensor:
@@ -199,6 +199,16 @@ class FpCtx:
         out = np.empty(len(vals), dtype=object)
         out[:] = vals
         return out.reshape(arr.shape[:-1])
+
+    def device_bits(self, bits, device) -> Tensor:
+        """MSB-first exponent or scalar bits as a uint8 tensor on ``device``,
+        copied once per pattern: the kernels read them as a small device
+        array, so one build serves every exponent."""
+        bits = np.ascontiguousarray(bits, dtype=np.uint8)
+        key = (str(device), bits.tobytes())
+        if key not in self._dev:
+            self._dev[key] = torch.from_numpy(bits).to(device)
+        return self._dev[key]
 
     # ------------------------------------------------------------- helpers --
     def _cond_sub(self, r: Tensor, r_minus: Tensor) -> Tensor:

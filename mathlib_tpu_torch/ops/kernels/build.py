@@ -14,9 +14,9 @@ is rebuilt when a source is newer than it.  A failed build raises with nvcc's
 output; there is no fallback.  (``csrc/host/engine.cpp`` is the C++ host
 engine, built with g++ by ``host/native.py``, not here.)
 
-The wrappers (``g1_cuda``, ``fp_cuda``, ``pairing_cuda``) reach the library
-through ``launch``, ``consts`` (a prime's constants as the launchers take
-them) and ``stream`` (the tensor's current CUDA stream).
+The wrappers (``g1_cuda``, ``fp_cuda``, ``pairing_cuda``, ``hash_cuda``) reach
+the library through ``launch``, ``consts`` (a prime's constants as the
+launchers take them) and ``stream`` (the tensor's current CUDA stream).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from typing import Optional
 
@@ -41,6 +43,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+SECONDS: dict = {}  # wall seconds of each source's nvcc in the last build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +57,8 @@ SIGNATURES = {
     "mlt_g1_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # Q, bits, nbits, out, n, L, consts, b3, stream
+    "mlt_g1_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _P],
     # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel)
     "mlt_g1_dbladd": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
@@ -80,6 +85,9 @@ SIGNATURES = {
     "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
     # a, bits, nbits, out, rows, n, L, consts, stream
     "mlt_fp_pow": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
+    # (csrc/hash_kernels.cu) u0, u1, inverse bits, n, sqrt bits, n, h bits, n, h < 0,
+    # curve constants, sign mode, out, n, L, consts, b3, stream
+    "mlt_hash_g1": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P],
 }
 
 
@@ -107,23 +115,33 @@ def _stale() -> bool:
 
 def build() -> None:
     """Compile every source in parallel, then link (the ptxas register and
-    spill report of each goes to build.log)."""
+    spill report of each, and its nvcc seconds, go to build.log and
+    ``SECONDS``)."""
     obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
     os.makedirs(obj_dir, exist_ok=True)
     tmp = f"{LIB}.tmp.{os.getpid()}"
     nvcc = _nvcc()
     flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     jobs = []
+    t0 = time.perf_counter()
     for src in _sources():
         obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
         cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+    def finish(proc):
+        out, err = proc.communicate(timeout=900)
+        return out, err, time.perf_counter() - t0
+
     log, failed = [], []
     try:
-        for cmd, _, proc in jobs:
-            out, err = proc.communicate(timeout=900)
-            log.append(" ".join(cmd) + "\n" + out + err)
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            done = list(pool.map(finish, [proc for _, _, proc in jobs]))
+        SECONDS.clear()
+        for (cmd, _, proc), (out, err, secs) in zip(jobs, done):
+            SECONDS[os.path.basename(cmd[-1])] = round(secs, 1)
+            log.append(" ".join(cmd) + f"\n(nvcc {secs:.1f} s)\n" + out + err)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed (exit {proc.returncode}): {cmd[-1]}\n{err[-8000:]}")
         if not failed:

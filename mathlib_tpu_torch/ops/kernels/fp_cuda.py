@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..field import FpCtx
@@ -104,11 +103,7 @@ def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
         raise TypeError("limb tensors must be torch.int32")
     if a.dim() < 2 or a.shape[-2] != L:
         raise ValueError(f"expected (..., {L}, B) limbs, got {tuple(a.shape)}")
-    bits = np.ascontiguousarray(bits, dtype=np.uint8)
-    key = ("pow_bits", str(a.device), bits.tobytes())
-    if key not in fp._dev:
-        fp._dev[key] = torch.from_numpy(bits).to(a.device)
-    dev_bits = fp._dev[key]
+    dev_bits = fp.device_bits(bits, a.device)
     n = a.shape[-1]
     a3 = a.reshape(-1, L, n).contiguous()
     out = torch.empty_like(a3)
@@ -117,7 +112,7 @@ def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
         raise ValueError("the kernel indexes elements with a 32-bit int")
     if rows * n:
         with torch.cuda.device(a.device):
-            build.launch("mlt_fp_pow", a3.data_ptr(), dev_bits.data_ptr(), len(bits),
+            build.launch("mlt_fp_pow", a3.data_ptr(), dev_bits.data_ptr(), dev_bits.numel(),
                          out.data_ptr(), rows, n, L, ctypes.addressof(build.consts(fp.p, L)),
                          build.stream(a))
         fp_pow.launches += 1

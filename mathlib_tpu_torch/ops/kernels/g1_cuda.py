@@ -1,6 +1,7 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
-Eight kernels, CUDA C++ in ``csrc/g1_kernels.cu``, each behind a wrapper here:
+Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
+``csrc/g1_rows.cuh``, each behind a wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)
@@ -15,6 +16,7 @@ wrapper         computes                          replaces (TPU kernel)
 ``maddsel``     select(sel, P + lift(Q), lift(Q)) ``g1_pallas._maddsel_kernel`` / ``maddsel_pallas``
                 for affine Q (``_madd_rows``)
 ``maddselneg``  the mixed add with Q' as above    ``g1_pallas._maddselneg_kernel`` / ``maddselneg_pallas``
+``smul_static`` [k]Q, one scalar for every lane   ``g1_pallas._smul_static_kernel`` / ``smul_static_pallas``
 ==============  ================================  ===============================================
 
 Each wrapper takes a ``weier.FieldAdapter`` over the port's ``FpCtx`` (with
@@ -153,6 +155,17 @@ def smul_plain(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) ->
         bit = scalar_bit(scalars, i)
         D = double_plain(F, acc)
         acc = torch.where(bit[..., None, None, :], add_plain(F, D, Q), D)
+    return acc
+
+
+def smul_static_plain(F: weier.FieldAdapter, Q: Tensor, bits) -> Tensor:
+    """[k]Q for one scalar given by its MSB-first bits: a double at every
+    bit and the add only at one-bits, from infinity (``_smul_static_kernel``)."""
+    acc = _inf_like(F, Q.shape)
+    for bit in bits:
+        acc = double_plain(F, acc)
+        if bit:
+            acc = add_plain(F, acc, Q)
     return acc
 
 
@@ -296,6 +309,27 @@ def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tenso
     return restore(out)
 
 
+def smul_static(F: weier.FieldAdapter, Q: Tensor, bits) -> Tensor:
+    """[k]Q for projective Q (..., 3, L, B) and one scalar shared by every
+    lane, its MSB-first bits (copied to the card once per pattern, so one
+    build serves every static scalar); the whole ladder runs in one launch."""
+    if Q.device.type == "cpu":
+        return smul_static_plain(F, Q, bits)
+    _require_cuda(Q)
+    _check(F, Q)
+    dev_bits = F.fp.device_bits(bits, Q.device)
+    Q2, restore = _to_lanes(Q)
+    out = torch.empty_like(Q2)
+    n = Q2.shape[-1]
+    if n:
+        with torch.cuda.device(Q.device):
+            build.launch("mlt_g1_smul_static", Q2.data_ptr(), dev_bits.data_ptr(), dev_bits.numel(),
+                         out.data_ptr(), n, F.fp.L,
+                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(Q))
+        smul_static.launches += 1
+    return restore(out)
+
+
 def dbladd(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
     """select(sel, 2P + Q, 2P), sel a (..., B) bool tensor: one scalar-mul
     step in one launch."""
@@ -336,7 +370,7 @@ def maddselneg(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor, neg: T
 
 
 # launch counts: a plain integer on each wrapper, raised only where it launches
-KERNELS = (add, double, addsel, smul, dbladd, addselneg, maddsel, maddselneg)
+KERNELS = (add, double, addsel, smul, dbladd, addselneg, maddsel, maddselneg, smul_static)
 
 
 def reset_launches() -> None:

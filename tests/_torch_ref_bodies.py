@@ -18,6 +18,7 @@ import numpy as np
 import mathlib_tpu.ops.kernels.fp_rows as fp_rows_mod
 import mathlib_tpu.ops.kernels.g1_pallas as g1p_mod
 from mathlib_tpu.ops.kernels.fp_rows import RowCtx
+from test_hash_pallas import _FakeJax, _FakePl
 
 
 class Ref:
@@ -31,6 +32,25 @@ class Ref:
 
     def __setitem__(self, idx, val):
         self.arr[idx] = val
+
+
+@contextlib.contextmanager
+def numpy_kernel_bodies(*modules):
+    """Whole Pallas kernel bodies of ``modules`` (and of the row arithmetic
+    they build on) on numpy rows: ``jnp`` is numpy, ``pl.when`` and
+    ``jax.lax.fori_loop`` run eagerly (the stand-ins of
+    ``tests/test_hash_pallas.py``, shared here)."""
+    swaps = [(fp_rows_mod, "jnp", np)]
+    for mod in modules:
+        swaps += [(mod, "jnp", np), (mod, "pl", _FakePl), (mod, "jax", _FakeJax)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, val in swaps:
+        setattr(mod, name, val)
+    try:
+        yield
+    finally:
+        for mod, name, val in reversed(saved):
+            setattr(mod, name, val)
 
 
 @contextlib.contextmanager

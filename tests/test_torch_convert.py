@@ -86,7 +86,8 @@ def test_kernel_wrappers_refuse_other_devices():
         g1_cuda.smul(g1.F, P, g1.encode_scalars([3]).to("meta"), g1.nbits)
     sel = torch.ones(1, dtype=torch.bool, device="meta")
     for fn, args in ((g1_cuda.dbladd, (P, P, sel)), (g1_cuda.addselneg, (P, P, sel, sel)),
-                     (g1_cuda.maddsel, (P, P[:2], sel)), (g1_cuda.maddselneg, (P, P[:2], sel, sel))):
+                     (g1_cuda.maddsel, (P, P[:2], sel)), (g1_cuda.maddselneg, (P, P[:2], sel, sel)),
+                     (g1_cuda.smul_static, (P, [1, 0, 1]))):
         with pytest.raises(ValueError):
             fn(g1.F, *args)
 
@@ -100,8 +101,10 @@ def test_plain_versions_launch_nothing():
     g1.add_select_neg(g1.gen, g1.gen, one, one)
     g1.madd_select(g1.gen, g1.gen[:2], one)
     g1.madd_select_neg(g1.gen, g1.gen[:2], one, one)
+    g1_cuda.smul_static(g1.F, g1.gen, [1, 1])
     assert g1_cuda.launches() == {"add": 0, "double": 0, "addsel": 0, "smul": 0, "dbladd": 0,
-                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0}
+                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0,
+                                  "smul_static": 0}
 
 
 def _fake_nvcc(tmp_path, body):
@@ -145,6 +148,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(mathlib_tpu_torch.__path__,\n"
         "                                               'mathlib_tpu_torch.')]\n"
         "assert 'mathlib_tpu_torch.batch' in names and len(names) > 15, names\n"
+        "new = {'mathlib_tpu_torch.' + m for m in ('ops.hash', 'ops.xmd', 'ops.kernels.hash_cuda',\n"
+        "                                        'host.hash_to_curve', 'curves.isogeny_data')}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'mathlib_tpu'))\n"
@@ -178,13 +184,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """Without a device argument every context runs on the card, and raises
     where torch sees none; "cpu" must be asked for by name."""
     from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.ops.hash import HashG1Ctx
     from mathlib_tpu_torch.ops.pairing import PairingCtx
     from mathlib_tpu_torch.ops.tower import TowerCtx
 
     spec = get_spec("BN254")
+    bls = get_spec("BLS12_381")
     ctors = [lambda d=None: FpCtx(spec.p, d), lambda d=None: G1Ctx(spec, d),
              lambda d=None: TowerCtx(spec, d), lambda d=None: PairingCtx(spec, d),
-             lambda d=None: BatchEngine(spec, d)]
+             lambda d=None: BatchEngine(spec, d), lambda d=None: HashG1Ctx(bls, d)]
     for ctor in ctors:
         assert ctor("cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -18,7 +18,7 @@ from mathlib_tpu_torch import get_spec
 from mathlib_tpu_torch.batch import BatchEngine
 from mathlib_tpu_torch.host import get_engine
 from mathlib_tpu_torch.ops.g1 import G1Ctx
-from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, pairing_cuda
+from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, hash_cuda, pairing_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -54,7 +54,8 @@ def test_kernels_equal_plain_versions(ctx):
         g1_cuda.smul(F, S[..., :32], ks, g1.nbits), g1_cuda.smul_plain(F, S[..., :32], ks, g1.nbits)
     )
     assert g1_cuda.launches() == {"add": 1, "double": 1, "addsel": 1, "smul": 1, "dbladd": 0,
-                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0}
+                                  "addselneg": 0, "maddsel": 0, "maddselneg": 0,
+                                  "smul_static": 0}
 
 
 def test_msm_option_kernels_equal_plain_versions(ctx):
@@ -267,3 +268,59 @@ def test_device_strategies_give_the_default_verdicts(pair_ctx, monkeypatch):
     monkeypatch.setenv("MATHLIB_PAIR_FUSED", "check")
     with pytest.raises(NotImplementedError):
         be.pairing_product_is_one([P, nP], [G, G])
+
+
+@pytest.fixture
+def hash_ctx():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx
+
+    return get_hash_g1_ctx(get_spec("BLS12_381"))
+
+
+def test_hash_kernels_equal_plain_versions(hash_ctx):
+    """hash_g1 under both signs and smul_static on 1,000 lanes, the edge
+    lanes u = 0, 1, p - 1 and a nonzero u with t2 = 0 first; P = inf among
+    the ladder's lanes."""
+    ctx = hash_ctx
+    p, n = ctx.spec.p, 1000
+    rng = np.random.default_rng(11)
+    t2_zero = pow(-pow(11, -1, p) % p, (p + 1) // 4, p)
+    us = [[0, 1, p - 1, t2_zero] + [int.from_bytes(rng.bytes(48), "big") % p
+                                    for _ in range(n - 4)] for _ in range(2)]
+    u0, u1 = ctx.fp.encode(us[0]), ctx.fp.encode(us[1][::-1])
+    hash_cuda.reset_launches()
+    g1_cuda.reset_launches()
+    for sign in ("parity", "be"):
+        got = hash_cuda.hash_g1(ctx, u0, u1, sign)
+        assert torch.equal(got, hash_cuda.hash_g1_plain(ctx, u0, u1, sign)), sign
+    P = got.clone()
+    P[..., 5] = ctx.g1.inf[..., 0]
+    assert torch.equal(g1_cuda.smul_static(ctx.g1.F, P, ctx.h_bits),
+                       g1_cuda.smul_static_plain(ctx.g1.F, P, ctx.h_bits))
+    assert hash_cuda.launches() == {"hash_g1": 2}
+    assert g1_cuda.launches()["smul_static"] == 1
+    with pytest.raises(ValueError):
+        hash_cuda.hash_g1(ctx, u0[:-2], u1[:-2])
+
+
+def test_bls_sign_and_verify_on_the_card(hash_ctx):
+    """bls_sign_batch and bls_verify_batch on 8 messages through the card's
+    kernels, against the host hasher."""
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+
+    spec = hash_ctx.spec
+    eng, be = get_engine(spec), BatchEngine(spec)
+    msgs = [bytes([i]) * 32 for i in range(8)]
+    dst = b"BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_"
+    sk = 0xC0FFEE
+    hash_cuda.reset_launches()
+    sigs = be.bls_sign_batch(sk, msgs, dst)
+    assert hash_cuda.launches() == {"hash_g1": 1}
+    hasher = get_hasher(spec)
+    assert sigs == [eng.g1.mul(hasher.hash_to_g1(m, dst), sk) for m in msgs]
+    pk = eng.g2.mul(eng.gen_g2, sk)
+    assert be.bls_verify_batch(pk, sigs, msgs, dst) is True
+    assert be.bls_verify_batch(pk, sigs[:7] + [sigs[0]], msgs, dst) is False
+

@@ -1,10 +1,12 @@
 """The port's own curve constants and host engine against the JAX package's.
 
-The port keeps copies of ``mathlib_tpu.curves.params`` and ``mathlib_tpu.host``
-(and of ``native/engine.cpp``) so that it never imports the JAX package.
-These tests hold the copies equal to the originals: every ``CurveSpec``
-field on all four curves, and the pure-Python and C++ engines on the group
-law, the MSM, the Miller loop and the final exponentiation.
+The port keeps copies of ``mathlib_tpu.curves.params``,
+``mathlib_tpu.curves.isogeny_data`` and ``mathlib_tpu.host`` (and of
+``native/engine.cpp``) so that it never imports the JAX package.  These
+tests hold the copies equal to the originals: every ``CurveSpec`` field on
+all four curves, the pure-Python and C++ engines on the group law, the MSM,
+the Miller loop and the final exponentiation, the isogeny data, and the host
+hasher's outputs.
 """
 
 import dataclasses
@@ -73,6 +75,31 @@ def test_native_and_python_engines_equal_the_reference_engine(curve):
     assert py.final_exp(f) == e == nat.final_exp(f)
     assert nat.final_exp(nat.miller_loop([(P, Q)])) == e
     assert nat.gt_is_one(nat.final_exp(nat.miller_loop([(P, Q), (ref.g1.neg(P), Q)])))
+
+
+def test_isogeny_data_and_the_host_hasher_equal_the_reference():
+    """The copies of ``curves/isogeny_data.py`` and ``host/hash_to_curve.py``:
+    the data, and the hasher's outputs (XMD on both hashes, G1 by SSWU on
+    BLS12-381 and by SVDW on BN254, the BBS+ map, G2)."""
+    from mathlib_tpu.curves import isogeny_data as ref_iso
+    from mathlib_tpu.host import hash_to_curve as ref_h2c
+    from mathlib_tpu_torch.curves import isogeny_data
+    from mathlib_tpu_torch.host import hash_to_curve
+
+    assert isogeny_data.G1 == ref_iso.G1 and isogeny_data.G2 == ref_iso.G2
+    for name in ("sha256", "blake2b512"):
+        assert hash_to_curve.expand_message_xmd(b"abc", b"DST", 200, name) == \
+            ref_h2c.expand_message_xmd(b"abc", b"DST", 200, name)
+    for curve in ("BLS12_381", "BN254"):
+        h, ref = hash_to_curve.get_hasher(get_spec(curve)), ref_h2c.get_hasher(ref_get_spec(curve))
+        assert h.is_rfc_compatible("g1") == ref.is_rfc_compatible("g1")
+        for msg in (b"", b"msg-1"):
+            assert h.hash_to_g1(msg, b"DST") == ref.hash_to_g1(msg, b"DST")
+        assert h.hash_to_g1_bbs(b"bbs", b"DST") == ref.hash_to_g1_bbs(b"bbs", b"DST")
+        assert h.hash_to_g2(b"g2", b"DST") == ref.hash_to_g2(b"g2", b"DST")
+        p = h.spec.p
+        assert hash_to_curve.hash_to_field_fp2(b"x", b"D", p, 2) == \
+            ref_h2c.hash_to_field_fp2(b"x", b"D", p, 2)
 
 
 def test_native_library_is_named_by_its_source(tmp_path, monkeypatch):

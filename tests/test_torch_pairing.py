@@ -171,6 +171,22 @@ def test_grouped_checks_give_the_known_verdicts(bls_engine):
         be.pairing_products_are_one(g1s[:6], g2s[:6], 4)
 
 
+def test_grouped_checks_of_three_pairs_run_one_check_per_group(bls_engine):
+    """A group size that is not a power of two (a BBS+-style three-pair
+    check) runs one product check per group, as the reference does: 12
+    pairs, group_size=3, four known verdicts."""
+    spec, be, eng = bls_engine
+    A, B = eng.g1.mul(eng.gen_g1, 7), eng.g1.mul(eng.gen_g1, 11)
+    C = eng.g1.neg(eng.g1.add(A, B))  # e(A, G) e(B, G) e(C, G) == 1
+    G, Q = eng.gen_g2, eng.g2.mul(eng.gen_g2, 3)
+    g1s = [A, B, C] * 4
+    g2s = [G, G, G] + [G, G, Q] + [G, G, G] + [Q, G, G]
+    assert be.pairing_products_are_one(g1s, g2s, 3) == [True, False, True, False]
+    for bad in (0, 5, 24):  # zero, and sizes that do not divide 12
+        with pytest.raises(ValueError):
+            be.pairing_products_are_one(g1s, g2s, bad)
+
+
 @pytest.mark.parametrize("curve", ["BLS12_381", "BN254"])
 def test_encode_pairs_equals_the_reference_word_for_word(curve):
     spec = get_spec(curve)
