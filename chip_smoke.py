@@ -111,9 +111,34 @@ Hash-to-G1 and ``BatchEngine``'s BLS sign and verify:
      ``hash_stages`` line splits one (a) call into host pack, XMD on the
      device, the kernel and host decode.
 
+G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
+
+ 14. the six G2 kernels (g2_add, g2_double, g2_addsel, g2_dblsel, g2_smul,
+     g2_smul_static) against their plain PyTorch versions on the card, bit
+     for bit: the point kernels on 4,097 lanes with P = Q, P = -Q and
+     infinity on either side and a 15/16 selection, the ladders on 256
+     lanes (k = 0, 1, r - 1; infinity among them; the two cofactor
+     scalars); then each timed at the path's 4,096 lanes beside its plain
+     version, with its bound; then g2_addsel and g2_dblsel on their paths,
+     ``G2Ctx.add_select`` and a 64-bit ``G2Ctx.dbl_add_select`` ladder held
+     to ``G2Ctx.scalar_mul`` (their launch counts come from there);
+ 15. the entry points, one warm-up and 3 timed calls each, the launch counts
+     set to 0 just before and read just after: ``hash_to_g2_batch`` on 4,096
+     messages under ``BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_``, (a)
+     32-byte (the word path), (b) 30-byte (the block path), (c)
+     ``b"msg-%d"`` of mixed lengths (the host path), 64 sampled lanes of
+     each against the port's host hasher, with a ``g2_hash_stages`` line
+     (XMD, the maps, the cofactor ladders, host decode); (d)
+     ``BatchEngine.g2_scalar_mul`` on 4,096 lanes against the host engine's
+     ``mul`` on 64 sampled lanes and the k = 0 and infinity lanes, with a
+     ``g2_smul_stages`` line; (e) BN254 ``g2_scalar_mul`` on 1,024 lanes
+     (the weier fallback over ``mont_mul``).  Every G2 kernel must have
+     launched on its path.
+
 Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
 ``np.random.default_rng(1)`` (phases 8-9), ``np.random.default_rng(2)``
-(phases 10-11) and ``np.random.default_rng(3)`` (phases 12-13), the points
+(phases 10-11), ``np.random.default_rng(3)`` (phases 12-13) and
+``np.random.default_rng(4)`` (phases 14-15), the points
 from the port's C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then as its last line
@@ -154,6 +179,8 @@ N_LANES_CHECK, N_VALID_CHECK = 64, 61  # phase 6: lanes, real lanes (3 pad)
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
 G1_SRC = "mathlib_tpu_torch/csrc/g1_kernels.cu"
+G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
+G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "add": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
     "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
@@ -181,6 +208,12 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
                 "mathlib_tpu/ops/kernels/hash_pallas.py:258"),
     "smul_static": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
+    "g2_add": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
+    "g2_double": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
+    "g2_addsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
+    "g2_dblsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
+    "g2_smul": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:358"),
+    "g2_smul_static": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:393"),
 }
 N_BATCH = 4096  # phase 9 (a): BLS12-381 pairs of one pairing_batch call
 N_BATCH_BN = 1024  # phase 9 (b): BN254 pairs
@@ -196,6 +229,11 @@ N_HASH_CHECK = 1024  # phase 12: lanes of hash_g1 against its plain version
 N_HASH_BN = 1024  # phase 13 (g): BN254 messages
 N_HASH_SAMPLED = 64  # phase 13: lanes of each call held to the host hasher
 HASH_DST = b"BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_"
+N_G2 = 4096  # phase 14: timed lanes; phase 15: messages and points of one call
+N_G2_BN = 1024  # phase 15 (e): BN254 lanes of g2_scalar_mul
+N_G2_SAMPLED = 64  # phase 15: lanes of each call held to the host
+N_G2_LADDER_BITS = 64  # phase 14: bits of the G2Ctx.dbl_add_select ladder
+HASH_G2_DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 BLS_SK = 0x2B1E5F0D3C7A9B4E6D8F1A3C5E7B9D2F4A6C8E1B3D5F7A9C2E4B6D8F1A3C5E7B
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
@@ -1148,7 +1186,7 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
 
     # ---- 12. hash_g1 and smul_static against their plain versions (exact)
     for entry in ptxas_entries(build.BUILD_LOG):
-        if "hash_g1" in entry or "smul_static" in entry:
+        if entry.startswith(("hash_g1", "g1_smul_static")):
             log("ptxas", entry=repr(entry))
     a = (-pow(isogeny_data.G1[spec.name]["Z"], -1, p)) % p  # t2 = 0 <=> u^2 = -1/Z
     r = pow(a, (p + 1) // 4, p)
@@ -1377,6 +1415,290 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     return new_launches
 
 
+def g2_phases(dev, smi: str, results: dict) -> dict:
+    """Phases 14 and 15; fills ``results`` for the six G2 kernels and returns
+    their launch counts: g2_add's, g2_double's and g2_smul_static's summed
+    over phase 15's hash calls (a)-(c), g2_smul's over (d), g2_addsel's and
+    g2_dblsel's over phase 14's drive through ``G2Ctx``."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+    from mathlib_tpu_torch.ops import xmd
+    from mathlib_tpu_torch.ops.hash import get_hash_g2_ctx, hash_to_g2_batch
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g2_cuda
+
+    rng = np.random.default_rng(4)
+    spec = get_spec("BLS12_381")
+    eng = get_engine(spec)
+    ctx = get_hash_g2_ctx(spec, dev)
+    g2, L = ctx.g2, ctx.fp.L
+    F = g2.rows
+    r = spec.r
+    t_phase = time.perf_counter()
+
+    def check(name, got, want):
+        return check_equal(results, name, got, want)
+
+    def rand_k():
+        return int.from_bytes(rng.bytes(32), "big") % r
+
+    # ---- 14. the six kernels against their plain versions (exact)
+    for entry in ptxas_entries(build.BUILD_LOG):
+        if entry.startswith("g2_"):
+            log("ptxas", entry=repr(entry))
+    pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
+    n = N_CHECK
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        B[i] = A[i]  # P == Q
+    for i in range(3, n, 17):
+        B[i] = eng.g2.neg(A[i]) if A[i] else None  # P == -Q
+    for i in range(5, n, 11):
+        A[i] = None
+    for i in range(6, n, 13):
+        B[i] = None
+    P, Q = g2.encode_points(A), g2.encode_points(B)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(dev)
+    S = check("g2_add", g2_cuda.add(F, P, Q), g2_cuda.add_plain(F, P, Q))  # relaxed outputs
+    if g2.decode_points(S[..., :64]) != [eng.g2.add(a, b) for a, b in zip(A[:64], B[:64])]:
+        raise AssertionError("g2_add disagrees with the host engine")
+    check("g2_double", g2_cuda.double(F, S), g2_cuda.double_plain(F, S))
+    check("g2_addsel", g2_cuda.addsel(F, S, Q, sel), g2_cuda.addsel_plain(F, S, Q, sel))
+    check("g2_dblsel", g2_cuda.dblsel(F, S, Q, sel), g2_cuda.dblsel_plain(F, S, Q, sel))
+    ks = [0, 1, r - 1] + [rand_k() for _ in range(N_SMUL - 3)]
+    Ks = g2.encode_scalars(ks)
+    S256 = S[..., :N_SMUL].clone()
+    S256[..., 3] = g2.inf[..., 0]
+    check("g2_smul", g2_cuda.smul(F, S256, Ks, g2.nbits), g2_cuda.smul_plain(F, S256, Ks, g2.nbits))
+    for bits in (ctx.x_bits_1, ctx.x_bits_2):
+        check("g2_smul_static", g2_cuda.smul_static(F, S256, bits),
+              g2_cuda.smul_static_plain(F, S256, bits))
+    log("g2_kernels_vs_plain", lanes=n, ladder_lanes=N_SMUL, equal=True,
+        max_abs_err={k: v["max_abs_err"] for k, v in results.items() if k.startswith("g2_")})
+
+    # at the path's shapes (4,096 lanes: one hash or g2_scalar_mul call),
+    # timed beside the plain versions, with their bounds: bytes of int32
+    # points in and out, field products counted from the inputs (add 36,
+    # double 24, the selects' adds only on selected lanes; the ladders 60 a
+    # bit, or 24 a bit and 36 a one-bit)
+    reps = -(-N_G2 // n)
+    Pt = S.repeat(1, 1, 1, reps)[..., :N_G2].contiguous()
+    Qt = Q.repeat(1, 1, 1, reps)[..., :N_G2].contiguous()
+    selt = torch.from_numpy(rng.random(N_G2) < 15 / 16).to(dev)
+    Kt = g2.encode_scalars([rand_k() for _ in range(N_G2)])
+    pt = 3 * 2 * L * 4  # bytes of a projective G2 point
+    n_sel = int(selt.sum())
+    b1, b2 = ([int(b) for b in bits] for bits in (ctx.x_bits_1, ctx.x_bits_2))
+    static_muls = sum(24 * len(b) + 36 * sum(b) for b in (b1, b2))
+    shapes = {  # name: (kernel, plain, bytes, field products)
+        "g2_add": (lambda: g2_cuda.add(F, Pt, Qt), lambda: g2_cuda.add_plain(F, Pt, Qt),
+                   3 * pt * N_G2, 36 * N_G2),
+        "g2_double": (lambda: g2_cuda.double(F, Pt), lambda: g2_cuda.double_plain(F, Pt),
+                      2 * pt * N_G2, 24 * N_G2),
+        "g2_addsel": (lambda: g2_cuda.addsel(F, Pt, Qt, selt),
+                      lambda: g2_cuda.addsel_plain(F, Pt, Qt, selt),
+                      (3 * pt + 1) * N_G2, 36 * n_sel),
+        "g2_dblsel": (lambda: g2_cuda.dblsel(F, Pt, Qt, selt),
+                      lambda: g2_cuda.dblsel_plain(F, Pt, Qt, selt),
+                      (3 * pt + 1) * N_G2, 24 * N_G2 + 36 * n_sel),
+        "g2_smul": (lambda: g2_cuda.smul(F, Pt, Kt, g2.nbits),
+                    lambda: g2_cuda.smul_plain(F, Pt, Kt, g2.nbits),
+                    (2 * pt + 4 * Kt.shape[-2]) * N_G2, 60 * g2.nbits * N_G2),
+        # both cofactor ladders of one clear_cofactor, |x^2 - x - 1| and |x - 1|
+        "g2_smul_static": (lambda: torch.cat([g2_cuda.smul_static(F, Pt, b1),
+                                              g2_cuda.smul_static(F, Pt, b2)], dim=-1),
+                           lambda: torch.cat([g2_cuda.smul_static_plain(F, Pt, b1),
+                                              g2_cuda.smul_static_plain(F, Pt, b2)], dim=-1),
+                           2 * 2 * pt * N_G2, static_muls * N_G2),
+    }
+    for name, (kern, plain, nbytes, fp_muls) in shapes.items():
+        ms, got = cuda_ms(kern, reps=3)
+        plain_ms, want = cuda_ms(plain, reps=1)
+        check(name, got, want)
+        del got, want
+        results[name].update(ms=ms, plain_ms=plain_ms, lanes=N_G2,
+                             **bound(nbytes, wide_mads(fp_muls, L)))
+        log("time", kernel=name, lanes=N_G2, equal=True, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+            bound_ms=f"{results[name]['bound_ms']:.4f}", bound_by=results[name]["bound_by"],
+            fp_muls_per_lane=fp_muls / N_G2, card=repr(smi))
+    for bits, what in ((b1, "|x^2-x-1|"), (b2, "|x-1|")):
+        ms, _ = cuda_ms(lambda: g2_cuda.smul_static(F, Pt, bits), reps=3)
+        log("time_static_ladder", scalar=what, bits=len(bits), ones=sum(bits), lanes=N_G2,
+            ms=f"{ms:.4f}")
+
+    # g2_addsel and g2_dblsel on their paths (no entry point reaches them by
+    # default): G2Ctx.add_select, and a 64-bit ladder of G2Ctx.dbl_add_select
+    # held to G2Ctx.scalar_mul
+    g2_cuda.reset_launches()
+    check("g2_addsel", g2.add_select(Pt, Qt, selt), g2_cuda.addsel_plain(F, Pt, Qt, selt))
+    ks64 = [int.from_bytes(rng.bytes(8), "big") >> (64 - N_G2_LADDER_BITS) for _ in range(N_G2)]
+    K64 = g2.encode_scalars(ks64)
+    acc = g2.inf.expand(Qt.shape)
+    for i in range(N_G2_LADDER_BITS - 1, -1, -1):
+        acc = g2.dbl_add_select(acc, Qt, g2_cuda.scalar_bit(K64, i))
+    sel_launches = {k: v for k, v in g2_cuda.launches().items() if k in ("g2_addsel", "g2_dblsel")}
+    if sel_launches != {"g2_addsel": 1, "g2_dblsel": N_G2_LADDER_BITS}:
+        raise AssertionError(f"G2Ctx did not run on g2_addsel/g2_dblsel: {sel_launches}")
+    if not bool(g2.eq(acc, g2.scalar_mul(Qt, K64)).all()):
+        raise AssertionError("the G2 dbl_add_select ladder disagrees with scalar_mul")
+    log("g2_dblsel_ladder", lanes=N_G2, bits=N_G2_LADDER_BITS, equals_scalar_mul=True,
+        **sel_launches)
+    del Pt, Qt, selt, Kt, acc, S, P, Q
+    log("phase14", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+    # ---- 15. the entry points at full width
+    t_phase = time.perf_counter()
+    hasher = get_hasher(spec)
+    launches = dict(sel_launches, g2_add=0, g2_double=0, g2_smul=0, g2_smul_static=0)
+
+    def reset():
+        g2_cuda.reset_launches()
+        fp_cuda.reset_launches()
+
+    def counts():
+        return {k: v for k, v in {**g2_cuda.launches(), **fp_cuda.launches()}.items() if v}
+
+    def timed(name, run, same, need, count, unit):
+        """A warm-up and 3 host-clock calls of run() (their outputs equal),
+        the launch counts set to 0 just before and read just after; every
+        kernel in ``need`` must have launched."""
+        reset()
+        first = run()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not same(out, first):
+                raise AssertionError(f"{name}: runs of one call disagree")
+        got = counts()
+        missing = [k for k in need if k not in got]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched on its path: {missing}")
+        for k in ("g2_add", "g2_double", "g2_smul", "g2_smul_static"):
+            launches[k] += got.get(k, 0)
+        log("g2_entry", name=name, n=count, seconds=[round(x, 4) for x in secs],
+            **{f"{unit}_per_s": f"{count / min(secs):.1f}"}, card=repr(smi))
+        log("g2_entry_launches_per_call", name=name, **{k: v / 4 for k, v in got.items()})
+        return first
+
+    sample = sorted(int(i) for i in rng.choice(N_G2, N_G2_SAMPLED, replace=False))
+    need_hash = ("g2_add", "g2_double", "g2_smul_static", "mont_mul", "fp_pow")
+    msgs = {"a": [rng.bytes(32) for _ in range(N_G2)],
+            "b": [rng.bytes(30) for _ in range(N_G2)],
+            "c": [b"msg-%d" % i for i in range(N_G2)]}
+    titles = {"a": "(a) hash_to_g2_batch, 32-byte messages (word path)",
+              "b": "(b) hash_to_g2_batch, 30-byte messages (block path)",
+              "c": "(c) hash_to_g2_batch, b'msg-%d' (host hash_to_field)"}
+    host_a = None
+    for key in ("a", "b", "c"):
+        ms_ = msgs[key]
+        out = timed(titles[key], lambda: hash_to_g2_batch(spec, ms_, HASH_G2_DST, device=dev),
+                    torch.equal, need_hash, N_G2, "hashes")
+        if out.shape != (3, 2, L, N_G2):
+            raise AssertionError(f"{titles[key]}: shape {tuple(out.shape)}")
+        want = [hasher.hash_to_g2(ms_[i], HASH_G2_DST) for i in sample]
+        if g2.decode_points(out[..., sample]) != want:
+            raise AssertionError(f"{titles[key]}: sampled lanes differ from the host hasher")
+        host_a = want if key == "a" else host_a
+    log("g2_hash_sampled", entries="a-c", lanes=N_G2_SAMPLED, equal_host_hasher=True)
+
+    # stages of one more (a) call: host pack, XMD and embedding on the card,
+    # the two maps (tower ops on mont_mul and fp_pow, the isogenies, g2_add),
+    # the cofactor clearing (the two static ladders, psi, g2_add x2,
+    # g2_double), host decode of every lane
+    ms_a = msgs["a"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = xmd.to_device_words(xmd.pack_msg_words(ms_a, 32), dev)
+    tmpl = xmd.b0_template(32, HASH_G2_DST, 256)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    reset()
+    ev[0].record()
+    es = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_G2_DST,
+                                  4, 64)
+    ev[1].record()
+    with _OpCount() as map_ops:
+        x0, y0 = ctx.sswu(torch.stack(es[:2]))
+        x1, y1 = ctx.sswu(torch.stack(es[2:]))
+        Pm = g2.add(ctx.iso_project(x0, y0), ctx.iso_project(x1, y1))
+    ev[2].record()
+    out = ctx.clear_cofactor(Pm)
+    ev[3].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pts = g2.decode_points(out)
+    t3 = time.perf_counter()
+    if [pts[i] for i in sample] != host_a:
+        raise AssertionError("the stage run of (a) differs from the host hasher")
+    log("g2_hash_stages", n=N_G2, pack_host_s=f"{t1 - t0:.4f}",
+        xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+        map_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}", map_aten_ops=map_ops.n,
+        cofactor_device_ms=f"{ev[2].elapsed_time(ev[3]):.4f}", device_wall_s=f"{t2 - t1:.4f}",
+        decode_host_s=f"{t3 - t2:.4f}", **counts())
+
+    # (d) BatchEngine.g2_scalar_mul on 4,096 BLS12-381 lanes: 256 host points
+    # tiled, infinity and k = 0 among them
+    be = BatchEngine(spec, dev)
+    pts_d = [pool[i % 256] for i in range(N_G2)]
+    pts_d[3] = None
+    ks_d = [rand_k() for _ in range(N_G2)]
+    ks_d[5] = 0
+    check_lanes = sorted(set(sample) | {3, 5})
+
+    def host_mul(points, scalars, e):
+        return [e.g2.mul_any(points[i], scalars[i]) for i in check_lanes]
+
+    got_d = timed("(d) BatchEngine.g2_scalar_mul", lambda: be.g2_scalar_mul(pts_d, ks_d),
+                  lambda x, y: x == y, ("g2_smul",), N_G2, "points")
+    if [got_d[i] for i in check_lanes] != host_mul(pts_d, ks_d, eng):
+        raise AssertionError("(d): sampled lanes differ from the host engine")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Pd, Sd = g2.encode_points(pts_d), g2.encode_scalars(ks_d)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    Od = g2.scalar_mul(Pd, Sd)
+    ev[1].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    g2.decode_points(Od)
+    t3 = time.perf_counter()
+    log("g2_smul_stages", n=N_G2, encode_host_s=f"{t1 - t0:.4f}",
+        g2_smul_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}", decode_host_s=f"{t3 - t2:.4f}")
+
+    # (e) BN254, outside the kernels' gate: weier over Fp2Adapter on mont_mul
+    bn = get_spec("BN254")
+    eng_bn = get_engine(bn)
+    be_bn = BatchEngine(bn, dev)
+    pool_bn = [eng_bn.g2.mul(eng_bn.gen_g2, int.from_bytes(rng.bytes(32), "big") % bn.r)
+               for _ in range(64)]
+    pts_e = [pool_bn[i % 64] for i in range(N_G2_BN)]
+    pts_e[3] = None
+    ks_e = [int.from_bytes(rng.bytes(32), "big") % bn.r for _ in range(N_G2_BN)]
+    ks_e[5] = 0
+    check_lanes = sorted(set(int(i) for i in rng.choice(N_G2_BN, N_G2_SAMPLED, replace=False))
+                         | {3, 5})
+    got_e = timed("(e) BN254 BatchEngine.g2_scalar_mul", lambda: be_bn.g2_scalar_mul(pts_e, ks_e),
+                  lambda x, y: x == y, ("mont_mul",), N_G2_BN, "points")
+    if [got_e[i] for i in check_lanes] != host_mul(pts_e, ks_e, eng_bn):
+        raise AssertionError("(e): sampled lanes differ from the host engine")
+    log("g2_smul_sampled", entries="d-e", equal_host_engine=True)
+    log("phase15", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1592,6 +1914,12 @@ def main() -> int:
 
     # ---- 12 and 13. hash-to-G1 and BatchEngine's hash and BLS entry points
     launches.update(hash_phases(dev, smi, results, {"spec": spec, "eng": eng}))
+
+    # ---- 14 and 15. G2's group law, BatchEngine.g2_scalar_mul and hash-to-G2
+    launches.update(g2_phases(dev, smi, results))
+    missing = [k for k in KERNEL_INFO if k.startswith("g2_") and launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"G2 kernels not launched on their paths: {missing}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

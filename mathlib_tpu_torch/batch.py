@@ -28,7 +28,10 @@ launch, affine on the card) and ``bls_verify_batch`` (a random linear
 combination: two MSMs on the card, then one two-pair product check).  Curves
 outside the device hash's gate (BN254, BLS12-377) hash on the host hasher.
 
-Not ported here: the G2 scalar mul of the reference engine (ROADMAP.md §1).
+``g2_scalar_mul`` is the G2 entry point: [k_i] Q_i for host lists, one
+ladder on the card (the ``g2_smul`` kernel on BLS12-381; on the other
+curves the reference's double-add-select scan over ``mont_mul``), decoded
+on the host as the reference decodes it.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ class BatchEngine:
         self.tw = self.pair.tw
         self.fp = self.tw.fp
         self.g1 = G1Ctx(spec, self.device)
+        self.g2 = self.pair.g2c
         self.host = get_engine(spec)
 
     @classmethod
@@ -103,6 +107,15 @@ class BatchEngine:
         S = self.g1.encode_scalars([int(k) for k in scalars])
         return self.g1.decode_points_affine(self.g1.to_affine_rows(self.g1.scalar_mul(P, S)))
 
+    # ------------------------------------------------------------- G2 -------
+    def g2_scalar_mul(self, points, scalars) -> List:
+        """[k_i] Q_i for host lists (affine G2 points, None = infinity; ints),
+        as affine host points: one ``G2Ctx.scalar_mul``, then the host
+        decode (a host Fp2 inverse a point)."""
+        P = self.g2.encode_points(points)
+        S = self.g2.encode_scalars([int(k) for k in scalars])
+        return self.g2.decode_points(self.g2.scalar_mul(P, S))
+
     # ---------------------------------------------------------- pairing -----
     def _encode_pairs(self, g1_points, g2_points) -> np.ndarray:
         """Affine pair lists -> ONE plain (non-Montgomery) (6, L, N) uint16
@@ -131,8 +144,11 @@ class BatchEngine:
 
     def pairing_batch(self, g1_points, g2_points) -> List:
         """e(P_i, Q_i) for affine host point lists, as a list of host Fp12
-        values; always final-exponentiated."""
+        values; always final-exponentiated.  No pairs give an empty list, as
+        in the reference."""
         packed = self._encode_pairs(g1_points, g2_points)
+        if packed.shape[-1] == 0:
+            return []
         return self.tw.f12_decode(self.pair.pairing(*self._pair_split_mont(packed)))
 
     def pairing_product_is_one(self, g1_points, g2_points) -> bool:

@@ -20,6 +20,7 @@ FP_CONSTANTS = (
     "r2_limbs",
 )
 G1_CONSTANTS = ("gen", "inf")
+G2_CONSTANTS = ("gen", "inf")
 
 
 def to_torch(arr, device) -> torch.Tensor:
@@ -37,15 +38,19 @@ def to_numpy(t) -> np.ndarray:
 
 def check_constants(port, ref) -> None:
     """Raise ``ValueError`` unless a port context's constants equal the
-    reference's.  ``port``/``ref`` are both ``FpCtx`` or both ``G1Ctx``
-    (the G1 check covers its base and scalar fields too)."""
+    reference's.  ``port``/``ref`` are both ``FpCtx``, both ``G1Ctx`` or both
+    ``G2Ctx`` (a group's check covers its base and scalar fields too, and
+    G2's the kernels' gate)."""
     bad = []
-    if hasattr(ref, "fp"):  # G1Ctx
-        for name in G1_CONSTANTS:
+    if hasattr(ref, "fp"):  # G1Ctx or G2Ctx
+        g2 = hasattr(ref, "tw")
+        for name in G2_CONSTANTS if g2 else G1_CONSTANTS:
             if not np.array_equal(to_numpy(getattr(port, name)), getattr(ref, name)):
                 bad.append(name)
         if port.F.b3 != ref.F.b3:
             bad.append("F.b3")
+        if g2 and (port.rows.b3 if port.rows else None) != ref._pallas_b3:
+            bad.append("the kernels' gate")
         pairs = [("fp.", port.fp, ref.fp), ("fr.", port.fr, ref.fr)]
     else:
         pairs = [("", port, ref)]

@@ -14,9 +14,10 @@ is rebuilt when a source is newer than it.  A failed build raises with nvcc's
 output; there is no fallback.  (``csrc/host/engine.cpp`` is the C++ host
 engine, built with g++ by ``host/native.py``, not here.)
 
-The wrappers (``g1_cuda``, ``fp_cuda``, ``pairing_cuda``, ``hash_cuda``) reach
-the library through ``launch``, ``consts`` (a prime's constants as the
-launchers take them) and ``stream`` (the tensor's current CUDA stream).
+The wrappers (``g1_cuda``, ``g2_cuda``, ``fp_cuda``, ``pairing_cuda``,
+``hash_cuda``) reach the library through ``launch``, ``consts`` (a prime's
+constants as the launchers take them) and ``stream`` (the tensor's current
+CUDA stream).
 """
 
 from __future__ import annotations
@@ -65,6 +66,15 @@ SIGNATURES = {
     # P, Q, sel, neg, out, n, L, consts, b3, stream
     "mlt_g1_addselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # (csrc/g2_kernels.cu, g2_smul_kernels.cu) P, [Q, [sel,]] out, n, L, consts,
+    # b3.c0, b3.c1, stream; the ladders Q, scalars, S, nbits / Q, bits, nbits, then
+    # out, n, L, consts, b3.c0, b3.c1, stream
+    "mlt_g2_add": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
+    "mlt_g2_double": [_P, _P, _I, _I, _P, _I, _I, _P],
+    "mlt_g2_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    "mlt_g2_dblsel": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    "mlt_g2_smul": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P],
+    "mlt_g2_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P],
     # (csrc/pairing_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, out, lanes, L,
     # consts, tower ints, tail words, stream
     "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],

@@ -81,6 +81,14 @@ class TowerCtx:
         """Host pair -> (2, L, 1) Montgomery limbs."""
         return self.fp.encode(np.array([[a[0]], [a[1]]], dtype=object))
 
+    @property
+    def f2_one(self) -> Tensor:
+        return self.f2_encode((1, 0))
+
+    @property
+    def f2_zero(self) -> Tensor:
+        return self.f2_encode((0, 0))
+
     def _c(self, a: Tensor, i: int) -> Tensor:
         return a[..., i, :, :]
 
@@ -117,6 +125,10 @@ class TowerCtx:
     def f2_sqr(self, a):
         return self.f2_mul(a, a)
 
+    def f2_mul_fp(self, a, s):
+        """a * s with s a base-field element (..., L, B)."""
+        return self._mul(a, s.unsqueeze(-3))
+
     def f2_mul_xi(self, a):
         """a * (xi0 + u):  (xi0*a0 + beta*a1, xi0*a1 + a0)."""
         fp = self.fp
@@ -133,6 +145,17 @@ class TowerCtx:
         norm = fp.sub(self._c(sq, 0), fp.mul_int(self._c(sq, 1), self.beta))
         m = self._mul(a, fp.inv(norm).unsqueeze(-3))
         return _stack([self._c(m, 0), fp.neg(self._c(m, 1))], -3)
+
+    def f2_is_zero(self, a) -> Tensor:
+        """(..., 2, L, B) -> (..., B) bool: a = 0 for relaxed [0, 2p) values."""
+        return self.fp.is_zero(self._c(a, 0)) & self.fp.is_zero(self._c(a, 1))
+
+    def f2_eq(self, a, b) -> Tensor:
+        return self.f2_is_zero(self.f2_sub(a, b))
+
+    def f2_select(self, mask, a, b):
+        """mask (..., B) ? a : b over (..., 2, L, B) elements."""
+        return torch.where(mask[..., None, None, :], a, b)
 
     def f2_mul_const(self, a, c: Tuple[int, int]):
         """a * (c0 + c1 u) for a host constant."""

@@ -18,7 +18,8 @@ import mathlib_tpu_torch
 from mathlib_tpu_torch.convert import check_constants, to_numpy, to_torch
 from mathlib_tpu_torch.ops.field import FpCtx
 from mathlib_tpu_torch.ops.g1 import G1Ctx
-from mathlib_tpu_torch.ops.kernels import build, g1_cuda
+from mathlib_tpu_torch.ops.g2 import G2Ctx
+from mathlib_tpu_torch.ops.kernels import build, g1_cuda, g2_cuda
 
 torch.set_num_threads(1)
 
@@ -90,6 +91,14 @@ def test_kernel_wrappers_refuse_other_devices():
                      (g1_cuda.smul_static, (P, [1, 0, 1]))):
         with pytest.raises(ValueError):
             fn(g1.F, *args)
+    g2 = G2Ctx(get_spec("BLS12_381"), "cpu")
+    Q = g2.gen.to("meta")
+    for fn, args in ((g2_cuda.add, (Q, Q)), (g2_cuda.double, (Q,)), (g2_cuda.addsel, (Q, Q, sel)),
+                     (g2_cuda.dblsel, (Q, Q, sel)),
+                     (g2_cuda.smul, (Q, g2.encode_scalars([3]).to("meta"), g2.nbits)),
+                     (g2_cuda.smul_static, (Q, [1, 0, 1]))):
+        with pytest.raises(ValueError):
+            fn(g2.rows, *args)
 
 
 def test_plain_versions_launch_nothing():
@@ -105,6 +114,14 @@ def test_plain_versions_launch_nothing():
     assert g1_cuda.launches() == {"add": 0, "double": 0, "addsel": 0, "smul": 0, "dbladd": 0,
                                   "addselneg": 0, "maddsel": 0, "maddselneg": 0,
                                   "smul_static": 0}
+    g2 = G2Ctx(get_spec("BLS12_381"), "cpu")
+    g2_cuda.reset_launches()
+    g2.add_select(g2.gen, g2.gen, one)
+    g2.dbl_add_select(g2.gen, g2.inf, one)
+    g2_cuda.smul(g2.rows, g2.gen, g2.encode_scalars([5]), 3)
+    g2_cuda.smul_static(g2.rows, g2.gen, [1, 1])
+    assert g2_cuda.launches() == {"g2_add": 0, "g2_double": 0, "g2_addsel": 0, "g2_dblsel": 0,
+                                  "g2_smul": 0, "g2_smul_static": 0}
 
 
 def _fake_nvcc(tmp_path, body):
@@ -149,7 +166,8 @@ def test_port_imports_no_jax():
         "                                               'mathlib_tpu_torch.')]\n"
         "assert 'mathlib_tpu_torch.batch' in names and len(names) > 15, names\n"
         "new = {'mathlib_tpu_torch.' + m for m in ('ops.hash', 'ops.xmd', 'ops.kernels.hash_cuda',\n"
-        "                                        'host.hash_to_curve', 'curves.isogeny_data')}\n"
+        "                                        'host.hash_to_curve', 'curves.isogeny_data',\n"
+        "                                        'ops.g2', 'ops.kernels.g2_cuda')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
@@ -184,7 +202,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """Without a device argument every context runs on the card, and raises
     where torch sees none; "cpu" must be asked for by name."""
     from mathlib_tpu_torch.batch import BatchEngine
-    from mathlib_tpu_torch.ops.hash import HashG1Ctx
+    from mathlib_tpu_torch.ops.hash import HashG1Ctx, HashG2Ctx
     from mathlib_tpu_torch.ops.pairing import PairingCtx
     from mathlib_tpu_torch.ops.tower import TowerCtx
 
@@ -192,7 +210,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     bls = get_spec("BLS12_381")
     ctors = [lambda d=None: FpCtx(spec.p, d), lambda d=None: G1Ctx(spec, d),
              lambda d=None: TowerCtx(spec, d), lambda d=None: PairingCtx(spec, d),
-             lambda d=None: BatchEngine(spec, d), lambda d=None: HashG1Ctx(bls, d)]
+             lambda d=None: BatchEngine(spec, d), lambda d=None: HashG1Ctx(bls, d),
+             lambda d=None: G2Ctx(spec, d), lambda d=None: HashG2Ctx(bls, d)]
     for ctor in ctors:
         assert ctor("cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

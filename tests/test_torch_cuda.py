@@ -324,3 +324,88 @@ def test_bls_sign_and_verify_on_the_card(hash_ctx):
     assert be.bls_verify_batch(pk, sigs, msgs, dst) is True
     assert be.bls_verify_batch(pk, sigs[:7] + [sigs[0]], msgs, dst) is False
 
+
+
+@pytest.fixture
+def g2_ctx():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.g2 import G2Ctx
+
+    spec = get_spec("BLS12_381")
+    return get_engine(spec), G2Ctx(spec, torch.device("cuda"))
+
+
+def test_g2_kernels_equal_plain_versions(g2_ctx):
+    """The six G2 kernels against their plain versions on 1,000 relaxed lanes
+    (P = Q, P = -Q, infinity on either side), the ladders on 64 lanes with
+    k = 0, 1 and r - 1; one launch each."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    eng, g2 = g2_ctx
+    F = g2.rows
+    n = 1000
+    rng = np.random.default_rng(12)
+    pool = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, 15)] + [None]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        A[i] = B[i]
+    for i in range(3, n, 11):
+        A[i] = eng.g2.neg(B[i]) if B[i] else None
+    Q = g2.encode_points(B)
+    P = g2_cuda.add_plain(F, g2.encode_points(A), Q)  # relaxed [0, 2p)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(P.device)
+    g2_cuda.reset_launches()
+    pairs = [
+        (g2_cuda.add(F, P, Q), g2_cuda.add_plain(F, P, Q)),
+        (g2_cuda.double(F, P), g2_cuda.double_plain(F, P)),
+        (g2_cuda.addsel(F, P, Q, sel), g2_cuda.addsel_plain(F, P, Q, sel)),
+        (g2_cuda.dblsel(F, P, Q, sel), g2_cuda.dblsel_plain(F, P, Q, sel)),
+    ]
+    ks = g2.encode_scalars([0, 1, eng.spec.r - 1] + [int(k) for k in rng.integers(1, 1 << 62, 61)])
+    pairs.append((g2_cuda.smul(F, P[..., :64], ks, g2.nbits),
+                  g2_cuda.smul_plain(F, P[..., :64], ks, g2.nbits)))
+    bits = [1, 0, 1, 1, 0, 0, 0, 1, 1, 0, 1]
+    pairs.append((g2_cuda.smul_static(F, P[..., :64], bits),
+                  g2_cuda.smul_static_plain(F, P[..., :64], bits)))
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert g2_cuda.launches() == {k: 1 for k in ("g2_add", "g2_double", "g2_addsel", "g2_dblsel",
+                                                 "g2_smul", "g2_smul_static")}
+    odd = type(g2)(get_spec("FP256BN"), P.device)  # in the gate, but L = 17
+    with pytest.raises(ValueError):
+        odd.add(odd.gen, odd.gen)
+    with pytest.raises(TypeError):
+        g2_cuda.double(F, P.to(torch.int64))
+
+
+def test_g2_entry_points_on_the_card(g2_ctx):
+    """hash_to_g2_batch (word path) and g2_scalar_mul against the host, on the
+    kernels; BN254's g2_scalar_mul on the weier fallback over mont_mul."""
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+    from mathlib_tpu_torch.ops.hash import hash_to_g2_batch
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    eng, g2 = g2_ctx
+    spec = eng.spec
+    dst = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
+    msgs = [bytes([i]) * 32 for i in range(6)]
+    g2_cuda.reset_launches()
+    out = hash_to_g2_batch(spec, msgs, dst)
+    assert g2_cuda.launches() == {"g2_add": 3, "g2_double": 1, "g2_addsel": 0, "g2_dblsel": 0,
+                                  "g2_smul": 0, "g2_smul_static": 2}
+    hasher = get_hasher(spec)
+    assert g2.decode_points(out) == [hasher.hash_to_g2(m, dst) for m in msgs]
+    rng = np.random.default_rng(13)
+    pts = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, 4)] + [None]
+    ks = [0, spec.r - 1, 5, int(rng.integers(1, 1 << 62)), 9]
+    be = BatchEngine(spec)
+    assert be.g2_scalar_mul(pts, ks) == [eng.g2.mul_any(P, k) for P, k in zip(pts, ks)]
+    assert g2_cuda.launches()["g2_smul"] == 1
+    bn = get_spec("BN254")
+    eng_bn = get_engine(bn)
+    pts = [eng_bn.g2.mul(eng_bn.gen_g2, 7), None]
+    fp_cuda.reset_launches()
+    assert BatchEngine(bn).g2_scalar_mul(pts, [11, 3]) == [eng_bn.g2.mul(pts[0], 11), None]
+    assert fp_cuda.launches()["mont_mul"] > 0

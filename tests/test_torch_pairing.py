@@ -198,6 +198,18 @@ def test_encode_pairs_equals_the_reference_word_for_word(curve):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("curve", ["BLS12_381", "BN254"])
+def test_empty_pairing_batch_returns_an_empty_list(curve):
+    """As the reference does: ``mathlib_tpu.batch.BatchEngine(get_spec(
+    "BLS12_381")).pairing_batch([], [])`` returns ``[]`` (building the
+    reference engine takes about a minute, so its answer is written here).
+    Lists of different lengths still raise."""
+    be = BatchEngine(get_spec(curve), "cpu")
+    assert be.pairing_batch([], []) == []
+    with pytest.raises(ValueError):
+        be.pairing_batch([], [be.spec.g2_gen])
+
+
 def test_pairing_kernels_refuse_what_they_do_not_take():
     """On a tensor that is neither on the CPU nor usable by the kernels the
     wrappers raise before any launch (here: the meta device)."""

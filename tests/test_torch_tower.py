@@ -1,6 +1,6 @@
 """The port's ``TowerCtx`` (plain PyTorch Fp2/Fp6/Fp12) on relaxed [0, 2p)
-inputs: the Fp2 layer and the codecs against the JAX package's, limb for
-limb (run eagerly, no jit); Fp6 and Fp12 against the exact host tower;
+inputs: the Fp2 layer (with the predicates and helpers G2 uses) and the
+codecs against the JAX package's, limb for limb (run eagerly, no jit); Fp6 and Fp12 against the exact host tower;
 the affine G2 codecs against the reference's, word for word.
 
 BLS12-381 has beta = -1, BLS12-377 beta = -5, so both ``mul_int`` chains of
@@ -75,6 +75,30 @@ def test_fp2_ops_and_codecs_equal_the_reference(towers):
     host = ref.f12_decode(a)[0]
     _same(tw.f12_encode(host), ref.f12_encode(host))
     _same(tw.f12_one, ref.f12_one)
+
+
+def test_fp2_helpers_equal_the_reference(towers):
+    """f2_one, f2_zero, f2_mul_fp, and the predicates on relaxed values: an
+    element is zero as (0, 0), (p, 0), (0, p) or (p, p)."""
+    spec, ref, tw = towers
+    a2, b2 = _relaxed(spec, (2, B + 4), 7), _relaxed(spec, (2, B + 4), 8)
+    p_limbs = to_numpy(tw.fp.p_limbs)[:, 0]
+    for lane, (c0, c1) in enumerate([(0, 0), (1, 0), (0, 1), (1, 1)]):
+        a2[:, :, lane] = 0
+        a2[0, :, lane] = p_limbs if c0 else 0
+        a2[1, :, lane] = p_limbs if c1 else 0
+    b2[..., B] = a2[..., B]  # a lane with a == b
+    A2, B2 = to_torch(a2, "cpu"), to_torch(b2, "cpu")
+    s1 = _relaxed(spec, (B + 4,), 9)
+    _same(tw.f2_one, ref.f2_one)
+    _same(tw.f2_zero, ref.f2_zero)
+    _same(tw.f2_mul_fp(A2, to_torch(s1, "cpu")), ref.f2_mul_fp(a2, s1))
+    np.testing.assert_array_equal(tw.f2_is_zero(A2).numpy(), np.asarray(ref.f2_is_zero(a2)))
+    assert tw.f2_is_zero(A2).tolist()[:4] == [True] * 4
+    np.testing.assert_array_equal(tw.f2_eq(A2, B2).numpy(), np.asarray(ref.f2_eq(a2, b2)))
+    assert tw.f2_eq(A2, B2).tolist()[B]
+    mask = np.array([1, 0, 1, 1, 0, 0, 1], dtype=bool)
+    _same(tw.f2_select(torch.from_numpy(mask), A2, B2), ref.f2_select(mask, a2, b2))
 
 
 def test_fp6_and_fp12_ops_equal_the_host_tower(towers):
