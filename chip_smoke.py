@@ -20,7 +20,9 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      scalar_mul (checked against the host engine), tiled to 2^20, scalars
      from ``np.random.default_rng(0)`` reduced mod r; one warm-up and 3
      timed runs; the result must equal a host MSM of the scalars folded per
-     base point; every kernel must have launched during this phase.
+     base point; every kernel must have launched during this phase (the
+     scan's row gather is the gather_rows_t kernel); one more msm_totals
+     timed by CUDA events beside PERF.md's device time.
 
 The second main path, the pairing-product check a BLS verifier pays for
 (``BatchEngine.pairing_product_is_one`` / ``pairing_products_are_one``):
@@ -135,10 +137,31 @@ G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
      (the weier fallback over ``mont_mul``).  Every G2 kernel must have
      launched on its path.
 
+The row gathers and the one-launch pairing check:
+
+ 16. (a) gather_rows and gather_rows_t against their plain versions
+     (``table[idx]``, ``table[idx].T.contiguous()``), bit for bit, with int64
+     and int32 indices, at the scan step's shape (N = 2^20, Wr = 72,
+     M = 262,144), a ragged M = 4,097 and the shape of the reference's
+     ``tools/profile_stacked.py`` (Wr = 128, M = 2^17), each timed beside
+     its plain version and the library call with its bytes bound;
+     gather_rows then driven once at the last shape; (b) pairing_check
+     against its plain version on 64 lanes with n = 61 (3 pad lanes holding
+     points) on BLS12-381 and BLS12-377, a True and a False set: verdicts
+     equal and products bit for bit; (c) phase 7's 4,096-pair check and its
+     twin through ``BatchEngine.pairing_product_is_one`` under
+     ``MATHLIB_PAIR_FUSED=check``, verdicts equal the default's and
+     ``split``'s, exactly one pairing_check launch a call and no other
+     pairing kernel, a warm-up and 3 timed calls beside the default and
+     ``split``; the kernel timed at 4,096 lanes beside one run of its plain
+     version; (d) ``bls_verify_batch`` on phase 13 (f)'s 4,096 messages
+     under ``check``: True, and False with one signature replaced.
+
 Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
 ``np.random.default_rng(1)`` (phases 8-9), ``np.random.default_rng(2)``
 (phases 10-11), ``np.random.default_rng(3)`` (phases 12-13) and
-``np.random.default_rng(4)`` (phases 14-15), the points
+``np.random.default_rng(4)`` (phases 14-15) and ``np.random.default_rng(5)``
+(phase 16), the points
 from the port's C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then as its last line
@@ -152,6 +175,11 @@ adds, after phase 5, one MSM under ``torch.profiler`` (device time by kernel
 and by operator, and the device's busy share of the profiled wall time) and
 the ``add`` kernel's time at 2^20 lanes on BLS12-381 (12 words) beside BN254
 (8 words); and after phase 7, one 4,096-pair check under the profiler.
+
+    python3 chip_smoke.py --time-msm REPO
+
+times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
+REPO; run for two checkouts in turns to compare them on one card.
 """
 
 from __future__ import annotations
@@ -214,7 +242,19 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "g2_dblsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
     "g2_smul": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:358"),
     "g2_smul_static": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:393"),
+    "gather_rows": ("mathlib_tpu_torch/csrc/gather_kernels.cu",
+                    "mathlib_tpu/ops/kernels/gather_pallas.py:68"),
+    "gather_rows_t": ("mathlib_tpu_torch/csrc/gather_kernels.cu",
+                      "mathlib_tpu/ops/kernels/gather_pallas.py:123"),
+    "pairing_check": ("mathlib_tpu_torch/csrc/check_kernels.cu",
+                      "mathlib_tpu/ops/kernels/pairing_pallas.py:1065"),
 }
+# phase 16 (a): (label, table rows N, row words Wr, indices M); the scan step
+# of phase 5 (W*C = 262,144 projective rows of 72 words), a ragged M, and the
+# shape at which tools/profile_stacked.py times the reference's gathers
+GATHER_SHAPES = (("scan", N_MAIN, 72, 1 << 18), ("ragged", N_MAIN, 72, 4097),
+                 ("profile_stacked", N_MAIN, 128, 1 << 17))
+GATHER_MAIN = {"gather_rows": "profile_stacked", "gather_rows_t": "scan"}  # the JSON line's
 N_BATCH = 4096  # phase 9 (a): BLS12-381 pairs of one pairing_batch call
 N_BATCH_BN = 1024  # phase 9 (b): BN254 pairs
 N_BILIN = 8  # phase 9 (a): bilinearity lanes (a g1, g2) beside (g1, a g2)
@@ -223,7 +263,7 @@ N_BRIDGE = 60000  # phase 11 (a): host points of one BLS12-381 bridge call
 N_BRIDGE_BN = 1 << 14  # phase 11 (b): BN254 points
 N_G1_MSM = 1 << 16  # phase 11 (c): BatchEngine.g1_msm points
 N_LADDER_BITS = 64  # phase 10: bits of the dbl_add_select ladder
-MAIN_G1 = ("add", "double", "addsel", "smul")  # the kernels of phase 5's path
+MAIN_G1 = ("add", "double", "addsel", "smul", "gather_rows_t")  # the kernels of phase 5's path
 N_HASH = 4096  # phase 13: messages of one BLS12-381 call; phase 12: timed lanes
 N_HASH_CHECK = 1024  # phase 12: lanes of hash_g1 against its plain version
 N_HASH_BN = 1024  # phase 13 (g): BN254 messages
@@ -905,7 +945,7 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.ops import msm as M
     from mathlib_tpu_torch.ops.g1 import G1Ctx, get_g1_ctx
-    from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, pairing_cuda
+    from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, gather_cuda, pairing_cuda
 
     rng = np.random.default_rng(2)
     g1, eng, spec = main["g1"], main["eng"], main["spec"]
@@ -915,11 +955,12 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
         check_equal(results, name, got, want)
 
     def reset():
-        for mod in (g1_cuda, fp_cuda, pairing_cuda):
+        for mod in (g1_cuda, fp_cuda, pairing_cuda, gather_cuda):
             mod.reset_launches()
 
     def counts():
-        return {k: v for k, v in {**g1_cuda.launches(), **fp_cuda.launches()}.items() if v}
+        return {k: v for k, v in {**g1_cuda.launches(), **fp_cuda.launches(),
+                                  **gather_cuda.launches()}.items() if v}
 
     # ---- 10. the four kernels against their plain versions (exact): phase
     # 3's 4,097 lanes on BLS12-381, the same construction on BN254
@@ -1061,7 +1102,7 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     nones = [int(i) for i in rng.choice(N_BRIDGE, 24, replace=False)]
     pts, ks, want = tiled(base_aff, N_BRIDGE, spec, nones)
     entry("msm_host_bridge BLS12_381", lambda: M.msm_host_bridge(spec, pts, ks), want,
-          N_BRIDGE, ("maddsel", "add", "double", "addsel", "mont_mul"))
+          N_BRIDGE, ("maddsel", "add", "double", "addsel", "mont_mul", "gather_rows_t"))
     # stages of one more bridge call, as msm_host_bridge runs them (host
     # clock, synchronised between stages)
     g = get_g1_ctx(spec)
@@ -1086,12 +1127,12 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     bn_base = g_bn.decode_points(g_bn.scalar_mul(g_bn.gen, g_bn.encode_scalars(bn_ks)))
     pts_bn, ks_bn, want_bn = tiled(bn_base, N_BRIDGE_BN, bn, [1, N_BRIDGE_BN // 3, N_BRIDGE_BN - 2])
     entry("msm_host_bridge BN254", lambda: M.msm_host_bridge(bn, pts_bn, ks_bn), want_bn,
-          N_BRIDGE_BN, ("maddsel", "add", "double", "addsel"))
+          N_BRIDGE_BN, ("maddsel", "add", "double", "addsel", "gather_rows_t"))
 
     be = BatchEngine(spec, dev)
     pts_c, ks_c, want_c = tiled(base_aff, N_G1_MSM, spec, [7])
     entry("BatchEngine.g1_msm BLS12_381", lambda: be.g1_msm(pts_c, ks_c), want_c, N_G1_MSM,
-          ("addsel", "add", "double", "mont_mul"))
+          ("addsel", "add", "double", "mont_mul", "gather_rows_t"))
 
     ks_d = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(N_BASE)]
     ks_d[:2] = [0, spec.r - 1]
@@ -1113,7 +1154,7 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
         secs = entry(f"msm_totals 2^20 {name}",
                      lambda: M.horner_host(g1, M.msm_totals(g1, pts_e, scalars, c=C, K=K,
                                                             capture="dense", **kw), C),
-                     main["result"], N_MAIN, (kern, "add", "double"))
+                     main["result"], N_MAIN, (kern, "add", "double", "gather_rows_t"))
         log("options_vs_unsigned", run=name, seconds_best=f"{min(secs):.4f}",
             unsigned_projective_best=f"{min(main['seconds']):.4f}")
     del aff
@@ -1378,6 +1419,7 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
         raise AssertionError("(f): the verify of (e)'s signatures failed")
     log("bls_verdicts", true_on_signed=True, one_signature_replaced=False,
         one_message_changed=False)
+    main["bls_verify"] = (be, pk, sigs, ms_a)  # phase 16 (d) verifies them under check
 
     # (g) BN254, outside the device hash's gate: the host hasher, then the card
     bn = get_spec("BN254")
@@ -1699,11 +1741,242 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     return launches
 
 
+def gather_check_phase(dev, smi: str, results: dict, main: dict, checks: dict) -> dict:
+    """Phase 16; fills ``results`` for gather_rows, gather_rows_t and
+    pairing_check and returns the launch counts of gather_rows (its direct
+    drive, as tools/profile_stacked.py drives the reference's) and of
+    pairing_check (the entry points of (c) and (d))."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.ops.kernels import fp_cuda, gather_cuda as gc, pairing_cuda as pc
+
+    rng = np.random.default_rng(5)
+    t_phase = time.perf_counter()
+
+    def check(name, got, want):
+        check_equal(results, name, got, want)
+
+    # ---- (a) the gathers against their plain versions (exact), timed beside
+    # them and beside the library calls table[idx] and table[idx].T.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for label, n_rows, wr, m in GATHER_SHAPES:
+        table = torch.randint(-2**31, 2**31 - 1, (n_rows, wr), dtype=torch.int32, device=dev,
+                              generator=gen)
+        idx = torch.from_numpy(rng.integers(0, n_rows, m)).to(dev)
+        nbytes = 2 * m * wr * 4 + m * idx.element_size()
+        b = bound(nbytes, 0)
+        for name, kern, plain, library in (
+                ("gather_rows", gc.gather_rows, gc.gather_rows_plain, lambda: table[idx]),
+                ("gather_rows_t", gc.gather_rows_t, gc.gather_rows_t_plain,
+                 lambda: table[idx].T.contiguous())):
+            ms, got = cuda_ms(lambda: kern(table, idx), reps=20)
+            plain_ms, want = cuda_ms(lambda: plain(table, idx), reps=20)
+            library_ms, _ = cuda_ms(library, reps=20)
+            check(name, got, want)
+            check(name, kern(table, idx.to(torch.int32)), want)
+            del got, want
+            if label == GATHER_MAIN[name]:
+                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+            log("time", kernel=name, shape=repr(f"{label}: N={n_rows} Wr={wr} M={m}"), equal=True,
+                ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+                GB_per_s=f"{nbytes / ms / 1e6:.1f}")
+        del table, idx
+    # gather_rows has no caller in the library: driven once at the reference
+    # tool's shape, its count set to 0 just before and read just after
+    _, n_rows, wr, m = GATHER_SHAPES[-1]
+    table = torch.randint(-2**31, 2**31 - 1, (n_rows, wr), dtype=torch.int32, device=dev,
+                          generator=gen)
+    idx = torch.from_numpy(rng.integers(0, n_rows, m)).to(dev)
+    gc.reset_launches()
+    rows = gc.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    launches = {"gather_rows": gc.launches()["gather_rows"]}
+    if not torch.equal(rows[:256], table[idx[:256]]):
+        raise AssertionError("gather_rows differs from table[idx] on its drive")
+    del table, idx, rows
+
+    # ---- (b) pairing_check against its plain version: 64 lanes, n = 61 (3
+    # pad lanes holding points), a True set (29 pairs (P_i, Q_i) beside
+    # (-P_i, Q_i) and a triple A + B + C = 0 against one G2 point) and a
+    # False set (one scalar changed)
+    def scalar(spec):
+        return int.from_bytes(rng.bytes(32), "big") % (spec.r - 1) + 1
+
+    for curve in ("BLS12_381", "BLS12_377"):
+        spec = get_spec(curve)
+        eng, be = get_engine(spec), BatchEngine(spec, dev)
+        g1s, g2s = [], []
+        for _ in range((N_VALID_CHECK - 3) // 2):
+            P, Q = eng.g1.mul(eng.gen_g1, scalar(spec)), eng.g2.mul(eng.gen_g2, scalar(spec))
+            g1s += [P, eng.g1.neg(P)]
+            g2s += [Q, Q]
+        A, B = eng.g1.mul(eng.gen_g1, scalar(spec)), eng.g1.mul(eng.gen_g1, scalar(spec))
+        G = eng.g2.mul(eng.gen_g2, scalar(spec))
+        g1s += [A, B, eng.g1.neg(eng.g1.add(A, B))]
+        g2s += [G, G, G]
+        pads = [(eng.g1.mul(eng.gen_g1, scalar(spec)), eng.g2.mul(eng.gen_g2, scalar(spec)))
+                for _ in range(N_LANES_CHECK - N_VALID_CHECK)]
+        bad = list(g1s)
+        bad[5] = eng.g1.mul(bad[5], 2)
+        for want_ok, g1l in ((True, g1s), (False, bad)):
+            packed = be._encode_pairs(g1l + [P for P, _ in pads], g2s + [Q for _, Q in pads])
+            xP, yP, Qx, Qy = be._pair_split_mont(packed)
+            ok, prod = pc.pairing_check(be.pair.cfg, xP, yP, Qx, Qy, N_VALID_CHECK)
+            ok_p, prod_p = pc.pairing_check_plain(be.pair.cfg, xP, yP, Qx, Qy, N_VALID_CHECK)
+            if not bool(ok) == bool(ok_p) == want_ok:
+                raise AssertionError(f"pairing_check on {curve}: verdict {bool(ok)}, "
+                                     f"plain {bool(ok_p)}, want {want_ok}")
+            check("pairing_check", prod, prod_p)  # bit for bit: the plain version's tree
+        log("pair_check_vs_plain", curve=curve, lanes=N_LANES_CHECK, n=N_VALID_CHECK,
+            verdicts_equal=True, products_equal=True)
+
+    # ---- (c) phase 7's 4,096-pair check and its twin under
+    # MATHLIB_PAIR_FUSED=check through BatchEngine, beside the default and split
+    be = checks["be"]
+    (g1a, g2a), (bad_g1a, _) = checks["a"], checks["a_bad"]
+    secs, per_call = {}, None
+    try:
+        for strat in ("default", "split", "check"):
+            if strat == "default":
+                os.environ.pop("MATHLIB_PAIR_FUSED", None)
+            else:
+                os.environ["MATHLIB_PAIR_FUSED"] = strat
+            if be.pairing_product_is_one(bad_g1a, g2a) is not False:
+                raise AssertionError(f"{strat}: the twin with one scalar changed did not fail")
+            pc.reset_launches()
+            _, secs[strat] = best_of_3(lambda: be.pairing_product_is_one(g1a, g2a), True)
+            if strat == "check":
+                per_call = {k: v for k, v in pc.launches().items() if v}
+                if per_call != {"pairing_check": 4}:  # a warm-up and 3 timed calls
+                    raise AssertionError(f"check: pairing kernels per 4 calls {per_call}")
+                launches["pairing_check"] = per_call["pairing_check"]
+    finally:
+        os.environ.pop("MATHLIB_PAIR_FUSED", None)
+    log("strategy", name="MATHLIB_PAIR_FUSED=check", pairs=len(g1a),
+        verdicts_equal_default_and_split=True, launches_per_call={"pairing_check": 1},
+        seconds=[round(x, 4) for x in secs["check"]],
+        split_seconds=[round(x, 4) for x in secs["split"]],
+        default_seconds=[round(x, 4) for x in secs["default"]],
+        pairings_per_s=f"{len(g1a) / min(secs['check']):.1f}", card=repr(smi))
+
+    # the kernel at phase 7's 4,096 lanes, beside its plain version (one run:
+    # the plain Miller loops and final exp take tens of seconds) and its bound
+    cfg, L = be.pair.cfg, be.fp.L
+    xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1a, g2a))
+    ms, (ok, prod) = cuda_ms(lambda: pc.pairing_check(cfg, xP, yP, Qx, Qy, N_PAIRS), reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok_p, prod_p = pc.pairing_check_plain(cfg, xP, yP, Qx, Qy, N_PAIRS)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not bool(ok) == bool(ok_p) is True:
+        raise AssertionError("pairing_check at 4,096 lanes: not True")
+    check("pairing_check", prod, prod_p)
+    from mathlib_tpu_torch.ops.kernels.tower_rows import final_exp_mults
+
+    tw = cfg.tower
+    fp_muls = (miller_fp_muls(cfg, N_PAIRS) + seg_product_fp_muls(cfg, N_PAIRS, N_PAIRS)
+               + final_exp_mults(tw.n, tw.twist, cfg.tc.inv_bits, cfg.tc.x_bits))
+    b = bound(6 * L * 4 * N_PAIRS + (12 * L + 1) * 4, wide_mads(fp_muls, L))
+    results["pairing_check"].update(ms=ms, plain_ms=plain_ms, **b)
+    log("time", kernel="pairing_check", shape=repr(f"{N_PAIRS} lanes"), equal=True,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        split_kernels_ms="see phase 6 (miller_lanes, f12_seg_product) and 8 (final_exp)")
+    del xP, yP, Qx, Qy
+
+    # ---- (d) bls_verify_batch on phase 13 (f)'s 4,096 messages under check
+    be13, pk, sigs, msgs = main["bls_verify"]
+    bad_sig = list(sigs)
+    bad_sig[1] = sigs[0]
+    try:
+        os.environ["MATHLIB_PAIR_FUSED"] = "check"
+        pc.reset_launches()
+        fp_cuda.reset_launches()
+        if be13.bls_verify_batch(pk, bad_sig, msgs, HASH_DST) is not False:
+            raise AssertionError("(d): the verify with one signature replaced did not fail")
+        _, vsecs = best_of_3(lambda: be13.bls_verify_batch(pk, sigs, msgs, HASH_DST), True)
+        per = {k: v for k, v in pc.launches().items() if v}
+    finally:
+        os.environ.pop("MATHLIB_PAIR_FUSED", None)
+    if per != {"pairing_check": 5}:
+        raise AssertionError(f"(d): pairing kernels over 5 verifies {per}")
+    launches["pairing_check"] += per["pairing_check"]
+    log("bls_verify_check", n=len(msgs), true_on_signed=True, one_signature_replaced=False,
+        seconds=[round(x, 4) for x in vsecs], verifies_per_s=f"{len(msgs) / min(vsecs):.1f}",
+        launches=per, card=repr(smi))
+    log("phase16", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def time_msm(repo: str) -> int:
+    """Phase 5's 2^20 MSM alone, with the ``mathlib_tpu_torch`` of the
+    checkout at ``repo`` (built there at first use): the same inputs, one
+    warm-up and 5 host-clock runs of msm_totals + horner_host, each beside
+    the device time of its msm_totals (CUDA events, gaps included); one
+    ``[time_msm]`` line.  Run it for two checkouts in turns (A, B, B, A) in
+    one call to compare them on one card."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    repo = os.path.abspath(repo)
+    sys.path.insert(0, repo)
+    import mathlib_tpu_torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.ops import msm as M
+    from mathlib_tpu_torch.ops.g1 import G1Ctx
+    from mathlib_tpu_torch.ops.kernels import build
+
+    if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
+        raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    build.load()
+    spec = get_spec("BLS12_381")
+    g1 = G1Ctx(spec, mathlib_tpu_torch.device("cuda"))
+    rng = np.random.default_rng(0)
+
+    def rand_ints(count):
+        return [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(count)]
+
+    base = g1.scalar_mul(g1.gen, g1.encode_scalars(rand_ints(N_BASE)))
+    points = base.repeat(1, 1, N_MAIN // N_BASE).contiguous()
+    scalars = g1.encode_scalars(rand_ints(N_MAIN))
+    walls, device_ms, outs = [], [], []
+    for i in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        totals = M.msm_totals(g1, points, scalars, c=C, K=K, capture="dense")
+        ev[1].record()
+        outs.append(M.horner_host(g1, totals, C))
+        torch.cuda.synchronize()
+        if i:  # the first run is the warm-up
+            walls.append(time.perf_counter() - t0)
+            device_ms.append(ev[0].elapsed_time(ev[1]))
+    if any(o != outs[0] for o in outs):
+        raise AssertionError("time_msm: runs disagree")
+    log("time_msm", repo=repr(repo), n=N_MAIN, seconds=[round(x, 4) for x in walls],
+        msm_totals_device_ms=[round(x, 3) for x in device_ms],
+        points_per_s=f"{N_MAIN / min(walls):.1f}", card=repr(smi_line()))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-msm", metavar="REPO",
+                    help="only time phase 5's MSM with the checkout at REPO")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2^20 MSM and time add on BLS12-381 vs BN254")
     args = ap.parse_args()
+    if args.time_msm:
+        return time_msm(args.time_msm)
     t_start = time.perf_counter()
 
     import numpy as np
@@ -1722,7 +1995,7 @@ def main() -> int:
         raise RuntimeError("mathlib_tpu_torch was not imported from this checkout")
     from mathlib_tpu_torch.ops import msm as M
     from mathlib_tpu_torch.ops.g1 import G1Ctx
-    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, pairing_cuda
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, gather_cuda, pairing_cuda
 
     dev = mathlib_tpu_torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1843,7 +2116,7 @@ def main() -> int:
     log("gates", n=N_GATE, msm_totals_eq_naive=True, split_eq_naive=True, naive_eq_host=True)
 
     # ---- 5. the main path at 2^20 points
-    for mod in (g1_cuda, fp_cuda, pairing_cuda):
+    for mod in (g1_cuda, fp_cuda, pairing_cuda, gather_cuda):
         mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     base_ks = rand_ints(N_BASE)
@@ -1868,7 +2141,8 @@ def main() -> int:
         times.append(time.perf_counter() - t0)
         if out != got:
             raise AssertionError("main-path MSM is not deterministic across runs")
-    launches = {k: v for k, v in g1_cuda.launches().items() if k in MAIN_G1}
+    launches = {k: v for k, v in {**g1_cuda.launches(), **gather_cuda.launches()}.items()
+                if k in MAIN_G1}
     peak = torch.cuda.max_memory_allocated()
     folded = [sum(ks_main[j::N_BASE]) % spec.r for j in range(N_BASE)]
     if got != eng.g1.msm(base_aff, folded):
@@ -1895,6 +2169,17 @@ def main() -> int:
     t3 = time.perf_counter()
     log("stages", bucket_table_s=f"{t1 - t0:.4f}", window_totals_s=f"{t2 - t1:.4f}",
         horner_host_s=f"{t3 - t2:.4f}")
+    # the device time of one msm_totals (CUDA events, gaps included) beside
+    # PERF.md section 5's 117.710 device ms (profiler sum of the kernels'
+    # time, before the scan's gather was a kernel)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    gather_cuda.reset_launches()
+    ev[0].record()
+    M.msm_totals(g1, points, scalars, c=C, K=K, capture="dense")
+    ev[1].record()
+    torch.cuda.synchronize()
+    log("main_path_device", msm_totals_device_ms=f"{ev[0].elapsed_time(ev[1]):.3f}",
+        perf_md_device_ms_before="117.710 (profiler sum of kernel time)", **gather_cuda.launches())
     if args.profile:
         profile_run(run)
         add_ms_by_curve(dev, rng)
@@ -1913,7 +2198,8 @@ def main() -> int:
         "points": points, "scalars": scalars, "result": got, "seconds": times}))
 
     # ---- 12 and 13. hash-to-G1 and BatchEngine's hash and BLS entry points
-    launches.update(hash_phases(dev, smi, results, {"spec": spec, "eng": eng}))
+    hash_main = {"spec": spec, "eng": eng}  # phase 13 leaves its verify inputs here
+    launches.update(hash_phases(dev, smi, results, hash_main))
 
     # ---- 14 and 15. G2's group law, BatchEngine.g2_scalar_mul and hash-to-G2
     launches.update(g2_phases(dev, smi, results))
@@ -1921,12 +2207,19 @@ def main() -> int:
     if missing:
         raise AssertionError(f"G2 kernels not launched on their paths: {missing}")
 
+    # ---- 16. the row gathers and the one-launch pairing check
+    launches.update(gather_check_phase(dev, smi, results, hash_main, checks))
+    missing = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their paths: {missing}")
+
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
-         "library_ms": None}  # no single PyTorch call computes any of these
+         # no single PyTorch call computes any of the others
+         "library_ms": results[name].get("library_ms")}
         for name, (src, replaces) in KERNEL_INFO.items()
     ]
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}")

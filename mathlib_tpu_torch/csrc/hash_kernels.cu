@@ -52,43 +52,6 @@
 
 namespace mlt {
 
-// r = a - p if a >= p, else a: relaxed [0, 2p) -> canonical [0, p).
-template <int NW>
-__device__ __forceinline__ void fp_canon(uint32_t* r, const uint32_t* a, const FieldConsts& k) {
-  uint32_t d[NW];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t v = (uint64_t)a[j] - k.p[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = borrow ? a[j] : d[j];
-}
-
-template <int NW>
-__device__ __forceinline__ bool fp_is_zero(const uint32_t* a, const FieldConsts& k) {
-  uint32_t c[NW];
-  fp_canon<NW>(c, a, k);
-  uint32_t any = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) any |= c[j];
-  return any == 0;
-}
-
-template <int NW>
-__device__ __forceinline__ bool fp_eq(const uint32_t* a, const uint32_t* b,
-                                      const FieldConsts& k) {
-  uint32_t ca[NW], cb[NW];
-  fp_canon<NW>(ca, a, k);
-  fp_canon<NW>(cb, b, k);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) diff |= ca[j] ^ cb[j];
-  return diff == 0;
-}
-
 // The canonical integer behind a Montgomery value: a product with the
 // literal 1, then canon.
 template <int NW>

@@ -15,7 +15,7 @@ output; there is no fallback.  (``csrc/host/engine.cpp`` is the C++ host
 engine, built with g++ by ``host/native.py``, not here.)
 
 The wrappers (``g1_cuda``, ``g2_cuda``, ``fp_cuda``, ``pairing_cuda``,
-``hash_cuda``) reach the library through ``launch``, ``consts`` (a prime's
+``hash_cuda``, ``gather_cuda``) reach the library through ``launch``, ``consts`` (a prime's
 constants as the launchers take them) and ``stream`` (the tensor's current
 CUDA stream).
 """
@@ -48,6 +48,7 @@ SECONDS: dict = {}  # wall seconds of each source's nvcc in the last build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Q = ctypes.c_int64
 # C launchers (csrc/*.cu): every one returns cudaGetLastError()
 SIGNATURES = {
     # P, Q, out, n, L, consts, b3, stream
@@ -91,6 +92,14 @@ SIGNATURES = {
     # f in, inverse bits, n, x bits, n, x < 0, gammas, out, lanes, L, consts,
     # tower ints, tail words, stream
     "mlt_final_exp": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # (csrc/gather_kernels.cu) table, idx, idx is int64, out, M, Wr, stream
+    "mlt_gather_rows": [_P, _P, _I, _P, _Q, _I, _P],
+    "mlt_gather_rows_t": [_P, _P, _I, _P, _Q, _I, _P],
+    # (csrc/check_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, inverse bits, n,
+    # x bits, n, x < 0, gammas, ok out, product out, scratch, ticket, lanes, width,
+    # L, consts, tower ints, tail words, stream
+    "mlt_pairing_check": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _P, _P, _P, _P],
     # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, stream
     "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
     # a, bits, nbits, out, rows, n, L, consts, stream

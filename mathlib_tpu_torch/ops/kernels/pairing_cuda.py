@@ -1,8 +1,9 @@
 """Pairing kernels for Hopper (port of the fused Miller, product, step, pow and
 final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 
-CUDA C++ in ``csrc/pairing_kernels.cu`` over ``csrc/tower_rows.cuh``, each
-kernel behind a wrapper here:
+CUDA C++ in ``csrc/pairing_kernels.cu``, ``csrc/fexp_kernels.cu`` and
+``csrc/check_kernels.cu`` over ``csrc/tower_rows.cuh``, each kernel behind a
+wrapper here:
 
 ===================  =========================================  ==============================
 wrapper              computes                                   replaces (TPU kernel)
@@ -23,6 +24,9 @@ wrapper              computes                                   replaces (TPU ke
 ``final_exp``        per lane: the BLS12 final exponentiation   ``_final_exp_kernel``
                      (easy part with the Fp12 inverse, x-chain  (``final_exp_pallas``)
                      hard part)
+``pairing_check``    prod_i e(P_i, Q_i) == 1 in one launch:     ``_pairing_check_kernel``
+                     Miller loops, pad lanes to one, the        (``pairing_check_pallas``)
+                     product, final exp, unity test
 ===================  =========================================  ==============================
 
 ``miller_lanes`` and ``f12_seg_product`` together replace
@@ -232,6 +236,40 @@ def final_exp_plain(cfg: TowerCfg, f: Tensor, inv_bits, x_bits, x_neg: bool) -> 
     return tw.f12_mul(y, f3).to(torch.int32)
 
 
+def tree_width(B: int) -> int:
+    """The lanes of a product tree over B lanes: the next power of two."""
+    return 1 << max(0, B - 1).bit_length()
+
+
+def f12_is_one_plain(cfg, f: Tensor) -> Tensor:
+    """A 0-d bool tensor: the one-lane f12 f (2, 3, 2, L, 1) is one, every
+    coefficient canonical ([0, p)) against the one's (``_is_one_flag``)."""
+    return (cfg.fp.canon(f) == cfg.tower.f12_one_like(1, f.device)).all()
+
+
+def _check_bls12(cfg: MillerCfg) -> None:
+    if cfg.tail is not None or cfg.tc.x is None or cfg.tc.gammas is None:
+        raise ValueError("the one-launch check takes BLS12 curves (the factor-3 final exp)")
+
+
+def pairing_check_plain(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
+                        nvalid: int):
+    """(ok, prod): ok a 0-d bool tensor, prod_{i < nvalid} e(P_i, Q_i) == 1;
+    prod the unreduced product (2, 3, 2, L, 1), int32: ``miller_lanes_plain``,
+    the lanes padded with ones to the next power of two, the product tree of
+    ``f12_seg_product_plain``, ``final_exp_plain`` and the unity test."""
+    _check_bls12(cfg)
+    B = xP.shape[-1]
+    width = tree_width(B)
+    f = miller_lanes_plain(cfg, xP, yP, Qx, Qy, nvalid)
+    if width != B:
+        f = torch.cat([f, cfg.tower.f12_one_like(width - B, f.device).to(torch.int32)], dim=-1)
+    prod = f12_seg_product_plain(cfg, f, width)
+    tc = cfg.tc
+    red = final_exp_plain(tc, prod, tc.inv_bits, tc.x_bits, tc.x < 0)
+    return f12_is_one_plain(cfg, red), prod
+
+
 # ------------------------------------------------------------------ launches --
 def _tower_args(cfg):
     """(int32[5], uint32[4*2*NW]) ctypes arrays: tower flags and tail words
@@ -416,7 +454,54 @@ def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None) 
     return out
 
 
-KERNELS = (miller_lanes, f12_seg_product, miller_ft, add_step, f12_pow, final_exp)
+def _check_state(cfg: MillerCfg, device, slots: int, stream: int):
+    """The scratch (``slots`` words at least) and the ticket of
+    ``pairing_check`` for one device and stream, kept on the curve's config:
+    made once (the ticket zeroed then), the scratch grown when a call needs
+    more.  Calls on one stream are serialised by it, so they never race on
+    the ticket."""
+    key = ("check_state", str(device), stream)
+    scratch, ticket = cfg._dev.get(key, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    if scratch is None or scratch.numel() < slots:
+        scratch = torch.empty(slots, dtype=torch.int32, device=device)
+    cfg._dev[key] = (scratch, ticket)
+    return scratch, ticket
+
+
+def pairing_check(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
+                  nvalid: int):
+    """(ok, prod): prod_{i < nvalid} e(P_i, Q_i) == 1 over affine G1 (xP, yP:
+    (L, B)) and G2 (Qx, Qy: (2, L, B)) points in Montgomery form, as a 0-d
+    bool tensor, and the unreduced product (2, 3, 2, L, 1) of the masked
+    Miller values, by the tree of ``f12_seg_product`` over the lanes padded
+    with ones to the next power of two.  BLS12 curves with the factor-3
+    final exp (``cfg.tc`` carries gammas and x).  On the card: one launch."""
+    if xP.device.type == "cpu":
+        return pairing_check_plain(cfg, xP, yP, Qx, Qy, nvalid)
+    L, B = cfg.fp.L, xP.shape[-1]
+    _check(cfg, xP, yP, Qx, Qy, shapes=[(L, B), (L, B), (2, L, B), (2, L, B)])
+    _check_bls12(cfg)
+    tc = cfg.tc
+    width = tree_width(B)
+    blocks = width // min(width, 32)  # csrc/lanes.cuh kPairThreads
+    # two halves of f12 slots of 12 * NW words (csrc/check_kernels.cu)
+    scratch, ticket = _check_state(cfg, xP.device, 2 * blocks * 12 * (L // 2), build.stream(xP))
+    ok = torch.empty(1, dtype=torch.int32, device=xP.device)
+    prod = torch.empty((2, 3, 2, L, 1), dtype=torch.int32, device=xP.device)
+    bits = _bits_on(cfg, xP.device)
+    ib, xb = _bits_on(cfg, xP.device, tc.inv_bits), _bits_on(cfg, xP.device, tc.x_bits)
+    _launch("mlt_pairing_check", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
+            Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), max(0, min(nvalid, B)),
+            ib.data_ptr(), len(ib), xb.data_ptr(), len(xb), int(tc.x < 0),
+            _gammas_on(tc, xP.device).data_ptr(), ok.data_ptr(), prod.data_ptr(),
+            scratch.data_ptr(), ticket.data_ptr(), B, width)
+    pairing_check.launches += 1
+    return ok[0] != 0, prod
+
+
+KERNELS = (miller_lanes, f12_seg_product, miller_ft, add_step, f12_pow, final_exp, pairing_check)
 
 
 def reset_launches() -> None:

@@ -5,9 +5,10 @@ The staging is the reference's:
   1. windowed digits of all scalars (``_digits``),
   2. per window: a stable sort of the point indices by digit,
   3. a streaming scan over K chunk steps: each step gathers one sorted slice
-     of point rows for ALL windows and advances the segmented running sums
-     with the ``add_select`` kernel; every step's running sums are captured
-     densely (``capture="dense"``),
+     of point rows for ALL windows (the ``gather_rows_t`` kernel: the row
+     gather and the relayout to lanes in one pass) and advances the
+     segmented running sums with the ``add_select`` kernel; every step's
+     running sums are captured densely (``capture="dense"``),
   4. one row gather of segment ends from the capture buffer into the bucket
      table, then cross-chunk carries from a recursive segmented scan over the
      chunk summaries (``_seg_scan_inclusive``),
@@ -40,6 +41,7 @@ import torch
 
 from .field import LIMB_BITS, _conv, _normalize, _pad_top
 from .g1 import G1Ctx, get_g1_ctx
+from .kernels.gather_cuda import gather_rows_t
 
 Tensor = torch.Tensor
 
@@ -233,7 +235,7 @@ def _bucket_table(
     ck = torch.full((W * C,), _SENTINEL, dtype=keys.dtype, device=dev)
     run = g1.inf.expand(3, L, W * C)
     for s in range(K):
-        gathered = points_rows[order_t[s]].T.reshape(points.shape[-3], L, W * C)
+        gathered = gather_rows_t(points_rows, order_t[s]).view(points.shape[-3], L, W * C)
         ys[s] = combine(run, gathered, keys_t[s] == ck, negs_t[s] if signed else None)
         run, ck = ys[s], keys_t[s]
 
@@ -262,7 +264,7 @@ def _bucket_table(
         in_range = (first_key >= lo) & (first_key - lo < B)
         fix = (valid & ends_here & in_range).reshape(-1)
         tgt = (win_ids * B + first_key - lo).reshape(-1)[fix]  # distinct buckets
-        cur = bucket_rows[tgt].T.reshape(3, L, -1)
+        cur = gather_rows_t(bucket_rows, tgt).view(3, L, -1)
         carry_flat = carry_pt.movedim(0, -2).reshape(3, L, W * C)[..., fix]
         bucket_rows[tgt] = g1.add(cur, carry_flat).reshape(R, -1).T
 

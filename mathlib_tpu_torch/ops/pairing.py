@@ -11,8 +11,9 @@ chord steps (two ``add_step`` launches) follow.  ``final_exp`` is
 multiply the lanes together, in one or in aligned power-of-two segments, as
 the reference's fused Pallas product kernels do; ``batch.BatchEngine``
 finishes each unreduced product with one final exponentiation on the host C++
-engine by default, or on the card (``product_check``, the reference's
-``split`` strategy).  The kernels are ``kernels/pairing_cuda.py``.
+engine by default, or on the card (``product_check``: the reference's
+``split`` strategy, or its one-launch ``check`` kernel).  The kernels are
+``kernels/pairing_cuda.py``.
 
 Line convention and Miller loop shape are the reference's (its module
 docstring derives them): the loop runs over the bits of |x| (BLS12) or
@@ -98,7 +99,7 @@ class PairingCtx:
         the next power of two, the lanes past B padded with ones."""
         B = xP.shape[-1]
         f = pairing_cuda.miller_lanes(self.cfg, xP, yP, Qx, Qy, B if n is None else n)
-        width = 1 << max(0, B - 1).bit_length()
+        width = pairing_cuda.tree_width(B)
         if width != B:
             pad = self.cfg.tower.f12_one_like(width - B, f.device).to(torch.int32)
             f = torch.cat([f, pad], dim=-1)
@@ -154,16 +155,17 @@ class PairingCtx:
 
     def product_check(self, xP, yP, Qx, Qy, n=None) -> bool:
         """prod_i e(P_i, Q_i) == 1 with everything on the device, for
-        ``supports_fused_check`` curves.  ``MATHLIB_PAIR_FUSED`` picks the
-        reference's strategy: ``split`` (the default here) runs
-        ``product_miller``, the ``final_exp`` kernel on the product and the
-        unity test; ``check`` is the reference's one-launch kernel
-        (``_pairing_check_kernel``), which is not ported and raises."""
-        if os.environ.get("MATHLIB_PAIR_FUSED", "split") == "check":
-            raise NotImplementedError(
-                "MATHLIB_PAIR_FUSED=check needs mathlib_tpu/ops/kernels/pairing_pallas.py:1065 "
-                "_pairing_check_kernel, which is not ported (ROADMAP.md §2)")
+        ``supports_fused_check`` curves; lanes >= ``n`` (default B) count as
+        one.  ``MATHLIB_PAIR_FUSED`` picks the reference's strategy: ``split``
+        (the default here) runs ``product_miller``, the ``final_exp`` kernel
+        on the product and the unity test; ``check`` is the one-launch kernel
+        (``pairing_check``: Miller loops, product, final exp and unity test;
+        the reference's ``_pairing_check_kernel``)."""
         if not self.supports_fused_check:
             raise ValueError(f"{self.spec.name}: the device product check takes BLS12 curves")
+        if os.environ.get("MATHLIB_PAIR_FUSED", "split") == "check":
+            B = xP.shape[-1]
+            ok, _ = pairing_cuda.pairing_check(self.cfg, xP, yP, Qx, Qy, B if n is None else n)
+            return bool(ok)
         prod = self.product_miller(xP, yP, Qx, Qy, n=n)
         return bool(self.tw.f12_is_one(self.final_exp(prod))[0])

@@ -37,10 +37,14 @@ class Ref:
 @contextlib.contextmanager
 def numpy_kernel_bodies(*modules):
     """Whole Pallas kernel bodies of ``modules`` (and of the row arithmetic
-    they build on) on numpy rows: ``jnp`` is numpy, ``pl.when`` and
+    they build on) on numpy rows: ``jnp`` is numpy, ``_mm_stacked`` stacks
+    every product of a step into one (its chunk is a VMEM knob of the TPU;
+    the values are the serial products'), ``pl.when`` and
     ``jax.lax.fori_loop`` run eagerly (the stand-ins of
     ``tests/test_hash_pallas.py``, shared here)."""
-    swaps = [(fp_rows_mod, "jnp", np)]
+    # _mm_stacked's chunk of 12 products is a VMEM knob: on numpy one chunk
+    # per step (the same values, far fewer numpy calls)
+    swaps = [(fp_rows_mod, "jnp", np), (g1p_mod, "_STACK_CHUNK", 1 << 12)]
     for mod in modules:
         swaps += [(mod, "jnp", np), (mod, "pl", _FakePl), (mod, "jax", _FakeJax)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -57,12 +61,13 @@ def numpy_kernel_bodies(*modules):
 def numpy_bodies():
     """The reference's kernel bodies on numpy rows: the same uint32 integer
     computation, no XLA program to compile."""
-    saved = fp_rows_mod.jnp, g1p_mod.jnp
+    saved = fp_rows_mod.jnp, g1p_mod.jnp, g1p_mod._STACK_CHUNK
     fp_rows_mod.jnp = g1p_mod.jnp = np
+    g1p_mod._STACK_CHUNK = 1 << 12  # one stacked product a step (see above)
     try:
         yield
     finally:
-        fp_rows_mod.jnp, g1p_mod.jnp = saved
+        fp_rows_mod.jnp, g1p_mod.jnp, g1p_mod._STACK_CHUNK = saved
 
 
 class BodyG1:
@@ -82,24 +87,26 @@ class BodyG1:
     def __getattr__(self, name):
         return getattr(self._g1, name)
 
+    def host(self, kernel, *arrs):
+        """kernel on numpy (..., 3, L, B) points (and a (..., B) mask last),
+        eagerly: a numpy array out."""
+        arrs = [np.asarray(a) for a in arrs]
+        shape = arrs[0].shape
+        masked = int(kernel is g1p_mod._addsel_kernel)
+        flat = [np.moveaxis(a, (-3, -2), (0, 1)).reshape(3, shape[-2], 1, -1)
+                for a in arrs[: len(arrs) - masked]]
+        flat += [a.reshape(1, 1, -1).astype(np.uint32) for a in arrs[len(flat) :]]
+        out = Ref(np.zeros_like(flat[0]))
+        with numpy_bodies():
+            kernel(self._rows, self._g1.F.b3, *[Ref(f) for f in flat], out,
+                   mm=g1p_mod._mm_stacked)
+        out = out.arr.reshape(shape[-3:-1] + shape[:-3] + shape[-1:])
+        return np.moveaxis(out, (0, 1), (-3, -2))
+
     def _run(self, kernel, *arrays):
         """kernel on (..., 3, L, B) points (and a (..., B) mask last)."""
-        shape = arrays[0].shape
-
-        def host(*arrs):
-            arrs = [np.asarray(a) for a in arrs]
-            flat = [np.moveaxis(a, (-3, -2), (0, 1)).reshape(3, shape[-2], 1, -1)
-                    for a in arrs[: len(arrs) - masked]]
-            flat += [a.reshape(1, 1, -1).astype(np.uint32) for a in arrs[len(flat) :]]
-            out = Ref(np.zeros_like(flat[0]))
-            with numpy_bodies():
-                kernel(self._rows, self._g1.F.b3, *[Ref(f) for f in flat], out,
-                       mm=g1p_mod._mm_stacked)
-            out = out.arr.reshape(shape[-3:-1] + shape[:-3] + shape[-1:])
-            return np.moveaxis(out, (0, 1), (-3, -2))
-
-        masked = int(kernel is g1p_mod._addsel_kernel)
-        return jax.pure_callback(host, jax.ShapeDtypeStruct(shape, jnp.uint32), *arrays)
+        return jax.pure_callback(lambda *a: self.host(kernel, *a),
+                                 jax.ShapeDtypeStruct(arrays[0].shape, jnp.uint32), *arrays)
 
     def add(self, P, Q):
         return self._run(g1p_mod._add_kernel, *jnp.broadcast_arrays(P, Q))

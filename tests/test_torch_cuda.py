@@ -198,7 +198,8 @@ def test_pairing_kernels_equal_plain_versions(pair_ctx):
                            pairing_cuda.f12_seg_product_plain(cfg, f, seg))
     assert fp_cuda.launches() == {"mont_mul": 1, "fp_pow": 0}
     assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 6, "miller_ft": 0,
-                                       "add_step": 0, "f12_pow": 0, "final_exp": 0}
+                                       "add_step": 0, "f12_pow": 0, "final_exp": 0,
+                                       "pairing_check": 0}
 
 
 def test_product_check_on_the_card(pair_ctx):
@@ -266,8 +267,50 @@ def test_device_strategies_give_the_default_verdicts(pair_ctx, monkeypatch):
             be.pairing_products_are_one(grp, g2g, 2)] == want
     assert pairing_cuda.launches()["final_exp"] == 3
     monkeypatch.setenv("MATHLIB_PAIR_FUSED", "check")
-    with pytest.raises(NotImplementedError):
-        be.pairing_product_is_one([P, nP], [G, G])
+    pairing_cuda.reset_launches()
+    assert [be.pairing_product_is_one([P, nP], [G, G]),
+            be.pairing_product_is_one(g1s, g2s)] == want[:2]
+    assert {k: v for k, v in pairing_cuda.launches().items() if v} == {"pairing_check": 2}
+
+
+def test_pairing_check_equals_its_plain_version(pair_ctx):
+    """The one-launch check on 40 lanes with n = 37 (3 pad lanes holding
+    points): the verdict and the unreduced product equal the
+    plain version's (the kernel multiplies the lanes by the plain tree)."""
+    eng, be = pair_ctx
+    if not be.pair.supports_fused_check:
+        pytest.skip("the one-launch check takes BLS12 curves")
+    cfg = be.pair.cfg
+    P = eng.g1.mul(eng.gen_g1, 12345)
+    g1s, g2s = _pairs(eng, 38, 9)
+    g1s, g2s = [P, eng.g1.neg(P)] + g1s, [eng.gen_g2, eng.gen_g2] + g2s
+    xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1s, g2s))
+    pairing_cuda.reset_launches()
+    for n in (2, 37):
+        ok, prod = pairing_cuda.pairing_check(cfg, xP, yP, Qx, Qy, n)
+        ok_p, prod_p = pairing_cuda.pairing_check_plain(cfg, xP, yP, Qx, Qy, n)
+        assert bool(ok) == bool(ok_p) == (n == 2) and torch.equal(prod, prod_p), n
+    assert pairing_cuda.launches()["pairing_check"] == 2
+
+
+@pytest.mark.parametrize("wr", [72, 48, 128])
+def test_gathers_equal_plain_versions(wr):
+    """Both gathers on a (5,000, wr) table, 4,097 indices (a ragged tile),
+    int64 and int32, against table[idx] and table[idx].T.contiguous()."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.kernels import gather_cuda
+
+    rng = np.random.default_rng(wr)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, (5000, wr), dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    idx = torch.from_numpy(rng.integers(0, 5000, 4097)).cuda()
+    gather_cuda.reset_launches()
+    for i in (idx, idx.to(torch.int32)):
+        assert torch.equal(gather_cuda.gather_rows(table, i), gather_cuda.gather_rows_plain(table, i))
+        got = gather_cuda.gather_rows_t(table, i)
+        assert got.is_contiguous() and torch.equal(got, gather_cuda.gather_rows_t_plain(table, i))
+    assert gather_cuda.launches() == {"gather_rows": 2, "gather_rows_t": 2}
 
 
 @pytest.fixture

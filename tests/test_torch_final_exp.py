@@ -13,8 +13,9 @@ add step, f12 pow, final exp and Fp pow) against the JAX package, on the CPU.
   canonically.
 * The slice: ``BatchEngine(spec, "cpu").pairing_batch`` on BLS12-381 against
   the reference's ``HostEngine.pairing``, exactly.
-* The strategies: ``MATHLIB_PAIR_FUSED=check`` raises; ``split`` and
-  ``MATHLIB_GROUP_FEXP=device`` finish on the device path.
+* The strategies: ``MATHLIB_PAIR_FUSED=check`` reaches the one-launch
+  ``pairing_check``; ``split`` and ``MATHLIB_GROUP_FEXP=device`` finish on the
+  device path.
 
 Nothing here jits the reference's pairing, Miller loop, final exp or pow
 chains.
@@ -60,6 +61,7 @@ def numpy_pallas():
         mp.setattr(ref_pp, "pl", _FakePl)
         mp.setattr(ref_pp, "jax", _FakeJax)
         mp.setattr(ref_pp, "pltpu", _FakePltpu)
+        mp.setattr(ref_pp, "MUL_CHUNK", 1 << 12)  # one stacked product a batch
         yield
 
 
@@ -328,10 +330,21 @@ def bls_checks():
 
 
 def test_pair_fused_check_raises_not_ported(bls_checks, monkeypatch):
+    """``MATHLIB_PAIR_FUSED=check`` no longer raises ``NotImplementedError``:
+    the single check reaches the one-launch kernel's wrapper
+    ``pairing_check`` with every pair valid, and no other final exp (a
+    recorder stands in; its values are held by tests/test_torch_pair_check.py
+    and on the card)."""
     be, g1s, g2s = bls_checks
     monkeypatch.setenv("MATHLIB_PAIR_FUSED", "check")
-    with pytest.raises(NotImplementedError, match="_pairing_check_kernel"):
-        be.pairing_product_is_one(g1s, g2s)
+    calls = []
+    monkeypatch.setattr(pc, "pairing_check",
+                        lambda cfg, xP, *a: calls.append((xP.shape[-1], a[-1])) or
+                        (torch.tensor(False), None))
+    monkeypatch.setattr(be.tw, "f12_final_exp", lambda f: calls.append("device") or f)
+    monkeypatch.setattr(be.host, "final_exp", lambda v: calls.append("host") or v)
+    assert be.pairing_product_is_one(g1s, g2s) is False
+    assert calls == [(2, 2)]
 
 
 @pytest.mark.parametrize("env", [None, ("MATHLIB_PAIR_FUSED", "split"),

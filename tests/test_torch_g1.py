@@ -8,12 +8,14 @@ reference runs its XLA path.  Same seeded points through both, with
 infinity, P == Q and P == -Q lanes; every comparison is exact limb equality
 (tolerance: zero), plus a decode against the host engine.
 
-The reference's ``add`` and ``double`` are jitted once per curve at the
-tests' 8 lanes and shared (``_Jitted``); its ``add_select``,
-``dbl_add_select`` and the steps of its ``scalar_mul`` ladder run as they
-are on top of them.  The reference's own code and arithmetic: only the XLA
-program boundaries move (one jit of its whole ladder compiles for longer
-than this file runs).
+The reference's ``add`` and ``double`` are jitted once on BLS12-381 at the
+tests' 8 lanes and shared (``_Jitted``); on BN254, which runs no ladder
+here, they are the reference's Pallas bodies on numpy rows
+(``tests/_torch_ref_bodies.py``: the RCB formulas in the XLA path's
+operation order, the same limbs).  Its ``add_select``, ``dbl_add_select``
+and the steps of its ``scalar_mul`` ladder run as they are on top of them.
+The reference's own code and arithmetic: only the XLA program boundaries
+move (one jit of its whole ladder compiles for longer than this file runs).
 """
 
 import random
@@ -25,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import mathlib_tpu.ops.kernels.g1_pallas as g1p_mod
+from _torch_ref_bodies import BodyG1
 from mathlib_tpu.curves.params import get_spec
 from mathlib_tpu.host.engine import get_engine
 from mathlib_tpu.ops.g1 import get_g1_ctx
@@ -35,13 +39,20 @@ torch.set_num_threads(1)
 
 
 class _Jitted:
-    """The reference G1Ctx with ``add`` and ``double`` jitted; its other
-    methods run as they are, calling these."""
+    """The reference G1Ctx with ``add`` and ``double`` jitted (BLS12-381,
+    whose ladder runs them 255 times), or run as the reference's Pallas
+    bodies on numpy rows (BN254: a few calls, no XLA program to compile);
+    its other methods run as they are, calling these."""
 
     def __init__(self, g1):
         self._g1 = g1
-        self.add = jax.jit(g1.add)
-        self.double = jax.jit(g1.double)
+        if g1.spec.name == "BLS12_381":
+            self.add = jax.jit(g1.add)
+            self.double = jax.jit(g1.double)
+        else:
+            body = BodyG1(g1)
+            self.add = lambda P, Q: body.host(g1p_mod._add_kernel, *np.broadcast_arrays(P, Q))
+            self.double = lambda P: body.host(g1p_mod._double_kernel, P)
 
     def __getattr__(self, name):
         attr = getattr(type(self._g1), name, None)

@@ -148,12 +148,22 @@ def test_mixed_add_equals_the_reference_xla_fallback_canonically():
     want = type(ref).madd_select(_bodies(ref), jnp.asarray(to_numpy(Pt)),
                                  jnp.asarray(to_numpy(Qa)), sel)
     got = port.madd_select(Pt, Qa, torch.from_numpy(sel))
-    want_xy = to_torch(np.asarray(jax.jit(ref.to_affine_rows)(want)), "cpu")
+    want_xy = to_torch(np.asarray(_jitted(ref, "to_affine_rows")(want)), "cpu")
     assert torch.equal(port.fp.canon(port.to_affine_rows(got)), port.fp.canon(want_xy))
     assert port.decode_points(got) == [eng.g1.add(a, q) if s else q for a, q, s in zip(P, Q, sel)]
 
 
 _BODIES = {}
+_JITTED = {}
+
+
+def _jitted(ref, name):
+    """One jit of a reference method per context, shared by the tests (at
+    one shape it compiles once)."""
+    key = (ref.spec.name, name)
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(getattr(ref, name))
+    return _JITTED[key]
 
 
 def _bodies(ref):
@@ -168,7 +178,7 @@ def test_affine_eq_and_axis_reduction_equal_the_reference():
     assert port.decode_points(Pt) == [eng.g1.add(a, b) for a, b in zip(P, Q)]
     S = to_numpy(Pt)
     np.testing.assert_array_equal(to_numpy(port.to_affine_rows(Pt)),
-                                  np.asarray(jax.jit(ref.to_affine_rows)(S)))
+                                  np.asarray(_jitted(ref, "to_affine_rows")(S)))
     assert port.decode_points_affine(port.to_affine_rows(Pt)) == port.decode_points(Pt)
     x, y = port.to_affine(Pt)
     assert torch.equal(torch.stack([x, y], dim=-3), port.to_affine_rows(Pt))

@@ -81,7 +81,7 @@ def test_point_plain_versions_are_bit_equal_to_the_reference_bodies(name):
     sel = np.array([i % 4 != 2 for i in range(n)])
     sel[1:6] = True
     selt = torch.from_numpy(sel)
-    rows = ref_g2p.Row2Ctx(g2.spec.p, L, F.b3)
+    rows = ref_g2p.Row2Ctx(g2.spec.p, L, F.b3, ref_g1p._mm_stacked)
 
     def body(kernel, *arrays):
         out = Ref(np.zeros_like(_rows(P)))

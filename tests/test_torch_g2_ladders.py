@@ -62,7 +62,7 @@ def test_smul_plain_is_bit_equal_to_the_reference_body(bls):
     ks = [0, 1, (1 << nbits) - 1, 0b1011001, 0b0100101, 77, 100]
     S = g2.encode_scalars(ks)
     out = np.zeros_like(_q_rows(g2, Q))
-    rows = ref_g2p.Row2Ctx(g2.spec.p, g2.fp.L, g2.rows.b3)
+    rows = ref_g2p.Row2Ctx(g2.spec.p, g2.fp.L, g2.rows.b3, ref_g1p._mm_stacked)
     with numpy_kernel_bodies(ref_g1p, ref_g2p):
         ref_g2p._g2_smul_kernel(rows, _one_limbs(g2), nbits, Ref(to_numpy(S)[:, None, :]),
                                 Ref(_q_rows(g2, Q)), Ref(out))
@@ -76,7 +76,7 @@ def test_smul_static_plain_is_bit_equal_to_the_reference_body(bls):
     k = 0b1011011
     bits = np.array([int(b) for b in bin(k)[2:]], dtype=np.uint32)
     out = np.zeros_like(_q_rows(g2, Q))
-    rows = ref_g2p.Row2Ctx(g2.spec.p, g2.fp.L, g2.rows.b3)
+    rows = ref_g2p.Row2Ctx(g2.spec.p, g2.fp.L, g2.rows.b3, ref_g1p._mm_stacked)
     with numpy_kernel_bodies(ref_g1p, ref_g2p):
         ref_g2p._g2_smul_static_kernel(rows, _one_limbs(g2), len(bits), Ref(bits),
                                        Ref(_q_rows(g2, Q)), Ref(out))

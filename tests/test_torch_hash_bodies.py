@@ -55,10 +55,10 @@ def test_hash_g1_plain_is_bit_equal_to_the_reference_body(ctx):
     u0, u1 = _mont_rows(us0, L), _mont_rows(us1, L)
     nlanes = len(us0)
     out = np.zeros((3, L, 1, nlanes), np.uint32)
-    with numpy_kernel_bodies(ref_g1p, ref_hp):
+    with numpy_kernel_bodies(ref_g1p, ref_hp):  # the stacked products: the kernel's default
         ref_hp._hash_g1_kernel(
             RowCtx(P, L), 3 * SPEC.b % P, C, len(inv_bits), len(sqrt_bits), len(h_bits), 1 - x < 0,
-            ref_g1p._mm_serial, Ref(inv_bits), Ref(sqrt_bits), Ref(h_bits),
+            ref_g1p._mm_stacked, Ref(inv_bits), Ref(sqrt_bits), Ref(h_bits),
             Ref(u0[:, None, :]), Ref(u1[:, None, :]), Ref(out),
             Ref(np.zeros((L, 4, nlanes), np.uint32)))
     got = hash_cuda.hash_g1_plain(ctx, torch.from_numpy(u0.astype(np.int32)),

@@ -57,6 +57,7 @@ def numpy_pallas(monkeypatch):
     monkeypatch.setattr(ref_pp, "pl", _FakePl)
     monkeypatch.setattr(ref_pp, "jax", _FakeJax)
     monkeypatch.setattr(ref_pp, "pltpu", _FakePltpu)
+    monkeypatch.setattr(ref_pp, "MUL_CHUNK", 1 << 12)  # one stacked product a batch
 
 
 @pytest.mark.parametrize("curve", ["BLS12_381", "BN254"])

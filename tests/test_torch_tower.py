@@ -1,12 +1,14 @@
 """The port's ``TowerCtx`` (plain PyTorch Fp2/Fp6/Fp12) on relaxed [0, 2p)
 inputs: the Fp2 layer (with the predicates and helpers G2 uses) and the
-codecs against the JAX package's, limb for limb (run eagerly, no jit); Fp6 and Fp12 against the exact host tower;
-the affine G2 codecs against the reference's, word for word.
+codecs against the JAX package's, limb for limb (each test's reference ops
+in one jit); Fp6 and Fp12 against the exact host tower; the affine G2 codecs
+against the reference's, word for word.
 
 BLS12-381 has beta = -1, BLS12-377 beta = -5, so both ``mul_int`` chains of
 ``f2_mul`` are covered.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -62,13 +64,15 @@ def test_fp2_ops_and_codecs_equal_the_reference(towers):
     spec, ref, tw = towers
     a2, b2 = _relaxed(spec, (2, B), 1), _relaxed(spec, (2, B), 2)
     A2, B2 = to_torch(a2, "cpu"), to_torch(b2, "cpu")
-    _same(tw.f2_add(A2, B2), ref.f2_add(a2, b2))
-    _same(tw.f2_sub(A2, B2), ref.f2_sub(a2, b2))
-    _same(tw.f2_neg(A2), ref.f2_neg(a2))
-    _same(tw.f2_conj(A2), ref.f2_conj(a2))
-    _same(tw.f2_mul(A2, B2), ref.f2_mul(a2, b2))
-    _same(tw.f2_sqr(A2), ref.f2_sqr(a2))
-    _same(tw.f2_mul_xi(A2), ref.f2_mul_xi(a2))
+    # the reference's seven ops in one jit (one XLA compile, not an eager
+    # compile of every primitive they run)
+    want = jax.jit(lambda a, b: (ref.f2_add(a, b), ref.f2_sub(a, b), ref.f2_neg(a),
+                                 ref.f2_conj(a), ref.f2_mul(a, b), ref.f2_sqr(a),
+                                 ref.f2_mul_xi(a)))(a2, b2)
+    got = (tw.f2_add(A2, B2), tw.f2_sub(A2, B2), tw.f2_neg(A2), tw.f2_conj(A2),
+           tw.f2_mul(A2, B2), tw.f2_sqr(A2), tw.f2_mul_xi(A2))
+    for g, w in zip(got, want):
+        _same(g, w)
     _same(tw.f2_encode((11, 13)), ref.f2_encode((11, 13)))
     a = _relaxed(spec, (2, 3, 2, B), 5)
     assert tw.f12_decode(to_torch(a, "cpu")) == ref.f12_decode(a)
@@ -92,13 +96,16 @@ def test_fp2_helpers_equal_the_reference(towers):
     s1 = _relaxed(spec, (B + 4,), 9)
     _same(tw.f2_one, ref.f2_one)
     _same(tw.f2_zero, ref.f2_zero)
-    _same(tw.f2_mul_fp(A2, to_torch(s1, "cpu")), ref.f2_mul_fp(a2, s1))
-    np.testing.assert_array_equal(tw.f2_is_zero(A2).numpy(), np.asarray(ref.f2_is_zero(a2)))
-    assert tw.f2_is_zero(A2).tolist()[:4] == [True] * 4
-    np.testing.assert_array_equal(tw.f2_eq(A2, B2).numpy(), np.asarray(ref.f2_eq(a2, b2)))
-    assert tw.f2_eq(A2, B2).tolist()[B]
     mask = np.array([1, 0, 1, 1, 0, 0, 1], dtype=bool)
-    _same(tw.f2_select(torch.from_numpy(mask), A2, B2), ref.f2_select(mask, a2, b2))
+    w_mul, w_zero, w_eq, w_sel = jax.jit(  # one XLA compile for the four
+        lambda a, b, s, m: (ref.f2_mul_fp(a, s), ref.f2_is_zero(a), ref.f2_eq(a, b),
+                            ref.f2_select(m, a, b)))(a2, b2, s1, mask)
+    _same(tw.f2_mul_fp(A2, to_torch(s1, "cpu")), w_mul)
+    np.testing.assert_array_equal(tw.f2_is_zero(A2).numpy(), np.asarray(w_zero))
+    assert tw.f2_is_zero(A2).tolist()[:4] == [True] * 4
+    np.testing.assert_array_equal(tw.f2_eq(A2, B2).numpy(), np.asarray(w_eq))
+    assert tw.f2_eq(A2, B2).tolist()[B]
+    _same(tw.f2_select(torch.from_numpy(mask), A2, B2), w_sel)
 
 
 def test_fp6_and_fp12_ops_equal_the_host_tower(towers):
