@@ -13,7 +13,10 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      nvcc (ptxas register and spill report in the build log);
   3. each kernel (add, double, addsel, smul) against its plain PyTorch
      version on the card, bit for bit (tolerance: exact), and each one's
-     time beside the plain version's at the main path's shapes;
+     time beside the plain version's at the main path's shapes; add and
+     addsel (one add over six warps) also at addsel's 4,096-lane shape,
+     with their ptxas registers, stack and spills (none allowed, at most 128
+     registers);
   4. the n=512 gates of ``bench.py``: msm_totals + horner_host and the split
      path must equal the port's msm_naive and the host engine's MSM;
   5. the main path at 2^20 points: 8,192 base points by the port's
@@ -179,7 +182,8 @@ the ``add`` kernel's time at 2^20 lanes on BLS12-381 (12 words) beside BN254
     python3 chip_smoke.py --time-msm REPO
 
 times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
-REPO; run for two checkouts in turns to compare them on one card.
+REPO, then that checkout's add and addsel kernels at phase 3's shapes; run
+for two checkouts in turns to compare them on one card.
 """
 
 from __future__ import annotations
@@ -207,12 +211,13 @@ N_LANES_CHECK, N_VALID_CHECK = 64, 61  # phase 6: lanes, real lanes (3 pad)
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
 G1_SRC = "mathlib_tpu_torch/csrc/g1_kernels.cu"
+G1_SPLIT_SRC = "mathlib_tpu_torch/csrc/g1_split_kernels.cu"
 G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
 G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
-    "add": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
+    "add": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
     "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
-    "addsel": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
+    "addsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
     "smul": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
     "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
     "addselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
@@ -353,8 +358,9 @@ def ptxas_entries(path: str) -> list:
         if "Compiling entry function" in ln:
             if name:
                 out.append(f"{name}: {regs} registers, {frame}")
-            m = re.search(r"_ZN3mlt\d+(\w+?)ILi(\d+)E", ln)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else ln.split("'")[1]
+            m = re.search(r"_ZN3mlt\d+(\w+?)I((?:L[ib]\d+E)+)E", ln)
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
+            name = f"{m.group(1)}<{args}>" if m else ln.split("'")[1]
             regs = frame = None
         elif name and "bytes stack frame" in ln and frame is None:
             frame = ln.split(":", 1)[-1].strip()
@@ -418,6 +424,46 @@ def check_equal(results: dict, name: str, got, want):
     res = results.setdefault(name, {"max_abs_err": 0})
     res["max_abs_err"] = max(res["max_abs_err"], err)
     return got
+
+
+# the six-warp add kernels' main-path shapes: add on the tail's 2^20 lanes,
+# addsel on a scan step's 262,144 and on the chunk-summary scan's 4,096
+SPLIT_SHAPES = (("add", N_MAIN), ("addsel", 1 << 18), ("addsel", 4096))
+
+
+def time_g1_adds(g1_cuda, F, P, Q, sel, design: str) -> None:
+    """``add`` and ``addsel`` of the imported checkout (``design``: the
+    kernels' name in the log) at SPLIT_SHAPES on contiguous slices of P, Q
+    (at least 2^20 lanes) and sel, beside the bound; a ``[time_g1_add]``
+    line each."""
+    L = F.fp.L
+    pt_bytes = 3 * L * 4
+    for name, lanes in SPLIT_SHAPES:
+        a, b = P[..., :lanes].contiguous(), Q[..., :lanes].contiguous()
+        s = sel[:lanes].contiguous()
+        if name == "add":
+            nbytes, fp_muls = 3 * pt_bytes * lanes, 12 * lanes
+        else:
+            nbytes, fp_muls = (3 * pt_bytes + 1) * lanes, 12 * int(s.sum())
+        bnd = bound(nbytes, wide_mads(fp_muls, L))
+        ms, _ = cuda_ms((lambda: g1_cuda.add(F, a, b)) if name == "add"
+                        else (lambda: g1_cuda.addsel(F, a, b, s)),
+                        reps=5 if lanes > 4096 else 50)
+        log("time_g1_add", kernel=name, design=design, lanes=lanes, L=L, ms=f"{ms:.4f}",
+            bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+            over_bound=f"{ms / bnd['bound_ms']:.2f}x")
+
+
+def split_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the add and addsel kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith(("g1_add_kernel", "g1_addsel_kernel"))]
+
+
+def split_design(build) -> str:
+    """Which add and addsel kernels the imported checkout has: "six-warp"
+    (csrc/g1_split_kernels.cu) or "one-thread" (rcb_add a thread)."""
+    return ("six-warp" if os.path.exists(os.path.join(build.CSRC, "g1_split_kernels.cu"))
+            else "one-thread")
 
 
 def profile_run(run) -> None:
@@ -1918,8 +1964,10 @@ def time_msm(repo: str) -> int:
     checkout at ``repo`` (built there at first use): the same inputs, one
     warm-up and 5 host-clock runs of msm_totals + horner_host, each beside
     the device time of its msm_totals (CUDA events, gaps included); one
-    ``[time_msm]`` line.  Run it for two checkouts in turns (A, B, B, A) in
-    one call to compare them on one card."""
+    ``[time_msm]`` line; then that checkout's add and addsel kernels timed
+    at phase 3's shapes (``time_g1_adds``) with their ptxas lines.  Run it
+    for two checkouts in turns (A, B, B, A) in one call to compare them on
+    one card."""
     import numpy as np
     import torch
 
@@ -1965,6 +2013,14 @@ def time_msm(repo: str) -> int:
     log("time_msm", repo=repr(repo), n=N_MAIN, seconds=[round(x, 4) for x in walls],
         msm_totals_device_ms=[round(x, 3) for x in device_ms],
         points_per_s=f"{N_MAIN / min(walls):.1f}", card=repr(smi_line()))
+    # phase 3's add and addsel of this checkout at their main-path shapes
+    from mathlib_tpu_torch.ops.kernels import g1_cuda
+
+    for entry in split_ptxas(build.BUILD_LOG):
+        log("ptxas_g1_add", repo=repr(repo), entry=repr(entry))
+    Q = torch.roll(points, 1, dims=-1).contiguous()
+    sel = torch.from_numpy(np.random.default_rng(1).random(N_MAIN) < 15 / 16).to(points.device)
+    time_g1_adds(g1_cuda, g1.F, points, Q, sel, split_design(build))
     return 0
 
 
@@ -2063,6 +2119,7 @@ def main() -> int:
     Pb = S1.repeat(1, 1, reps)[..., :lanes_b].contiguous()
     Qb = Q.repeat(1, 1, reps)[..., :lanes_b].contiguous()
     selb = torch.from_numpy(rng.random(WC) < 15 / 16).to(dev)
+    Pw, Qw = Pb[..., :WC].contiguous(), Qb[..., :WC].contiguous()  # as a scan step's operands
     Kb_ints = rand_ints(N_BASE)
     Kb = g1.encode_scalars(Kb_ints)
     shapes = {
@@ -2072,9 +2129,9 @@ def main() -> int:
         "double": (N_MAIN, lambda: g1_cuda.double(F, Pb[..., :N_MAIN]),
                    lambda: chunked(lambda a: g1_cuda.double_plain(F, a), N_MAIN,
                                    Pb[..., :N_MAIN])),
-        "addsel": (WC, lambda: g1_cuda.addsel(F, Pb[..., :WC], Qb[..., :WC], selb),
+        "addsel": (WC, lambda: g1_cuda.addsel(F, Pw, Qw, selb),
                    lambda: chunked(lambda a, b, s: g1_cuda.addsel_plain(F, a, b, s), WC,
-                                   Pb[..., :WC], Qb[..., :WC], selb)),
+                                   Pw, Qw, selb)),
         "smul": (N_BASE, lambda: g1_cuda.smul(F, Pb[..., :N_BASE], Kb, g1.nbits),
                  lambda: g1_cuda.smul_plain(F, Pb[..., :N_BASE], Kb, g1.nbits)),
     }
@@ -2100,7 +2157,17 @@ def main() -> int:
         log("time", kernel=name, lanes=lanes, equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
             bound_ms=f"{results[name]['bound_ms']:.4f}", bound_by=results[name]["bound_by"])
-    del Pb, Qb, selb
+    # the six-warp add kernels at their three shapes, and their ptxas lines:
+    # no stack, no spill, at most 128 registers a thread
+    sel_t = np.random.default_rng(6).random(N_MAIN) < 15 / 16  # leaves rng's draws as they were
+    time_g1_adds(g1_cuda, F, Pb, Qb, torch.from_numpy(sel_t).to(dev), split_design(build))
+    for entry in split_ptxas(build.BUILD_LOG):
+        log("ptxas_g1_add", entry=repr(entry))
+        regs = int(entry.split(": ")[1].split()[0])
+        if regs > 128 or not entry.endswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            raise AssertionError(f"six-warp add kernel over its register budget: {entry}")
+    del Pb, Qb, selb, Pw, Qw
 
     # ---- 4. the n=512 gates
     pts0 = g1.scalar_mul(g1.gen, g1.encode_scalars(rand_ints(N_GATE)))

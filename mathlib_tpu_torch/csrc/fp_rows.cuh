@@ -160,6 +160,83 @@ __device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a, const uin
   fp_copy<NW>(r, t);  // t[NW] == 0: the result is below 2p < R
 }
 
+// One instruction of a PTX carry chain each.  The carry flag passes from one
+// asm statement to the next: the chains below are fully unrolled over
+// registers, so nothing is scheduled between the links.
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// fp_mul's CIOS product with its carries in PTX carry chains: per word of b,
+// the low halves of a*b[i] go into t[0..NW-1] and the high halves into
+// t[1..NW] as two chains, then the same for m*p, then t shifts down a word.
+// 4 NW^2 + NW multiply-adds, as fp_mul, without fp_mul's 64-bit adds.  The
+// same integer as fp_mul (REDC's output depends on a*b alone).  r may alias
+// a or b.
+template <int NW>
+__device__ __forceinline__ void fp_mul_ptx(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                                           const FieldConsts& k) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int j = 0; j < NW + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t bi = b[i];
+    // t += a * b[i]; t[NW + 1] is 0 here
+    t[0] = mad_lo_cc(a[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j] = madc_lo_cc(a[j], bi, t[j]);
+    t[NW] = addc_cc(t[NW], 0);
+    t[NW + 1] = addc(0, 0);
+    t[1] = mad_hi_cc(a[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j + 1] = madc_hi_cc(a[j], bi, t[j + 1]);
+    t[NW + 1] = addc(t[NW + 1], 0);
+    // t += m * p, which clears t[0]; then t /= 2^32
+    const uint32_t m = t[0] * k.np0;
+    t[0] = mad_lo_cc(m, k.p[0], t[0]);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j] = madc_lo_cc(m, k.p[j], t[j]);
+    t[NW] = addc_cc(t[NW], 0);
+    t[NW + 1] = addc(t[NW + 1], 0);
+    t[1] = mad_hi_cc(m, k.p[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j + 1] = madc_hi_cc(m, k.p[j], t[j + 1]);
+    t[NW + 1] = addc(t[NW + 1], 0);
+#pragma unroll
+    for (int j = 0; j <= NW; ++j) t[j] = t[j + 1];
+    t[NW + 1] = 0;
+  }
+  fp_copy<NW>(r, t);  // t[NW] == 0: the result is below 2p < R
+}
+
 // r = a * n for a small n > 0, by the reference's add chain.  r may alias a.
 template <int NW>
 __device__ __forceinline__ void fp_mul_small(uint32_t* r, const uint32_t* a, int n,

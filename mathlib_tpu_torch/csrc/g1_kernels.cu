@@ -1,9 +1,7 @@
 // G1 group-law kernels for Hopper (sm_90a): port of
 // mathlib_tpu/ops/kernels/g1_pallas.py.
 //
-//   g1_add_kernel     <- g1_pallas.py:_add_kernel     (add_pallas)
 //   g1_double_kernel  <- g1_pallas.py:_double_kernel  (double_pallas)
-//   g1_addsel_kernel  <- g1_pallas.py:_addsel_kernel  (addsel_pallas)
 //   g1_smul_kernel    <- g1_pallas.py:_smul_kernel    (smul_pallas)
 //   g1_dbladd_kernel  <- g1_pallas.py:_dbladd_kernel  (dbladd_pallas)
 //   g1_addselneg_kernel  <- g1_pallas.py:_addselneg_kernel  (addselneg_pallas)
@@ -13,7 +11,8 @@
 //
 // The point formulas, the lane layout and the operation order that keeps
 // the relaxed limbs the reference's are in g1_rows.cuh (shared with the
-// hash-to-G1 kernel).
+// hash-to-G1 kernel).  The add and addsel kernels (g1_pallas.py:_add_kernel,
+// _addsel_kernel) spread one add over six warps: g1_split_kernels.cu.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
 // and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
@@ -21,9 +20,8 @@
 // for 288 bytes in and 144 out.  The design keeps
 // every operand in registers, with one lane per thread and no shared memory;
 // a point is 36 words, and the add holds two points plus temporaries, so
-// spills to local memory are accepted here.  Later work: PTX carry chains
-// (madc), fewer registers per lane (a point add split over several threads),
-// and fusing the MSM's row gather into addsel.
+// spills to local memory are accepted here.  Later work: the six-warp add of
+// g1_split_kernels.cu for the signed and mixed combiners and the ladders.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -36,18 +34,6 @@
 namespace mlt {
 
 template <int NW>
-__global__ void g1_add_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
-                              uint32_t* __restrict__ out, int n, FieldConsts k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> a, b;
-  load_point<NW>(a, P, n, i);
-  load_point<NW>(b, Q, n, i);
-  rcb_add<NW>(a, a, b, k, b3);
-  store_point<NW>(out, a, n, i);
-}
-
-template <int NW>
 __global__ void g1_double_kernel(const uint32_t* __restrict__ P, uint32_t* __restrict__ out,
                                  int n, FieldConsts k, int b3) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -56,23 +42,6 @@ __global__ void g1_double_kernel(const uint32_t* __restrict__ P, uint32_t* __res
   load_point<NW>(a, P, n, i);
   rcb_dbl<NW>(a, a, k, b3);
   store_point<NW>(out, a, n, i);
-}
-
-// out = sel ? P + Q : Q -- the MSM's segmented-scan combiner
-template <int NW>
-__global__ void g1_addsel_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
-                                 const uint8_t* __restrict__ sel, uint32_t* __restrict__ out,
-                                 int n, FieldConsts k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> b;
-  load_point<NW>(b, Q, n, i);
-  if (sel[i]) {
-    Point<NW> a;
-    load_point<NW>(a, P, n, i);
-    rcb_add<NW>(b, a, b, k, b3);
-  }
-  store_point<NW>(out, b, n, i);
 }
 
 // out = sel ? 2P + Q : 2P -- one step of a double-and-add ladder
@@ -243,23 +212,10 @@ using namespace mlt;
   }                                      \
   return (int)cudaGetLastError();
 
-extern "C" int mlt_g1_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
-                          const uint32_t* consts, int b3, cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_add_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, Q, out, n, make_consts(consts, NW), b3))
-}
-
 extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,
                              const uint32_t* consts, int b3, cudaStream_t stream) {
   MLT_DISPATCH(L, g1_double_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
                       P, out, n, make_consts(consts, NW), b3))
-}
-
-extern "C" int mlt_g1_addsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                             uint32_t* out, int n, int L, const uint32_t* consts, int b3,
-                             cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_addsel_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, Q, sel, out, n, make_consts(consts, NW), b3))
 }
 
 extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,

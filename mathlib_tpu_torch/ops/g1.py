@@ -166,9 +166,11 @@ class G1Ctx:
     def add(self, P: Tensor, Q: Tensor) -> Tensor:
         return g1_cuda.add(self.F, P, Q)
 
-    def add_select(self, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
-        """select(sel, P + Q, Q) -- the segmented-scan combiner, one kernel."""
-        return g1_cuda.addsel(self.F, P, Q, sel)
+    def add_select(self, P: Tensor, Q: Tensor, sel: Tensor,
+                   out: Optional[Tensor] = None) -> Tensor:
+        """select(sel, P + Q, Q) -- the segmented-scan combiner, one kernel;
+        written into ``out`` if given, as ``g1_cuda.addsel`` takes it."""
+        return g1_cuda.addsel(self.F, P, Q, sel, out)
 
     def dbl_add_select(self, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
         """select(sel, 2P + Q, 2P) -- one scalar-mul step, one kernel."""

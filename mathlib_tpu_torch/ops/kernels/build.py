@@ -51,12 +51,11 @@ _I = ctypes.c_int
 _Q = ctypes.c_int64
 # C launchers (csrc/*.cu): every one returns cudaGetLastError()
 SIGNATURES = {
-    # P, Q, out, n, L, consts, b3, stream
+    # (csrc/g1_split_kernels.cu) P, Q, [sel,] out, n, L, consts, b3, stream
     "mlt_g1_add": [_P, _P, _P, _I, _I, _P, _I, _P],
+    "mlt_g1_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # P, out, n, L, consts, b3, stream
     "mlt_g1_double": [_P, _P, _I, _I, _P, _I, _P],
-    # P, Q, sel, out, n, L, consts, b3, stream
-    "mlt_g1_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     # Q, bits, nbits, out, n, L, consts, b3, stream

@@ -1,7 +1,8 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
 Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
-``csrc/g1_rows.cuh``, each behind a wrapper here:
+``csrc/g1_rows.cuh`` (``add`` and ``addsel``: ``csrc/g1_split_kernels.cu``,
+one add spread over six warps), each behind a wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)
@@ -28,6 +29,9 @@ product on any device).  On a CUDA tensor it launches its kernel on the
 current stream, adds one to its ``launches`` count, and raises if the launch
 fails; it never falls back.  Leading batch dims are folded into the lane
 axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
+``add`` and ``addsel`` (and their plain versions) also write into a given
+``out``, a contiguous (3, L, n) int32 tensor of the result's shape that
+overlaps no operand (the MSM scan's capture buffer, a step at a time).
 
 The negation of the signed combiners is ``F.sub(0, Y)``, the relaxed
 subtraction (``p2`` added back below zero), not a canonical ``p - Y``.  The
@@ -61,9 +65,45 @@ def _inf_like(F, shape: tuple) -> Tensor:
 
 
 # ------------------------------------------------------------ plain versions --
-def add_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor) -> Tensor:
+def _span(t: Tensor) -> tuple:
+    """The first and one past the last byte address of ``t``'s elements."""
+    last = sum((size - 1) * stride for size, stride in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + t.element_size() * (last + 1)
+
+
+def _check_out(out: Tensor, shape, device, *operands: Tensor) -> None:
+    """Refuse an ``out`` the kernels cannot write into: one that is not a
+    contiguous (3, L, n) int32 tensor of the result's ``shape`` on the
+    operands' ``device``, or that overlaps an operand."""
+    if out.dtype != torch.int32:
+        raise TypeError(f"out must be torch.int32, got {out.dtype}")
+    if out.device != device:
+        raise ValueError(f"out must be on the operands' device {device}, got {out.device}")
+    if out.dim() != 3 or tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out must be (3, L, n) of the result's shape {tuple(shape)}, "
+                         f"got {tuple(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    lo, hi = _span(out)
+    for t in operands:
+        if t.numel() and out.numel():
+            a, b = _span(t)
+            if a < hi and lo < b:
+                raise ValueError("out must not overlap an operand")
+
+
+def _into(out: Optional[Tensor], result: Tensor, *operands: Tensor) -> Tensor:
+    """``result``, or ``out`` holding it (checked by ``_check_out``)."""
+    if out is None:
+        return result
+    _check_out(out, result.shape, result.device, *operands)
+    return out.copy_(result)
+
+
+def add_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor,
+              out: Optional[Tensor] = None) -> Tensor:
     X3, Y3, Z3 = weier.add_complete(F.plain, _unstack(P), _unstack(Q))
-    return torch.stack([X3, Y3, Z3], dim=-3)
+    return _into(out, torch.stack([X3, Y3, Z3], dim=-3), P, Q)
 
 
 def double_plain(F: weier.FieldAdapter, P: Tensor) -> Tensor:
@@ -71,9 +111,10 @@ def double_plain(F: weier.FieldAdapter, P: Tensor) -> Tensor:
     return torch.stack([X3, Y3, Z3], dim=-3)
 
 
-def addsel_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
+def addsel_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor,
+                 out: Optional[Tensor] = None) -> Tensor:
     P, Q = torch.broadcast_tensors(P, Q)
-    return torch.where(sel[..., None, None, :], add_plain(F, P, Q), Q)
+    return _into(out, torch.where(sel[..., None, None, :], add_plain(F, P, Q), Q), P, Q)
 
 
 def dbladd_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
@@ -237,24 +278,34 @@ def _launch_sel(kernel, name: str, F, P: Tensor, Q: Tensor, masks, affine: bool)
     return restore(out)
 
 
-def add(F: weier.FieldAdapter, P: Tensor, Q: Tensor) -> Tensor:
-    """P + Q."""
-    P, Q = torch.broadcast_tensors(P, Q)
-    if P.device.type == "cpu":
-        return add_plain(F, P, Q)
-    _require_cuda(P)
+def _launch_split(kernel, name: str, F, P: Tensor, Q: Tensor, sel: Optional[Tensor],
+                  out: Optional[Tensor]) -> Tensor:
+    """Launch the add (sel None) or addsel kernel on broadcast P and Q,
+    into ``out`` if given."""
     _check(F, P, Q)
+    if out is not None:
+        _check_out(out, P.shape, P.device, P, Q)
+    masks = () if sel is None else (_lane_mask(sel, P, "sel"),)
     P2, restore = _to_lanes(P)
     Q2, _ = _to_lanes(Q)
-    out = torch.empty_like(P2)
+    dst = torch.empty_like(P2) if out is None else out
     n = P2.shape[-1]
     if n:
         with torch.cuda.device(P.device):
-            build.launch("mlt_g1_add", P2.data_ptr(), Q2.data_ptr(), out.data_ptr(), n,
-                         F.fp.L, ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3,
-                         build.stream(P))
-        add.launches += 1
-    return restore(out)
+            build.launch(name, P2.data_ptr(), Q2.data_ptr(), *(m.data_ptr() for m in masks),
+                         dst.data_ptr(), n, F.fp.L,
+                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(P))
+        kernel.launches += 1
+    return restore(dst) if out is None else out
+
+
+def add(F: weier.FieldAdapter, P: Tensor, Q: Tensor, out: Optional[Tensor] = None) -> Tensor:
+    """P + Q, into ``out`` if given."""
+    P, Q = torch.broadcast_tensors(P, Q)
+    if P.device.type == "cpu":
+        return add_plain(F, P, Q, out)
+    _require_cuda(P)
+    return _launch_split(add, "mlt_g1_add", F, P, Q, None, out)
 
 
 def double(F: weier.FieldAdapter, P: Tensor) -> Tensor:
@@ -275,13 +326,14 @@ def double(F: weier.FieldAdapter, P: Tensor) -> Tensor:
     return restore(out)
 
 
-def addsel(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
-    """select(sel, P + Q, Q), sel a (..., B) bool tensor."""
+def addsel(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor,
+           out: Optional[Tensor] = None) -> Tensor:
+    """select(sel, P + Q, Q), sel a (..., B) bool tensor, into ``out`` if given."""
     if P.device.type == "cpu":
-        return addsel_plain(F, P, Q, sel)
+        return addsel_plain(F, P, Q, sel, out)
     _require_cuda(P)
     P, Q = torch.broadcast_tensors(P, Q)
-    return _launch_sel(addsel, "mlt_g1_addsel", F, P, Q, (sel,), affine=False)
+    return _launch_split(addsel, "mlt_g1_addsel", F, P, Q, sel, out)
 
 
 def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tensor:

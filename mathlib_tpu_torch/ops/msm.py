@@ -7,8 +7,9 @@ The staging is the reference's:
   3. a streaming scan over K chunk steps: each step gathers one sorted slice
      of point rows for ALL windows (the ``gather_rows_t`` kernel: the row
      gather and the relayout to lanes in one pass) and advances the
-     segmented running sums with the ``add_select`` kernel; every step's
-     running sums are captured densely (``capture="dense"``),
+     segmented running sums with the ``add_select`` kernel, which writes
+     every step's running sums straight into the capture buffer
+     (``capture="dense"``),
   4. one row gather of segment ends from the capture buffer into the bucket
      table, then cross-chunk carries from a recursive segmented scan over the
      chunk summaries (``_seg_scan_inclusive``),
@@ -208,15 +209,17 @@ def _bucket_table(
     points_rows = points.reshape(RP, N).T.contiguous()  # (N, RP)
     inf_row = g1.inf.reshape(R)
 
-    def combine(run, gathered, sel, ng):
-        """One segmented-scan step on freshly gathered points."""
-        if mixed:
-            if signed:
-                return g1.madd_select_neg(run, gathered, sel, ng)
-            return g1.madd_select(run, gathered, sel)
-        if signed:
-            return g1.add_select_neg(run, gathered, sel, ng)
-        return g1.add_select(run, gathered, sel)
+    def combine(run, gathered, sel, ng, out):
+        """One segmented-scan step on freshly gathered points, into ``out``:
+        the add_select kernel writes it in place, the signed and mixed
+        combiners' results are copied in."""
+        if not (mixed or signed):
+            g1.add_select(run, gathered, sel, out=out)
+        elif mixed:
+            out.copy_(g1.madd_select_neg(run, gathered, sel, ng) if signed
+                      else g1.madd_select(run, gathered, sel))
+        else:
+            out.copy_(g1.add_select_neg(run, gathered, sel, ng))
 
     # flat index into the (K, W*C) capture buffer of the running sum AT
     # sorted position (w, i): i = chunk*K + step
@@ -236,7 +239,7 @@ def _bucket_table(
     run = g1.inf.expand(3, L, W * C)
     for s in range(K):
         gathered = gather_rows_t(points_rows, order_t[s]).view(points.shape[-3], L, W * C)
-        ys[s] = combine(run, gathered, keys_t[s] == ck, negs_t[s] if signed else None)
+        combine(run, gathered, keys_t[s] == ck, negs_t[s] if signed else None, ys[s])
         run, ck = ys[s], keys_t[s]
 
     flat = pos.clamp(max=K * W * C - 1)

@@ -58,6 +58,94 @@ def test_kernels_equal_plain_versions(ctx):
                                   "smul_static": 0}
 
 
+def _edge_points(eng, g1, n, seed):
+    """P, Q on n lanes: random multiples of the generator, with P = Q on every
+    7th lane (the complete add doubles), P = -Q on every 17th, P at infinity
+    on every 11th, Q on every 13th and both on every 19th."""
+    rng = np.random.default_rng(seed)
+    pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 31)]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(n):
+        if i % 7 == 0:
+            B[i] = A[i]
+        elif i % 17 == 3:
+            B[i] = eng.g1.neg(A[i])
+        if i % 11 == 5 or i % 19 == 4:
+            A[i] = None
+        if i % 13 == 6 or i % 19 == 4:
+            B[i] = None
+    return g1.encode_points(A), g1.encode_points(B)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 191, 4097])
+def test_six_warp_add_kernels_equal_plain_versions(ctx, n):
+    """add and addsel (32 lanes a block: ragged last blocks) against their
+    plain versions, on canonical and relaxed inputs, with sel all 0, all 1
+    and random."""
+    eng, g1 = ctx
+    F = g1.F
+    P, Q = _edge_points(eng, g1, n, n)
+    S = g1_cuda.add_plain(F, P, Q)  # relaxed [0, 2p)
+    rng = np.random.default_rng(n)
+    sels = [torch.zeros(n, dtype=torch.bool), torch.ones(n, dtype=torch.bool),
+            torch.from_numpy(rng.random(n) < 0.5)]
+    g1_cuda.reset_launches()
+    for a, b in ((P, Q), (S, Q), (Q, S)):
+        assert torch.equal(g1_cuda.add(F, a, b), g1_cuda.add_plain(F, a, b))
+        for sel in sels:
+            sel = sel.to(P.device)
+            assert torch.equal(g1_cuda.addsel(F, a, b, sel), g1_cuda.addsel_plain(F, a, b, sel))
+    assert {k: v for k, v in g1_cuda.launches().items() if v} == {"add": 3, "addsel": 9}
+
+
+def test_six_warp_add_kernels_write_into_a_capture_buffer(ctx):
+    """out= a step ys[s] of a (K, 3, L, n) buffer: the kernels write that step
+    in place and leave the others alone."""
+    eng, g1 = ctx
+    F = g1.F
+    n = 191
+    P, Q = _edge_points(eng, g1, n, 3)
+    sel = torch.from_numpy(np.random.default_rng(3).random(n) < 0.8).to(P.device)
+    ys = torch.full((3,) + P.shape, -1, dtype=torch.int32, device=P.device)
+    got = g1_cuda.addsel(F, P, Q, sel, out=ys[1])
+    assert got.data_ptr() == ys[1].data_ptr()
+    assert torch.equal(ys[1], g1_cuda.addsel_plain(F, P, Q, sel))
+    got = g1_cuda.add(F, ys[1], Q, out=ys[2])
+    assert got.data_ptr() == ys[2].data_ptr()
+    assert torch.equal(ys[2], g1_cuda.add_plain(F, ys[1], Q))
+    assert bool((ys[0] == -1).all())
+    g1.add_select(ys[1], Q, sel, out=ys[0])
+    assert torch.equal(ys[0], g1_cuda.addsel_plain(F, ys[1], Q, sel))
+
+
+def test_six_warp_add_wrappers_refuse_a_bad_out(ctx):
+    eng, g1 = ctx
+    F = g1.F
+    n = 64
+    P0, Q = _edge_points(eng, g1, n, 4)
+    flat = torch.zeros(2 * P0.numel(), dtype=torch.int32, device=P0.device)
+    P = flat[: P0.numel()].view(P0.shape).copy_(P0)
+    sel = torch.ones(n, dtype=torch.bool, device=P.device)
+    half = P0.numel() // 2
+    bad = [
+        (flat[half : half + P0.numel()].view(P0.shape), ValueError),  # overlaps P
+        (Q, ValueError),
+        (torch.empty(P0.shape[:-1] + (2 * n,), dtype=torch.int32, device=P.device)[..., ::2],
+         ValueError),  # not contiguous
+        (torch.empty(P0.shape[:-1] + (n + 1,), dtype=torch.int32, device=P.device), ValueError),
+        (torch.empty(P0.shape, dtype=torch.int64, device=P.device), TypeError),
+        (torch.empty(P0.shape, dtype=torch.int32), ValueError),  # on the CPU
+    ]
+    g1_cuda.reset_launches()
+    for out, err in bad:
+        with pytest.raises(err):
+            g1_cuda.add(F, P, Q, out=out)
+        with pytest.raises(err):
+            g1_cuda.addsel(F, P, Q, sel, out=out)
+    assert g1_cuda.launches()["add"] == g1_cuda.launches()["addsel"] == 0
+
+
 def test_msm_option_kernels_equal_plain_versions(ctx):
     """dbladd, addselneg, maddsel and maddselneg against their plain versions
     on relaxed inputs with the edge lanes P = inf, P = lift(Q), P = -lift(Q)."""

@@ -34,6 +34,7 @@ from mathlib_tpu.host.engine import get_engine
 from mathlib_tpu.ops.g1 import get_g1_ctx
 from mathlib_tpu_torch.convert import to_numpy, to_torch
 from mathlib_tpu_torch.ops.g1 import G1Ctx
+from mathlib_tpu_torch.ops.kernels import g1_cuda
 
 torch.set_num_threads(1)
 
@@ -143,6 +144,62 @@ def test_add_select_matches_reference(ctx):
     want = np.asarray(ref.add_select(s, b, sel))
     got = port.add_select(to_torch(s, "cpu"), to_torch(b, "cpu"), torch.from_numpy(sel))
     np.testing.assert_array_equal(to_numpy(got), want)
+
+
+def test_add_and_add_select_write_into_out(ctx):
+    """add_plain and addsel_plain (the kernels' plain versions, which the CPU
+    wrappers run) with out= a step of a (K, 3, L, n) capture buffer: they
+    return that tensor, holding the reference's values, and leave the other
+    steps alone."""
+    eng, ref, port = ctx
+    _, _, a, b, s = _relaxed_inputs(eng, ref, port)
+    sel = np.array([1, 1, 0, 1, 0, 1, 1, 0], dtype=bool)
+    S, B, A = (to_torch(x, "cpu") for x in (s, b, a))
+    ys = torch.full((3,) + S.shape, -1, dtype=torch.int32)
+    got = g1_cuda.addsel_plain(port.F, S, B, torch.from_numpy(sel), out=ys[1])
+    assert got.data_ptr() == ys[1].data_ptr()
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(ref.add_select(s, b, sel)))
+    assert torch.equal(got, g1_cuda.addsel_plain(port.F, S, B, torch.from_numpy(sel)))
+    got = g1_cuda.add_plain(port.F, ys[1], A, out=ys[2])
+    assert got.data_ptr() == ys[2].data_ptr()
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(ref.add(to_numpy(ys[1]), a)))
+    assert torch.equal(got, g1_cuda.add_plain(port.F, ys[1], A))
+    # G1Ctx.add_select passes out= through to the wrapper
+    assert port.add_select(S, B, torch.from_numpy(sel), out=ys[0]).data_ptr() == ys[0].data_ptr()
+    assert torch.equal(ys[0], ys[1])
+
+
+def test_add_wrappers_refuse_a_bad_out(ctx):
+    """out must be a contiguous (3, L, n) int32 tensor of the result's shape
+    on the operands' device that overlaps neither operand; the wrappers and
+    their plain versions raise for anything else."""
+    eng, ref, port = ctx
+    _, _, a, b, _ = _relaxed_inputs(eng, ref, port)
+    shape = a.shape
+    n = shape[-1]
+    flat = torch.zeros(2 * a.size, dtype=torch.int32)
+    P = flat[: a.size].view(shape).copy_(to_torch(a, "cpu"))
+    Q = to_torch(b, "cpu")
+    sel = torch.ones(n, dtype=torch.bool)
+    bad = {
+        "overlaps P": flat[a.size // 2 : a.size // 2 + a.size].view(shape),
+        "is Q": Q,
+        "not contiguous": torch.empty(shape[:-1] + (2 * n,), dtype=torch.int32)[..., ::2],
+        "wrong shape": torch.empty(shape[:-1] + (n + 1,), dtype=torch.int32),
+        "batched": torch.empty((1,) + shape, dtype=torch.int32),
+        "wrong dtype": torch.empty(shape, dtype=torch.int64),
+    }
+    calls = (lambda o: g1_cuda.add(port.F, P, Q, out=o),
+             lambda o: g1_cuda.addsel(port.F, P, Q, sel, out=o),
+             lambda o: g1_cuda.add_plain(port.F, P, Q, out=o),
+             lambda o: g1_cuda.addsel_plain(port.F, P, Q, sel, out=o))
+    for why, out in bad.items():
+        for call in calls:
+            with pytest.raises(TypeError if why == "wrong dtype" else ValueError):
+                call(out)
+    # a buffer beside P in the same storage is fine
+    ok = flat[a.size :].view(shape)
+    assert torch.equal(g1_cuda.add(port.F, P, Q, out=ok), g1_cuda.add_plain(port.F, P, Q))
 
 
 def test_dbl_add_select_neg_is_inf_match_reference(bls):

@@ -113,6 +113,33 @@ def test_msm_totals_match_reference(env, ref_table, ref_totals, n, K, collide, m
     assert ref_msm.horner_host(ref, want_totals, C) == want
 
 
+def test_scan_writes_each_step_into_the_capture_buffer(env, ref_table, monkeypatch):
+    """The unsigned scan hands add_select each step of its (K, 3, L, W*C)
+    capture buffer as out= (K consecutive steps, none copied), and the bucket
+    table that comes out is the reference's."""
+    eng, ref, port, _ = env
+    n, K = 16, 4
+    pts, ks = _inputs(eng, n, seed=n, collide=True)
+    P, S = ref.encode_points(pts), ref.encode_scalars(ks)
+    outs = []
+    add_select = port.add_select
+
+    def recording(P_, Q_, sel, out=None):
+        outs.append(out)
+        got = add_select(P_, Q_, sel, out=out)
+        assert out is None or got is out
+        return got
+
+    monkeypatch.setattr(port, "add_select", recording)
+    table = msm.bucket_table(port, to_torch(P, "cpu"), to_torch(S, "cpu"), C, K=K,
+                             capture="dense")
+    np.testing.assert_array_equal(to_numpy(table), ref_table(P, S, K))
+    steps = outs[:K]  # the scan's; the chunk-summary scans follow without out=
+    assert all(o is not None for o in steps) and all(o is None for o in outs[K:])
+    stride = steps[0].numel() * steps[0].element_size()
+    assert [o.data_ptr() - steps[0].data_ptr() for o in steps] == [s * stride for s in range(K)]
+
+
 def test_split_path_matches_reference(env, ref_table):
     eng, ref, port, ref_fixed = env
     n, K = 32, 4
