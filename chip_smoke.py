@@ -30,11 +30,13 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
 The second main path, the pairing-product check a BLS verifier pays for
 (``BatchEngine.pairing_product_is_one`` / ``pairing_products_are_one``):
 
-  6. the pairing kernels (mont_mul, miller_lanes, f12_seg_product) against
+  6. the split Miller kernels' ptxas lines (no stack and no spill allowed);
+     the pairing kernels (mont_mul, miller_lanes, f12_seg_product) against
      their plain PyTorch versions on the card, exact: miller_lanes on 64
      lanes with n = 61 (3 pad lanes) on BLS12-381, BN254 and BLS12-377,
      f12_seg_product with seg in {2, 64}; then each at the shapes of phase 7
-     (BLS12-381, 4,096 and 2,048 lanes), checked against the plain version
+     (BLS12-381, 4,096 and 2,048 lanes; miller_lanes at both, each in the
+     block size the launcher picks there), checked against the plain version
      and timed beside it;
   7. the product check at full width on BLS12-381 through ``BatchEngine``
      on the card: (a) 4,096 pairs (a_i g1, b_i g2) beside (-a_i b_i g1, g2)
@@ -184,6 +186,14 @@ the ``add`` kernel's time at 2^20 lanes on BLS12-381 (12 words) beside BN254
 times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
 REPO, then that checkout's add and addsel kernels at phase 3's shapes; run
 for two checkouts in turns to compare them on one card.
+
+    python3 chip_smoke.py --time-pairing REPO
+
+times, with the checkout at REPO, miller_lanes and miller_ft at 4,096 and
+2,048 BLS12-381 lanes and 1,024 BN254 lanes beside their bounds (and prints
+its Miller kernels' ptxas lines), one 4,096-pair product check (pairs/s and
+device ms), the 1,024 grouped checks under ``MATHLIB_GROUP_FEXP=device``, and
+one BLS12-381 ``pairing_batch`` at 4,096 pairs.
 """
 
 from __future__ import annotations
@@ -214,6 +224,7 @@ G1_SRC = "mathlib_tpu_torch/csrc/g1_kernels.cu"
 G1_SPLIT_SRC = "mathlib_tpu_torch/csrc/g1_split_kernels.cu"
 G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
 G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
+MILLER_SRC = "mathlib_tpu_torch/csrc/miller_split_kernels.cu"
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "add": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
     "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
@@ -224,12 +235,10 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "maddsel": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
     "maddselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
     "mont_mul": ("mathlib_tpu_torch/csrc/fp_kernels.cu", "mathlib_tpu/ops/kernels/fp_pallas.py:40"),
-    "miller_lanes": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
-                     "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
+    "miller_lanes": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
     "f12_seg_product": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                         "mathlib_tpu/ops/kernels/pairing_pallas.py:1244"),
-    "miller_ft": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
-                  "mathlib_tpu/ops/kernels/pairing_pallas.py:788"),
+    "miller_ft": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:788"),
     "add_step": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                  "mathlib_tpu/ops/kernels/pairing_pallas.py:807"),
     "f12_pow": ("mathlib_tpu_torch/csrc/fexp_kernels.cu",
@@ -459,6 +468,19 @@ def split_ptxas(path: str) -> list:
     return [e for e in ptxas_entries(path) if e.startswith(("g1_add_kernel", "g1_addsel_kernel"))]
 
 
+def miller_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the Miller kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith("miller_")]
+
+
+def miller_design(build) -> str:
+    """Which Miller kernels the imported checkout has: "split" (one lane's
+    loop over the warps of a block, csrc/miller_split_kernels.cu) or
+    "one-thread" (a lane a thread)."""
+    return ("split" if os.path.exists(os.path.join(build.CSRC, "miller_split_kernels.cu"))
+            else "one-thread")
+
+
 def split_design(build) -> str:
     """Which add and addsel kernels the imported checkout has: "six-warp"
     (csrc/g1_split_kernels.cu) or "one-thread" (rcb_add a thread)."""
@@ -555,7 +577,14 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
     def check(name, got, want):
         check_equal(results, name, got, want)
 
-    # ---- 6. the pairing kernels against their plain versions (exact)
+    # ---- 6. the split Miller kernels' ptxas lines (no stack, no spill), then
+    # the pairing kernels against their plain versions (exact)
+    from mathlib_tpu_torch.ops.kernels import build
+
+    for entry in miller_ptxas(build.BUILD_LOG):
+        log("ptxas_miller", entry=repr(entry))
+        if not entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            raise AssertionError(f"split Miller kernel with a stack or a spill: {entry}")
     for curve in ("BLS12_381", "BN254", "BLS12_377"):
         spec = get_spec(curve)
         eng, be = get_engine(spec), BatchEngine(spec, dev)
@@ -586,7 +615,16 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
     r2 = be.fp.r2_limbs.to(torch.int32)
     xP, yP, Qx, Qy = be._pair_split_mont(packed)
     f = pc.miller_lanes(cfg, xP, yP, Qx, Qy, N_PAIRS)
-    f_b = f[..., : 2 * N_CHECKS].contiguous()
+    # miller_lanes at the grouped checks' lane count, which takes a smaller
+    # block than 4,096 lanes (and so other programs), against its plain version
+    b_args = [a[..., : 2 * N_CHECKS].contiguous() for a in (xP, yP, Qx, Qy)]
+    f_b = pc.miller_lanes(cfg, *b_args, 2 * N_CHECKS)
+    check("miller_lanes", f_b,
+          chunked(lambda a, b, c, d: pc.miller_lanes_plain(cfg, a, b, c, d, PLAIN_PAIR_CHUNK),
+                  2 * N_CHECKS, *b_args, step=PLAIN_PAIR_CHUNK))
+    log("pair_kernels_vs_plain", curve="BLS12_381", kernel="miller_lanes", lanes=2 * N_CHECKS,
+        block=pc.miller_shape(cfg, 2 * N_CHECKS), equal=True)
+    del b_args
     limb_bytes = L * 4
     shapes = {  # name: (what, kernel, plain, bytes, field products)
         "mont_mul": (
@@ -2024,15 +2062,216 @@ def time_msm(repo: str) -> int:
     return 0
 
 
+def time_miller_instructions(repo: str, base_cfg) -> None:
+    """What one instruction of the split Miller kernels costs: synthetic
+    programs (one phase a loop bit, 200 iterations) run by miller_ft on
+    4,096 BLS12-381 lanes in 32-lane blocks of 32 workers (the block
+    ``miller_shape`` picks there); a
+    ``[miller_ins]`` line each, in cycles at the 1.98 GHz boost clock: a
+    chain of one worker's instructions (the others idle), an empty phase
+    (the barrier), and every worker multiplying at once."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch.ops.kernels import miller_prog as mp, pairing_cuda as pc
+
+    G, K, iters, n = 32, 32, 200, 200
+    slots = 42 + K  # the last case stores one product a worker from slot 42 on
+    L = base_cfg.fp.L
+    lanes = [torch.zeros(s, dtype=torch.int32, device="cuda")
+             for s in ((L, N_PAIRS), (L, N_PAIRS), (2, L, N_PAIRS), (2, L, N_PAIRS))]
+    I = mp._ins  # noqa: E741
+
+    def one(steps):
+        return [[mp.encode(steps)] + [[] for _ in range(K - 1)]]
+
+    chain3 = [x for i in range(n) for x in (I(mp.LD, 40 + i % 2), I(mp.ADD, 42),
+                                             I(mp.ST, 41 - i % 2))]
+    cases = (
+        ("barrier", [[[] for _ in range(K)]] * 20, 20),
+        ("nop", one([I(mp.LD, 40)] + [I(mp.NOP)] * n + [I(mp.ST, 41)]), n),
+        ("add", one([I(mp.LD, 40)] + [I(mp.ADD, 41)] * n + [I(mp.ST, 42)]), n),
+        ("sub", one([I(mp.LD, 40)] + [I(mp.SUB, 41)] * n + [I(mp.ST, 42)]), n),
+        ("d=x+y", one(chain3), n),
+        ("mul", one([I(mp.LD, 40)] + [I(mp.MUL, 41)] * (n // 4) + [I(mp.ST, 42)]), n // 4),
+        ("mul_all_workers", [[mp.encode([I(mp.LD, 40)] + [I(mp.MUL, 41)] * (n // 4)
+                                        + [I(mp.ST, 42 + w)]) for w in range(K)]], n // 4),
+    )
+    bits = np.zeros(iters, np.uint8)
+    for name, phases, count in cases:
+        prog = mp.Program(phases, slots, 0, [])
+        code, ranges = mp.pack([prog, prog, None], K)
+        cfg = pc.MillerCfg(base_cfg.tc, bits, False, None)
+        if pc.miller_shape(cfg, N_PAIRS) != (G, K):
+            raise AssertionError(f"miller_shape no longer picks ({G}, {K}) at {N_PAIRS} lanes")
+        meta = (ctypes.c_int32 * 10)(G, K, slots, pc.slot_words(L, G), *ranges)
+        cfg._dev[("miller_prog", "cuda:0", G)] = (torch.from_numpy(code).cuda(), meta)
+        ms, _ = cuda_ms(lambda: pc.miller_ft(cfg, *lanes), reps=3)
+        log("miller_ins", repo=repr(repo), case=name, G=G, K=K,
+            cycles_each=f"{ms * 1e-3 / iters / count * 1.98e9:.1f}")
+
+
+# --time-pairing: (curve, lanes) of the Miller kernels' timings: the product
+# check and pairing_batch at BLS12-381, the grouped checks, BN254 pairing_batch
+TIME_PAIRING_SHAPES = (("BLS12_381", N_PAIRS), ("BLS12_381", 2 * N_CHECKS),
+                       ("BN254", N_BATCH_BN))
+
+
+def time_pairing(repo: str) -> int:
+    """The pairing paths alone, with the ``mathlib_tpu_torch`` of the
+    checkout at ``repo`` (built there at first use): its miller_lanes and
+    miller_ft at TIME_PAIRING_SHAPES (CUDA events, mean of 5 after a
+    warm-up) beside their bounds, with its Miller kernels' ptxas lines; one
+    4,096-pair ``pairing_product_is_one`` (best of 5 host-clock runs, the
+    device ms of its Montgomery entry and Miller product by CUDA events,
+    pairs/s); the 1,024 grouped two-pair checks under
+    ``MATHLIB_GROUP_FEXP=device`` (best of 5); and one BLS12-381
+    ``pairing_batch`` at 4,096 pairs (best of 3).  A ``[time_pairing]``
+    line each (and ``[miller_ins]`` lines for a checkout with the split
+    kernels).  Run it for two checkouts in turns (A, B, B, A) in one call
+    to compare them on one card."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    repo = os.path.abspath(repo)
+    sys.path.insert(0, repo)
+    import mathlib_tpu_torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.ops.kernels import build, pairing_cuda as pc
+
+    if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
+        raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    build.load()
+    design, smi = miller_design(build), smi_line()
+    for entry in miller_ptxas(build.BUILD_LOG):
+        log("ptxas_miller", repo=repr(repo), entry=repr(entry))
+    rng = np.random.default_rng(7)
+    engines = {}
+
+    def pairs(curve, count):
+        spec = get_spec(curve)
+        if curve not in engines:
+            engines[curve] = (get_engine(spec), BatchEngine(spec, mathlib_tpu_torch.device("cuda")))
+        eng, be = engines[curve]
+        ks = [int.from_bytes(rng.bytes(32), "big") % (spec.r - 1) + 1 for _ in range(2 * count)]
+        return ([eng.g1.mul(eng.gen_g1, k) for k in ks[:count]],
+                [eng.g2.mul(eng.gen_g2, k) for k in ks[count:]])
+
+    for curve, lanes in TIME_PAIRING_SHAPES:
+        g1s, g2s = pairs(curve, lanes)
+        eng, be = engines[curve]
+        cfg, L = be.pair.cfg, be.fp.L
+        xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1s, g2s))
+        for name, run, out_fp in (
+                ("miller_lanes", lambda: pc.miller_lanes(cfg, xP, yP, Qx, Qy, lanes), 12),
+                ("miller_ft", lambda: pc.miller_ft(cfg, xP, yP, Qx, Qy), 18)):
+            ms, _ = cuda_ms(run, reps=5)
+            b = bound((6 + out_fp) * L * 4 * lanes, wide_mads(miller_fp_muls(cfg, lanes), L))
+            log("time_pairing", repo=repr(repo), design=design, kernel=name, curve=curve,
+                lanes=lanes, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+                over_bound=f"{ms / b['bound_ms']:.2f}x", card=repr(smi))
+
+    if design == "split":
+        time_miller_instructions(repo, engines["BLS12_381"][1].pair.cfg)
+
+    # the product check (a): 2,048 pairs (a g1, b g2), each beside (-ab g1, g2)
+    eng, be = engines["BLS12_381"]
+    spec = be.spec
+    ks = [int.from_bytes(rng.bytes(32), "big") % (spec.r - 1) + 1 for _ in range(N_PAIRS)]
+    g1s, g2s = [], []
+    for a, b in zip(ks[0::2], ks[1::2]):
+        g1s += [eng.g1.mul(eng.gen_g1, a), eng.g1.mul(eng.gen_g1, (-a * b) % spec.r)]
+        g2s += [eng.g2.mul(eng.gen_g2, b), eng.gen_g2]
+    walls = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = be.pairing_product_is_one(g1s, g2s)
+        torch.cuda.synchronize()
+        if ok is not True:
+            raise AssertionError("time_pairing: the product check did not hold")
+        if i:
+            walls.append(time.perf_counter() - t0)
+    packed = be._encode_pairs(g1s, g2s)
+    dev_ms = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        split = be._pair_split_mont(packed)
+        ev[1].record()
+        be.pair.product_miller(*split)
+        ev[2].record()
+        torch.cuda.synchronize()
+        dev_ms.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    best = min(dev_ms, key=sum)
+    log("time_pairing", repo=repr(repo), design=design, call="pairing_product_is_one",
+        pairs=N_PAIRS, seconds=[round(x, 4) for x in walls],
+        pairs_per_s=f"{N_PAIRS / min(walls):.1f}", device_ms=f"{sum(best):.4f}",
+        to_mont_ms=f"{best[0]:.4f}", miller_and_product_ms=f"{best[1]:.4f}")
+
+    # the grouped checks (b) under MATHLIB_GROUP_FEXP=device: 1,024 BLS
+    # verifies e(sig, g2) e(-H, pk), every other one corrupted
+    v_g1s, v_g2s, verdicts = [], [], []
+    for k in range(N_CHECKS):
+        sk = ks[k] % (spec.r - 2) + 1
+        H = eng.g1.mul(eng.gen_g1, ks[N_CHECKS + k])
+        v_g1s += [eng.g1.mul(H, sk + (k % 2)), eng.g1.neg(H)]
+        v_g2s += [eng.gen_g2, eng.g2.mul(eng.gen_g2, sk)]
+        verdicts.append(k % 2 == 0)
+    prev = os.environ.get("MATHLIB_GROUP_FEXP")
+    os.environ["MATHLIB_GROUP_FEXP"] = "device"
+    try:
+        walls = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = be.pairing_products_are_one(v_g1s, v_g2s, 2)
+            torch.cuda.synchronize()
+            if got != verdicts:
+                raise AssertionError("time_pairing: wrong grouped verdicts")
+            if i:
+                walls.append(time.perf_counter() - t0)
+    finally:
+        if prev is None:
+            os.environ.pop("MATHLIB_GROUP_FEXP")
+        else:
+            os.environ["MATHLIB_GROUP_FEXP"] = prev
+    log("time_pairing", repo=repr(repo), design=design, call="pairing_products_are_one",
+        group_fexp="device", checks=N_CHECKS, seconds=[round(x, 4) for x in walls],
+        checks_per_s=f"{N_CHECKS / min(walls):.1f}")
+
+    # pairing_batch at 4,096 BLS12-381 pairs, 8 lanes held to the host engine
+    g1s, g2s = pairs("BLS12_381", N_BATCH)
+    out, secs = best_of_3(lambda: be.pairing_batch(g1s, g2s))
+    for i in range(N_SAMPLED):
+        if out[i] != eng.pairing(g1s[i], g2s[i]):
+            raise AssertionError("time_pairing: pairing_batch differs from the host pairing")
+    log("time_pairing", repo=repr(repo), design=design, call="pairing_batch", curve="BLS12_381",
+        pairs=N_BATCH, seconds=[round(x, 4) for x in secs],
+        pairings_per_s=f"{N_BATCH / min(secs):.1f}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-msm", metavar="REPO",
                     help="only time phase 5's MSM with the checkout at REPO")
+    ap.add_argument("--time-pairing", metavar="REPO",
+                    help="only time the pairing paths' Miller kernels and calls with the "
+                         "checkout at REPO")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2^20 MSM and time add on BLS12-381 vs BN254")
     args = ap.parse_args()
     if args.time_msm:
         return time_msm(args.time_msm)
+    if args.time_pairing:
+        return time_pairing(args.time_pairing)
     t_start = time.perf_counter()
 
     import numpy as np

@@ -1,0 +1,385 @@
+// The Miller loop for Hopper (sm_90a) with one lane's loop spread over the
+// warps of a block: port of mathlib_tpu/ops/kernels/pairing_pallas.py
+//
+//   miller_lanes_split_kernel <- _miller_conj_tail + _mask_pad_to_one, the
+//                                front half of _pairing_prod_kernel (:1188)
+//                                and _pairing_prod_seg_kernel (:1244)
+//   miller_ft_split_kernel    <- _miller_kernel (:788): (f, T) after the
+//                                loop, no conjugation and no tail
+//
+// They compute what miller_lane and miller_loop (tower_rows.cuh) compute,
+// add for add and product for product, so the relaxed [0, 2p) limbs that
+// come out are the one-thread functions' and the plain versions'.
+//
+// What bounds them on an H100 is the integer multiply rate: a BLS12-381 lane
+// runs 63 doubling iterations (117 field products each: dbl_step 39,
+// f12_sqr 36, f12_sparse_mul 42 at the M-twist, 39 at the D-twist) and 5
+// addition steps (83: add_step 41, f12_sparse_mul 42), 7,786 products of
+// 4 NW^2 + NW = 588 32-bit multiply-adds each, for 288 bytes in and 576 out
+// (miller_ft also writes T, 288 more).  One thread a lane runs them as one
+// chain, with f, T and the temporaries on its stack.  The reference instead
+// stacks every step into a few batches of products that do not depend on
+// each other (RowTower's MulBatch), and so does this design:
+//
+//   * ops/kernels/miller_prog.py traces one doubling iteration, one doubling
+//     iteration followed by an addition step, and the loop's end (the
+//     conjugation, the BN chord steps) into graphs of field adds, subs and
+//     products, and schedules each for K workers: the products in layers by
+//     their depth (f12_sqr joins dbl_step's first layers, a product with slack
+//     fills a layer's last round), the linear steps in the phases between,
+//     each value in its own slot.  At BLS12-381 with K = 32 a doubling
+//     iteration is 117 products in layers of 32, 25, 21 and 39 and 20 phases
+//     (506 instructions); a doubling and addition 200 products in layers of
+//     32, 25, 21, 32, 27, 32 and 31 and 34 phases (793 instructions);
+//   * a block owns G lanes (32, 16 or 8: a template parameter; the launcher
+//     picks it from the lane count so that a call puts ~128 blocks on the
+//     card, with K = 32, 48 or 64 workers).  Its workers are warps (G = 32)
+//     or parts of warps; thread t of every worker works on lane
+//     blockIdx.x * G + t.  A worker runs its instruction list of a phase,
+//     then the block meets at a barrier.  The instructions are an
+//     accumulator machine over shared memory (ADD, SUB, MUL, DBL, NEG, NOP,
+//     each with an optional load before and store after; miller_prog.py
+//     has their meaning): d = x + y and d = x * y are one instruction each.
+//     Workers that share a warp have their products at the same instruction
+//     index (NOP padding), so the warp runs each product once for all of
+//     them;
+//   * the loop bits are the same for every lane: the block runs the
+//     doubling program, or the doubling-and-addition one, for each bit, and
+//     no branch diverges between lanes.
+//
+// Shared memory holds the lane state for the whole loop: f (12 slots), T (6),
+// xP, yP, Qx, Qy (6), the BN tail's constants (8), and the programs' values,
+// each slot NW x G words (and G more when G < 32, which spreads the workers
+// of a warp over the banks).  A program takes its slot count from its
+// values' lifetimes: at BLS12-381 142 slots for G = 32 (218 KB a block, 1 a
+// SM), 140 for G = 16 (116 KB), 143 for G = 8 (59 KB); dynamic shared
+// memory, above the 48 KB default.  Where a curve's programs would not fit
+// a block (BLS12-377 at G = 32: 169 slots), the launcher takes the next
+// smaller group (180 slots at G = 16, 146 KB).
+//
+// A thread holds acc and one operand in registers: no call, no stack, no
+// spill (ptxas' report is on chip_smoke.py's build lines).  The product is
+// fp_mul_ptx, the adds and subs fp_add_cc and fp_sub_cc (PTX carry chains).
+// What holds the kernels above their bound is the interpreter's latency: a
+// worker's instruction costs ~260 cycles before its work (fetch, decode,
+// dispatch), an add ~400, a product ~2,800 alone, on an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py --time-pairing's [miller_ins] lines,
+// PERF.md), and each phase ends at a barrier.
+//
+// The launchers run on the caller's stream, allocate nothing, never
+// synchronise, and return cudaGetLastError() (or -1 for an unsupported L,
+// group size or block).  The program (an int32 device array from
+// miller_prog.pack: a phase table of K + 1 code offsets a phase, then the
+// code) and its host meta (G, K, slots, words a slot, then the phase ranges
+// [begin, end) of the doubling, doubling-and-addition and tail programs)
+// come after the one-thread launchers' arguments.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fp_rows.cuh"
+#include "lanes.cuh"
+
+namespace mlt {
+
+// instruction words (miller_prog.py): bits 0-3 op, bit 4 load acc from slot
+// x, bit 5 store acc to slot d after the op, x bits 8-15, y 16-23, d 24-31
+enum MillerOp { kAdd, kSub, kMul, kDbl, kNeg, kNop };
+constexpr uint32_t kLoad = 16, kStore = 32;
+
+// fixed slots (miller_prog.py): f 0-11, T 12-17, xP 18, yP 19, Qx 20-21,
+// Qy 22-23, tail constants 24-31
+constexpr int kSlotT = 12, kSlotXP = 18, kSlotYP = 19, kSlotQx = 20, kSlotQy = 22;
+constexpr int kSlotTail = 24, kStateSlots = 32;
+constexpr int kMillerMaxThreads = 1024;
+
+struct MillerMeta {
+  int group, workers, slots, stride;  // stride: words a slot, NW x G or more
+  int range[3][2];  // doubling, doubling and addition, tail
+};
+
+template <int NW, int G>
+struct SlotMem {
+  uint32_t* base;  // this thread's lane of slot 0
+  int stride;
+
+  __device__ __forceinline__ void get(uint32_t* v, int s) const {
+    const uint32_t* p = base + s * stride;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) v[j] = p[j * G];
+  }
+  __device__ __forceinline__ void put(int s, const uint32_t* v) const {
+    uint32_t* p = base + s * stride;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) p[j * G] = v[j];
+  }
+};
+
+// One instruction of a PTX carry chain each (fp_rows.cuh has the adds with
+// carry in and the multiply-adds): the flag passes from one asm statement to
+// the next, the chains below are unrolled over registers.
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// fp_add (fp_rows.cuh) on carry chains: a + b, minus 2p when that is >= 2p.
+// r may alias a or b.
+template <int NW>
+__device__ __forceinline__ void fp_add_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                                          const FieldConsts& k) {
+  uint32_t s[NW], d[NW];
+  s[0] = add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) s[j] = addc_cc(a[j], b[j]);  // a + b < 4p <= R: no carry out
+  d[0] = sub_cc(s[0], k.p2[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = subc_cc(s[j], k.p2[j]);
+  const uint32_t below = subc(0, 0);  // all ones when s < 2p
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r[j] = (s[j] & below) | (d[j] & ~below);
+}
+
+// fp_sub (fp_rows.cuh) on carry chains: a - b, plus 2p when that is
+// negative.  r may alias a or b.
+template <int NW>
+__device__ __forceinline__ void fp_sub_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                                          const FieldConsts& k) {
+  uint32_t d[NW];
+  d[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = subc_cc(a[j], b[j]);
+  const uint32_t neg = subc(0, 0);  // all ones when a < b
+  r[0] = add_cc(d[0], k.p2[0] & neg);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) r[j] = addc_cc(d[j], k.p2[j] & neg);
+}
+
+// phases [p0, p1) of the program: this worker's instructions, then a barrier
+template <int NW, int G>
+__device__ __forceinline__ void run_phases(const int32_t* __restrict__ prog, int p0, int p1,
+                                           int K, int wk, const SlotMem<NW, G>& S,
+                                           uint32_t* acc, const FieldConsts& k) {
+  for (int p = p0; p < p1; ++p) {
+    const int beg = __ldg(prog + p * (K + 1) + wk), end = __ldg(prog + p * (K + 1) + wk + 1);
+    uint32_t next = beg < end ? (uint32_t)__ldg(prog + beg) : 0u;
+    for (int pc = beg; pc < end; ++pc) {
+      const uint32_t ins = next;  // the next word loads while this one runs
+      if (pc + 1 < end) next = (uint32_t)__ldg(prog + pc + 1);
+      const int op = ins & 15;
+      uint32_t v[NW];
+      if (ins & kLoad) S.get(acc, (ins >> 8) & 255);
+      if (op <= kMul) S.get(v, (ins >> 16) & 255);  // both loads in flight together
+      switch (op) {
+        case kAdd:
+          fp_add_cc<NW>(acc, acc, v, k);
+          break;
+        case kSub:
+          fp_sub_cc<NW>(acc, acc, v, k);
+          break;
+        case kMul:
+          fp_mul_ptx<NW>(acc, acc, v, k);
+          break;
+        case kDbl:
+          fp_add_cc<NW>(acc, acc, acc, k);
+          break;
+        case kNeg:
+#pragma unroll
+          for (int j = 0; j < NW; ++j) v[j] = 0;
+          fp_sub_cc<NW>(acc, v, acc, k);
+          break;
+        default:  // kNop
+          break;
+      }
+      if (ins & kStore) S.put(ins >> 24, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// Lane i's Miller loop over the block's G lanes: state into shared memory,
+// one program a loop bit (and the tail program when LANES), then f (and T
+// when not LANES) out.  LANES: lanes >= nvalid are the f12 one and their
+// inputs are never read.
+template <int NW, int G, bool LANES>
+__device__ __forceinline__ void miller_split(
+    const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+    const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+    const uint8_t* __restrict__ bits, int nbits, int nvalid, uint32_t* __restrict__ f_out,
+    uint32_t* __restrict__ t_out, int lanes, const FieldConsts& k, const TowerConsts& tc,
+    const int32_t* __restrict__ prog, const MillerMeta& m) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x % G, wk = threadIdx.x / G, K = m.workers;
+  const int64_t i = (int64_t)blockIdx.x * G + t;
+  const bool real = i < nvalid;
+  const SlotMem<NW, G> S{smem + t, m.stride};
+  uint32_t acc[NW];
+  for (int q = wk; q < kStateSlots; q += K) {  // f = 1, T = (Qx : Qy : 1), P, Q, tail
+    if (q == 0 || q == kSlotT + 4) {
+      fp_copy<NW>(acc, k.one);
+    } else if (q >= kSlotTail) {  // static indices into the parameter
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+        if (q == kSlotTail + a) fp_copy<NW>(acc, tc.tail[a / 2][a % 2]);
+    } else if (real && q >= kSlotT && q < kSlotT + 4) {
+      load_fp<NW>(acc, q < kSlotT + 2 ? qx : qy, q % 2, lanes, i);
+    } else if (real && q >= kSlotXP) {
+      load_fp<NW>(acc, q == kSlotXP ? xp : q == kSlotYP ? yp : q < kSlotQy ? qx : qy,
+                  q >= kSlotQx ? q % 2 : 0, lanes, i);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) acc[j] = 0;
+    }
+    S.put(q, acc);
+  }
+  __syncthreads();
+  for (int b = 0; b < nbits; ++b) {  // a select, not an index into the parameter
+    const bool add = bits[b] != 0;
+    run_phases<NW, G>(prog, add ? m.range[1][0] : m.range[0][0],
+                      add ? m.range[1][1] : m.range[0][1], K, wk, S, acc, k);
+  }
+  if (LANES) run_phases<NW, G>(prog, m.range[2][0], m.range[2][1], K, wk, S, acc, k);
+  if (i >= lanes) return;
+  for (int q = wk; q < (LANES ? 12 : 18); q += K) {
+    if (LANES && !real) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) acc[j] = q == 0 ? k.one[j] : 0u;
+    } else {
+      S.get(acc, q);
+    }
+    if (q < kSlotT) {
+      store_fp<NW>(f_out, acc, q, lanes, i);
+    } else {
+      store_fp<NW>(t_out, acc, q - kSlotT, lanes, i);
+    }
+  }
+}
+
+template <int NW, int G>
+__global__ void __launch_bounds__(kMillerMaxThreads)
+    miller_lanes_split_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                              const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                              const uint8_t* __restrict__ bits, int nbits, int nvalid,
+                              uint32_t* __restrict__ out, int lanes, FieldConsts k,
+                              TowerConsts tc, const int32_t* __restrict__ prog, MillerMeta m) {
+  miller_split<NW, G, true>(xp, yp, qx, qy, bits, nbits, nvalid, out, nullptr, lanes, k, tc,
+                            prog, m);
+}
+
+template <int NW, int G>
+__global__ void __launch_bounds__(kMillerMaxThreads)
+    miller_ft_split_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                           const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                           const uint8_t* __restrict__ bits, int nbits,
+                           uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int lanes,
+                           FieldConsts k, TowerConsts tc, const int32_t* __restrict__ prog,
+                           MillerMeta m) {
+  miller_split<NW, G, false>(xp, yp, qx, qy, bits, nbits, lanes, f_out, t_out, lanes, k, tc,
+                             prog, m);
+}
+
+inline MillerMeta miller_meta(const int32_t* meta) {
+  MillerMeta m;
+  m.group = meta[0];
+  m.workers = meta[1];
+  m.slots = meta[2];
+  m.stride = meta[3];
+  for (int r = 0; r < 3; ++r)
+    for (int e = 0; e < 2; ++e) m.range[r][e] = meta[4 + 2 * r + e];
+  return m;
+}
+
+// grid, block and dynamic shared memory of a launch; raises the kernel's
+// shared-memory cap when a program needs more than the 48 KB default
+template <int NW, int G, typename Kernel>
+inline bool miller_launch_shape(Kernel kernel, const MillerMeta& m, int lanes, dim3& grid,
+                                dim3& block, size_t& smem) {
+  if (m.workers < 1 || m.workers * G > kMillerMaxThreads || m.slots < kStateSlots ||
+      m.stride < NW * G)
+    return false;
+  grid = dim3((unsigned)((lanes + G - 1) / G));
+  block = dim3((unsigned)(m.workers * G));
+  smem = (size_t)m.slots * m.stride * sizeof(uint32_t);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem) == cudaSuccess;
+}
+
+}  // namespace mlt
+
+using namespace mlt;
+
+// L picks NW (MLT_PAIR_DISPATCH), the meta's group size picks G
+#define MLT_MILLER_GROUPS(G_, ...)     \
+  switch (G_) {                        \
+    case 32: {                         \
+      constexpr int G = 32;            \
+      __VA_ARGS__;                     \
+      break;                           \
+    }                                  \
+    case 16: {                         \
+      constexpr int G = 16;            \
+      __VA_ARGS__;                     \
+      break;                           \
+    }                                  \
+    case 8: {                          \
+      constexpr int G = 8;             \
+      __VA_ARGS__;                     \
+      break;                           \
+    }                                  \
+    default:                           \
+      return -1;                       \
+  }
+
+extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
+                                        const uint32_t* qx, const uint32_t* qy,
+                                        const uint8_t* bits, int nbits, int nvalid,
+                                        uint32_t* out, int lanes, int L, const uint32_t* consts,
+                                        const int32_t* tower_ints, const uint32_t* tail,
+                                        const int32_t* prog, const int32_t* meta,
+                                        cudaStream_t stream) {
+  const MillerMeta m = miller_meta(meta);
+  MLT_PAIR_DISPATCH(L, MLT_MILLER_GROUPS(m.group, {
+    dim3 grid, block;
+    size_t smem;
+    if (!miller_launch_shape<NW, G>(miller_lanes_split_kernel<NW, G>, m, lanes, grid, block,
+                                    smem))
+      return -1;
+    miller_lanes_split_kernel<NW, G><<<grid, block, smem, stream>>>(
+        xp, yp, qx, qy, bits, nbits, nvalid, out, lanes, make_consts(consts, NW),
+        tower_consts(tower_ints, tail, NW), prog, m);
+  }))
+}
+
+extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
+                                     const uint32_t* qy, const uint8_t* bits, int nbits,
+                                     uint32_t* f_out, uint32_t* t_out, int lanes, int L,
+                                     const uint32_t* consts, const int32_t* tower_ints,
+                                     const uint32_t* tail, const int32_t* prog,
+                                     const int32_t* meta, cudaStream_t stream) {
+  const MillerMeta m = miller_meta(meta);
+  MLT_PAIR_DISPATCH(L, MLT_MILLER_GROUPS(m.group, {
+    dim3 grid, block;
+    size_t smem;
+    if (!miller_launch_shape<NW, G>(miller_ft_split_kernel<NW, G>, m, lanes, grid, block, smem))
+      return -1;
+    miller_ft_split_kernel<NW, G><<<grid, block, smem, stream>>>(
+        xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes, make_consts(consts, NW),
+        tower_consts(tower_ints, tail, NW), prog, m);
+  }))
+}

@@ -1,41 +1,33 @@
-// Pairing kernels for Hopper (sm_90a): port of the fused Miller + product
-// kernels and the Miller step kernels of
-// mathlib_tpu/ops/kernels/pairing_pallas.py (the pow and final-exponentiation
-// kernels are in fexp_kernels.cu).
+// Pairing kernels for Hopper (sm_90a): port of the product and Miller step
+// kernels of mathlib_tpu/ops/kernels/pairing_pallas.py (the Miller loops are
+// in miller_split_kernels.cu, the pow and final-exponentiation kernels in
+// fexp_kernels.cu).
 //
-//   miller_lanes_kernel  <- _miller_conj_tail + _mask_pad_to_one, the front
-//                           half of _pairing_prod_kernel (:1188) and
-//                           _pairing_prod_seg_kernel (:1244)
 //   f12_pair_mul_kernel  <- _product_all_positions (:971), the rotation
-//                           all-reduce of the same two kernels
-//   miller_ft_kernel     <- _miller_kernel (:788): (f, T) after the loop, no
-//                           conjugation and no tail
+//                           all-reduce of _pairing_prod_kernel (:1188) and
+//                           _pairing_prod_seg_kernel (:1244)
 //   add_step_kernel      <- _add_step_kernel (:807): (f l_{T,Q}(P), T + Q)
 //
 // Layout (lanes.cuh): field elements are (..., L, B) 16-bit limbs in 32-bit
 // words, lane batch last, as everywhere in the port: xP, yP (L, B); Qx, Qy
 // (2, L, B); T (3, 2, L, B); an f12 (2, 3, 2, L, B).  One thread owns one
-// lane; limb pairs are packed into NW = L/2 words.
+// lane; limb pairs are packed into NW = L/2 words, and f, T and each step's
+// temporaries live on the thread's stack (local memory, cached in L1): an
+// f12 is 144 words and T 72 at NW = 12, far past the 255 registers a thread
+// has.
 //
-// The TPU kernels keep f and T in VMEM across the loop, reduce lanes with
-// rotate-and-multiply steps, and carry the product across their sequential
-// grid in scratch.  Here the Miller loop runs per thread with f, T and each
-// step's temporaries on the thread's stack (local memory, cached in L1): an
-// f12 is 144 words and T 72 at NW = 12, far past the 255 registers a
-// thread has.  Blocks run in parallel and in no order on Hopper, so nothing
-// carries across them: the product is a separate tree, one launch per
-// level, each multiplying lanes 2i and 2i+1 (aligned power-of-two segments
-// reduce independently, a whole product in log2(B) launches).
+// The TPU kernels reduce lanes with rotate-and-multiply steps and carry the
+// product across their sequential grid in scratch.  Blocks run in parallel
+// and in no order on Hopper, so nothing carries across them: the product is
+// a separate tree, one launch per level, each multiplying lanes 2i and 2i+1
+// (aligned power-of-two segments reduce independently, a whole product in
+// log2(B) launches).
 //
-// Bound on this card: integer multiplies.  A BLS12-381 lane runs 63
-// doubling and 5 addition steps, 7,786 field muls of 588 32-bit
-// multiply-adds each (fp_rows.cuh), for 288 bytes in and 576 out (miller_ft
-// also writes T, 288 more); the tree's f12 mul is 54 field muls per pair, an
-// add step 83 (BLS12-381).  What this simple design leaves on the table: the
+// Bound on this card: integer multiplies.  The tree's f12 mul is 54 field
+// muls per pair, an add step 83 (BLS12-381), of 588 32-bit multiply-adds
+// each (fp_rows.cuh).  What this simple design leaves on the table: the
 // stack traffic of the __noinline__ calls, and occupancy (one lane per
-// thread; a 4,096-pair check is 128 warps on 132 SMs).  The loop bits come
-// in as a device array and the pad-lane count as an argument, so one build
-// serves every curve parameter and batch size.
+// thread).
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -49,33 +41,6 @@
 
 namespace mlt {
 
-// out[:, i] = Miller value of lane i for i < nvalid, the f12 one for the pad
-// lanes nvalid <= i < lanes (their inputs are never read).
-template <int NW>
-__global__ void miller_lanes_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
-                                    const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
-                                    const uint8_t* __restrict__ bits, int nbits, int nvalid,
-                                    uint32_t* __restrict__ out, int lanes, FieldConsts k,
-                                    TowerConsts tc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  F12<NW> f;
-  if (i < nvalid) {
-    uint32_t xP[NW], yP[NW];
-    F2<NW> Qx, Qy;
-    load_fp<NW>(xP, xp, 0, lanes, i);
-    load_fp<NW>(yP, yp, 0, lanes, i);
-    for (int c = 0; c < 2; ++c) {
-      load_fp<NW>(Qx.c[c], qx, c, lanes, i);
-      load_fp<NW>(Qy.c[c], qy, c, lanes, i);
-    }
-    miller_lane<NW>(f, xP, yP, Qx, Qy, bits, nbits, k, tc);
-  } else {
-    f12_one<NW>(f, k);
-  }
-  store_f12<NW>(out, f, lanes, i);
-}
-
 // out[:, i] = in[:, 2i] * in[:, 2i + 1] for i < half: one level of the
 // product tree.
 template <int NW>
@@ -88,29 +53,6 @@ __global__ void f12_pair_mul_kernel(const uint32_t* __restrict__ in, uint32_t* _
   load_f12<NW>(b, in, 2 * (int64_t)half, 2 * i + 1);
   f12_mul<NW>(a, a, b, k, tc);
   store_f12<NW>(out, a, half, i);
-}
-
-// f[:, i], T[:, i] = Miller value and final T of lane i (no conjugation, no
-// tail: the caller finishes them, as ops/pairing.py does after miller_pallas)
-template <int NW>
-__global__ void miller_ft_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
-                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
-                                 const uint8_t* __restrict__ bits, int nbits,
-                                 uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out,
-                                 int lanes, FieldConsts k, TowerConsts tc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  uint32_t xP[NW], yP[NW];
-  F2<NW> Qx, Qy;
-  load_fp<NW>(xP, xp, 0, lanes, i);
-  load_fp<NW>(yP, yp, 0, lanes, i);
-  load_f2<NW>(Qx, qx, lanes, i);
-  load_f2<NW>(Qy, qy, lanes, i);
-  F12<NW> f;
-  G2Proj<NW> T;
-  miller_loop<NW>(f, T, xP, yP, Qx, Qy, bits, nbits, k, tc);
-  store_f12<NW>(f_out, f, lanes, i);
-  store_T<NW>(t_out, T, lanes, i);
 }
 
 // (f, T) <- (f * l_{T,Q}(P), T + Q) per lane
@@ -143,33 +85,12 @@ __global__ void add_step_kernel(const uint32_t* __restrict__ f_in, const uint32_
 
 using namespace mlt;
 
-extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
-                                        const uint32_t* qx, const uint32_t* qy,
-                                        const uint8_t* bits, int nbits, int nvalid,
-                                        uint32_t* out, int lanes, int L, const uint32_t* consts,
-                                        const int32_t* tower_ints, const uint32_t* tail,
-                                        cudaStream_t stream) {
-  MLT_PAIR_DISPATCH(L, miller_lanes_kernel<NW><<<pair_grid(lanes), kPairThreads, 0, stream>>>(
-                           xp, yp, qx, qy, bits, nbits, nvalid, out, lanes,
-                           make_consts(consts, NW), tower_consts(tower_ints, tail, NW)))
-}
-
 extern "C" int mlt_f12_pair_mul(const uint32_t* in, uint32_t* out, int half, int L,
                                 const uint32_t* consts, const int32_t* tower_ints,
                                 const uint32_t* tail, cudaStream_t stream) {
   MLT_PAIR_DISPATCH(L, f12_pair_mul_kernel<NW><<<pair_grid(half), kPairThreads, 0, stream>>>(
                            in, out, half, make_consts(consts, NW),
                            tower_consts(tower_ints, tail, NW)))
-}
-
-extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
-                                     const uint32_t* qy, const uint8_t* bits, int nbits,
-                                     uint32_t* f_out, uint32_t* t_out, int lanes, int L,
-                                     const uint32_t* consts, const int32_t* tower_ints,
-                                     const uint32_t* tail, cudaStream_t stream) {
-  MLT_PAIR_DISPATCH(L, miller_ft_kernel<NW><<<pair_grid(lanes), kPairThreads, 0, stream>>>(
-                           xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes,
-                           make_consts(consts, NW), tower_consts(tower_ints, tail, NW)))
 }
 
 extern "C" int mlt_pairing_add_step(const uint32_t* f_in, const uint32_t* t_in,

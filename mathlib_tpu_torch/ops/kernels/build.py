@@ -75,14 +75,15 @@ SIGNATURES = {
     "mlt_g2_dblsel": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_smul": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P],
-    # (csrc/pairing_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, out, lanes, L,
-    # consts, tower ints, tail words, stream
-    "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
-    # in, out, half, L, consts, tower ints, tail words, stream
-    "mlt_f12_pair_mul": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # (csrc/miller_split_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, out, lanes,
+    # L, consts, tower ints, tail words, program, program meta, stream
+    "mlt_pairing_miller_lanes": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                                 _P],
     # xP, yP, Qx, Qy, bits, nbits, f out, T out, lanes, L, consts, tower ints,
-    # tail words, stream
-    "mlt_pairing_miller_ft": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # tail words, program, program meta, stream
+    "mlt_pairing_miller_ft": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (csrc/pairing_kernels.cu) in, out, half, L, consts, tower ints, tail words, stream
+    "mlt_f12_pair_mul": [_P, _P, _I, _I, _P, _P, _P, _P],
     # f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
     # tail words, stream
     "mlt_pairing_add_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],

@@ -1,7 +1,9 @@
 """Pairing kernels for Hopper (port of the fused Miller, product, step, pow and
 final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 
-CUDA C++ in ``csrc/pairing_kernels.cu``, ``csrc/fexp_kernels.cu`` and
+CUDA C++ in ``csrc/miller_split_kernels.cu`` (the Miller loops, one lane's
+loop spread over the warps of a block, running the programs of
+``miller_prog``), ``csrc/pairing_kernels.cu``, ``csrc/fexp_kernels.cu`` and
 ``csrc/check_kernels.cu`` over ``csrc/tower_rows.cuh``, each kernel behind a
 wrapper here:
 
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from ..field import FpCtx
-from . import build
+from . import build, miller_prog
 from .tower_rows import MulBatch, RowTower
 
 Tensor = torch.Tensor
@@ -333,13 +335,63 @@ def _check(cfg, *tensors: Tensor, shapes) -> None:
         raise ValueError("the kernels index lanes with a 32-bit int")
 
 
-def _launch(name: str, like: Tensor, cfg, *args) -> None:
-    """Launch ``name`` on ``like``'s card with the curve's constants last."""
+def _launch(name: str, like: Tensor, cfg, *args, extra=()) -> None:
+    """Launch ``name`` on ``like``'s card with the curve's constants after
+    ``args``, then ``extra``, then the stream."""
     ints, tail = _tower_args(cfg)
     L = cfg.fp.L
     with torch.cuda.device(like.device):
         build.launch(name, *args, L, ctypes.addressof(build.consts(cfg.fp.p, L)),
-                     ctypes.addressof(ints), ctypes.addressof(tail), build.stream(like))
+                     ctypes.addressof(ints), ctypes.addressof(tail), *extra, build.stream(like))
+
+
+# lanes a block of the Miller kernels (G) and its workers (K)
+MILLER_WORKERS = {32: 32, 16: 48, 8: 64}
+MILLER_BLOCKS = 128  # blocks a call should put on the card
+MILLER_SMEM = 227 * 1024  # shared memory a block may take on an H100
+
+
+def slot_words(L: int, G: int) -> int:
+    """32-bit words of one shared-memory slot of a G-lane Miller block: NW
+    words a lane, and G more when G < 32 so that the workers of a warp fall
+    on different banks."""
+    return L // 2 * G + (G if G < 32 else 0)
+
+
+def miller_programs(cfg: MillerCfg, G: int):
+    """(programs, slots, slot words) of ``cfg``'s Miller loop for a block of
+    G lanes and ``MILLER_WORKERS[G]`` workers."""
+    tw = cfg.tower
+    progs = miller_prog.programs(tw.n, tw.xi0, tw.twist == "M", bool(cfg.conj_end),
+                                 cfg.tail is not None, MILLER_WORKERS[G], 32 // G)
+    return progs, max(p.nslots for p in progs if p is not None), slot_words(cfg.fp.L, G)
+
+
+def miller_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
+    """(G, K) of a Miller launch over ``lanes`` lanes: the largest group of
+    32, 16 or 8 lanes that still gives ``MILLER_BLOCKS`` blocks and whose
+    programs' slots fit ``MILLER_SMEM`` (BLS12-377's do not at 32)."""
+    for G in (32, 16, 8):
+        if G == 8 or -(-lanes // G) >= MILLER_BLOCKS:
+            _, slots, words = miller_programs(cfg, G)
+            if slots * words * 4 <= MILLER_SMEM:
+                return G, MILLER_WORKERS[G]
+    raise ValueError(f"the Miller programs need {slots} slots of {4 * words} bytes, more "
+                     f"shared memory than a block has")
+
+
+def _miller_program(cfg: MillerCfg, device, lanes: int):
+    """The programs of ``cfg``'s Miller loop for the block ``miller_shape``
+    picks for ``lanes`` lanes, packed onto the card once per device and
+    block, and their host meta."""
+    G, K = miller_shape(cfg, lanes)
+    key = ("miller_prog", str(device), G)
+    if key not in cfg._dev:
+        progs, slots, words = miller_programs(cfg, G)
+        code, ranges = miller_prog.pack(progs, K)
+        meta = (ctypes.c_int32 * 10)(G, K, slots, words, *ranges)
+        cfg._dev[key] = (torch.from_numpy(code).to(device), meta)
+    return cfg._dev[key]
 
 
 def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
@@ -354,9 +406,10 @@ def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
     out = torch.empty((2, 3, 2, L, B), dtype=torch.int32, device=xP.device)
     if B:
         bits = _bits_on(cfg, xP.device)
+        prog, meta = _miller_program(cfg, xP.device, B)
         _launch("mlt_pairing_miller_lanes", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
                 Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), max(0, min(n, B)),
-                out.data_ptr(), B)
+                out.data_ptr(), B, extra=(prog.data_ptr(), ctypes.addressof(meta)))
         miller_lanes.launches += 1
     return out
 
@@ -391,8 +444,10 @@ def miller_ft(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor):
     T = torch.empty((3, 2, L, B), dtype=torch.int32, device=xP.device)
     if B:
         bits = _bits_on(cfg, xP.device)
+        prog, meta = _miller_program(cfg, xP.device, B)
         _launch("mlt_pairing_miller_ft", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
-                Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), f.data_ptr(), T.data_ptr(), B)
+                Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), f.data_ptr(), T.data_ptr(), B,
+                extra=(prog.data_ptr(), ctypes.addressof(meta)))
         miller_ft.launches += 1
     return f, T
 

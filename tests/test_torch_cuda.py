@@ -290,6 +290,40 @@ def test_pairing_kernels_equal_plain_versions(pair_ctx):
                                        "pairing_check": 0}
 
 
+def test_split_miller_kernels_equal_plain_versions(pair_ctx, monkeypatch):
+    """miller_lanes and miller_ft at every block the launcher picks for the
+    curve (forced through ``miller_shape``), on 1, 31, 32, 33, 2,047 and
+    4,097 lanes, with no real lane, a whole group of pad lanes and a ragged
+    pad, against one plain run on 4,097 lanes (lanes are independent; a pad
+    lane is the f12 one)."""
+    eng, be = pair_ctx
+    cfg = be.pair.cfg
+    shapes = sorted({pairing_cuda.miller_shape(cfg, n) for n in (4096, 2048, 1024)})
+    rng = np.random.default_rng(12)
+    g1s, g2s = _pairs(eng, 16, 13)
+    pick = rng.integers(0, 16, 4097)
+    xP, yP, Qx, Qy = be._pair_split_mont(
+        be._encode_pairs([g1s[i] for i in pick], [g2s[i] for i in pick]))
+    want = pairing_cuda.miller_lanes_plain(cfg, xP, yP, Qx, Qy, 4097)
+    want_f, want_T = pairing_cuda.miller_ft_plain(cfg, xP, yP, Qx, Qy)
+    one = cfg.tower.f12_one_like(1, xP.device).to(torch.int32)
+    pairing_cuda.reset_launches()
+    launches = 0
+    for n in (1, 31, 32, 33, 2047, 4097):
+        args = [t[..., :n].contiguous() for t in (xP, yP, Qx, Qy)]
+        for G, K in shapes:
+            monkeypatch.setattr(pairing_cuda, "miller_shape", lambda cfg, lanes: (G, K))
+            f, T = pairing_cuda.miller_ft(cfg, *args)
+            assert torch.equal(f, want_f[..., :n]) and torch.equal(T, want_T[..., :n])
+            for nvalid in sorted({0, max(0, n - G), max(0, n - 3), n}):
+                got = pairing_cuda.miller_lanes(cfg, *args, nvalid)
+                pad = torch.arange(n, device=xP.device) >= nvalid
+                assert torch.equal(got, torch.where(pad, one, want[..., :n]))
+                launches += 1
+            launches += 1
+    assert sum(pairing_cuda.launches().values()) == launches
+
+
 def test_product_check_on_the_card(pair_ctx):
     eng, be = pair_ctx
     g1s, g2s = _pairs(eng, 3, 8)
