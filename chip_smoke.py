@@ -49,14 +49,17 @@ The second main path, the pairing-product check a BLS verifier pays for
 The third main path, the pairings themselves (``BatchEngine.pairing_batch``),
 and the device final exponentiation of the reference's opt-in strategies:
 
-  8. the kernels of pairing_batch (miller_ft, add_step, f12_pow, final_exp,
-     fp_pow) against their plain PyTorch versions on the card, exact, on 64
-     lanes of BLS12-381, BN254 and BLS12-377 with full chains (f12_pow over
-     |x| on BLS12 curves and over the first hard-part digit on BN254, with
-     and without cyclotomic squaring, on a unitary base); then each at phase
-     9's shapes (BLS12-381 at 4,096 lanes: miller_ft, final_exp; BN254 at
-     1,024: add_step, the four digit chains of f12_pow, fp_pow), checked
-     against the plain version and timed beside it;
+  8. the split final-exp kernels' ptxas lines (no stack and no spill
+     allowed); the kernels of pairing_batch (miller_ft, add_step, f12_pow,
+     final_exp, fp_pow) against their plain PyTorch versions on the card,
+     exact, on 64 lanes of BLS12-381, BN254 and BLS12-377 with full chains
+     (f12_pow over |x| on BLS12 curves and over the first hard-part digit on
+     BN254, with and without cyclotomic squaring, on a unitary base); then
+     each at phase 9's shapes (BLS12-381 at 4,096 lanes: miller_ft,
+     final_exp; BN254 at 1,024: add_step, the four digit chains of f12_pow,
+     fp_pow), checked against the plain version and timed beside it; and
+     final_exp at the strategies' 1,024 and 1 lanes (other blocks), against
+     the plain version's first lanes;
   9. pairing_batch at full width: 4,096 BLS12-381 pairs (a g1, b g2), the
      last 16 of them 8 bilinearity pairs (a g1, g2) beside (g1, a g2), and
      1,024 BN254 pairs; 8 sampled lanes of each must equal the host engine's
@@ -190,10 +193,12 @@ for two checkouts in turns to compare them on one card.
     python3 chip_smoke.py --time-pairing REPO
 
 times, with the checkout at REPO, miller_lanes and miller_ft at 4,096 and
-2,048 BLS12-381 lanes and 1,024 BN254 lanes beside their bounds (and prints
-its Miller kernels' ptxas lines), one 4,096-pair product check (pairs/s and
-device ms), the 1,024 grouped checks under ``MATHLIB_GROUP_FEXP=device``, and
-one BLS12-381 ``pairing_batch`` at 4,096 pairs.
+2,048 BLS12-381 lanes and 1,024 BN254 lanes, final_exp at 4,096 and 1,024
+BLS12-381 lanes and BN254's four f12_pow chains at 1,024 lanes, beside their
+bounds (and prints those kernels' ptxas lines), one 4,096-pair product check
+(pairs/s and device ms), the 1,024 grouped checks under
+``MATHLIB_GROUP_FEXP=device``, and ``pairing_batch`` at 4,096 BLS12-381 and
+1,024 BN254 pairs.
 """
 
 from __future__ import annotations
@@ -225,6 +230,7 @@ G1_SPLIT_SRC = "mathlib_tpu_torch/csrc/g1_split_kernels.cu"
 G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
 G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
 MILLER_SRC = "mathlib_tpu_torch/csrc/miller_split_kernels.cu"
+FEXP_SRC = "mathlib_tpu_torch/csrc/fexp_split_kernels.cu"
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "add": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
     "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
@@ -241,10 +247,8 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "miller_ft": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:788"),
     "add_step": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                  "mathlib_tpu/ops/kernels/pairing_pallas.py:807"),
-    "f12_pow": ("mathlib_tpu_torch/csrc/fexp_kernels.cu",
-                "mathlib_tpu/ops/kernels/pairing_pallas.py:828"),
-    "final_exp": ("mathlib_tpu_torch/csrc/fexp_kernels.cu",
-                  "mathlib_tpu/ops/kernels/pairing_pallas.py:914"),
+    "f12_pow": (FEXP_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:828"),
+    "final_exp": (FEXP_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:914"),
     "fp_pow": ("mathlib_tpu_torch/csrc/fp_kernels.cu",
                "mathlib_tpu/ops/kernels/pairing_pallas.py:1291"),
     "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
@@ -471,6 +475,19 @@ def split_ptxas(path: str) -> list:
 def miller_ptxas(path: str) -> list:
     """The build log's ptxas lines of the Miller kernels."""
     return [e for e in ptxas_entries(path) if e.startswith("miller_")]
+
+
+def fexp_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the f12_pow and final_exp kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith(("f12_pow", "final_exp"))]
+
+
+def fexp_design(build) -> str:
+    """"split" for a checkout with the split final-exp kernels (one lane's
+    chain over the workers of a block, csrc/fexp_split_kernels.cu), else
+    "one-thread"."""
+    return ("split" if os.path.exists(os.path.join(build.CSRC, "fexp_split_kernels.cu"))
+            else "one-thread")
 
 
 def miller_design(build) -> str:
@@ -763,6 +780,22 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
     return launches, checks
 
 
+def hard_digits(spec) -> list:
+    """The base-p digits of a BN curve's hard-part exponent, lowest first:
+    one f12_pow chain each in ``TowerCtx.f12_final_exp``."""
+    e, out = spec.hard_part_exp, []
+    while e:
+        out.append(e % spec.p)
+        e //= spec.p
+    return out
+
+
+def unitary(tw, f):
+    """The easy part of the final exp on the tower ops: a unitary base."""
+    t = tw.f12_mul(tw.f12_conj(f), tw.f12_inv(f))
+    return tw.f12_mul(tw.f12_frob(t, 2), t).contiguous()
+
+
 def best_of_3(run, want=None):
     """One warm-up and 3 host-clock runs of run(), each ending in a
     synchronise; returns (output, seconds); the outputs must agree (and equal
@@ -809,21 +842,16 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
     def check(name, got, want):
         check_equal(results, name, got, want)
 
-    def hard_digits(spec):
-        e, out = spec.hard_part_exp, []
-        while e:
-            out.append(e % spec.p)
-            e //= spec.p
-        return out
-
-    def unitary(tw, f):
-        """The easy part of the final exp on the tower ops: a unitary base."""
-        t = tw.f12_mul(tw.f12_conj(f), tw.f12_inv(f))
-        return tw.f12_mul(tw.f12_frob(t, 2), t).contiguous()
-
-    # ---- 8. each kernel of pairing_batch against its plain version (exact),
-    # 64 lanes, full chains, on three curves (final_exp on BN254 too, over its
+    # ---- 8. the split final-exp kernels' ptxas lines (no stack, no spill),
+    # then each kernel of pairing_batch against its plain version (exact), 64
+    # lanes, full chains, on three curves (final_exp on BN254 too, over its
     # own x: the kernel takes any chain)
+    from mathlib_tpu_torch.ops.kernels import build
+
+    for entry in fexp_ptxas(build.BUILD_LOG):
+        log("ptxas_fexp", entry=repr(entry))
+        if not entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            raise AssertionError(f"split final-exp kernel with a stack or a spill: {entry}")
     for curve in ("BLS12_381", "BN254", "BLS12_377"):
         spec = get_spec(curve)
         eng, be = get_engine(spec), BatchEngine(spec, dev)
@@ -846,7 +874,8 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
         check("final_exp", pc.final_exp(kcfg, f, inv, xb, spec.x < 0),
               pc.final_exp_plain(kcfg, f, inv, xb, spec.x < 0))
         log("fexp_kernels_vs_plain", curve=curve, L=be.fp.L, lanes=N_LANES_CHECK,
-            inv_bits=len(inv), x_bits=len(xb), pow_bits=len(pow_bits), equal=True)
+            inv_bits=len(inv), x_bits=len(xb), pow_bits=len(pow_bits), equal=True,
+            blocks={k: pc.fexp_shape(kcfg, k, N_LANES_CHECK) for k in ("final_exp", "f12_pow")})
 
     # the same kernels at phase 9's shapes, timed beside their plain versions:
     # BLS12-381 at 4,096 lanes (miller_ft, final_exp), BN254 at 1,024 (add_step,
@@ -909,13 +938,30 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
         ms, got = cuda_ms(kern, reps=3)
         plain_ms, want = cuda_ms(plain, reps=1)
         check(name, got, want)
+        if name == "final_exp":
+            fexp_want = want
         del got, want
         b = bound(nbytes, wide_mads(fp_muls, limbs))
         results[name].update(ms=ms, plain_ms=plain_ms, **b)
+        block = {"final_exp": lambda: pc.fexp_shape(k_bls, name, N_BATCH),
+                 "f12_pow": lambda: pc.fexp_shape(k_bn, name, N_BATCH_BN)}.get(name)
         log("time", kernel=name, shape=repr(what), equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
-            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], fp_muls=fp_muls)
-    del f_bls, f_bn, T_bn, u_bn, args_bls, args_bn
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], fp_muls=fp_muls,
+            **({"block": block()} if block else {}))
+    # final_exp at the strategies' lane counts, which take other blocks (1,024
+    # under GROUP_FEXP=device, 1 under split): the first lanes of the 4,096,
+    # against the plain version's (lanes are independent)
+    for lanes in (N_CHECKS, 1):
+        f_l = f_bls[..., :lanes].contiguous()
+        ms, got = cuda_ms(lambda: pc.final_exp(k_bls, f_l), reps=3)
+        check("final_exp", got, fexp_want[..., :lanes])
+        b = bound(2 * 12 * Lx * row * lanes, wide_mads(
+            lanes * final_exp_mults(k_bls.tower.n, bls.twist, k_bls.inv_bits, k_bls.x_bits), Lx))
+        log("time", kernel="final_exp", shape=repr(f"{lanes} lanes"), equal=True,
+            block=pc.fexp_shape(k_bls, "final_exp", lanes), ms=f"{ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+    del f_bls, f_bn, T_bn, u_bn, args_bls, args_bn, fexp_want, got, f_l
 
     # ---- 9. pairing_batch at full width through BatchEngine, then the two
     # opt-in device final-exp strategies beside their defaults
@@ -2112,6 +2158,39 @@ def time_miller_instructions(repo: str, base_cfg) -> None:
             cycles_each=f"{ms * 1e-3 / iters / count * 1.98e9:.1f}")
 
 
+def time_fexp_programs(repo: str, engines: dict) -> None:
+    """What the split final-exp kernels' steps cost: f12_pow over 128 zero
+    bits (128 squarings) and 128 one bits (128 squarings and multiplies), and
+    final_exp with one-bit x-chains, with and without the inverse's 380-odd
+    bits (one bit instead), at 4,096 and 1,024 BLS12-381 lanes and 1,024
+    BN254 lanes (the blocks the launcher picks there); a ``[fexp_ins]``
+    line each, ms and cycles at the 1.98 GHz boost clock."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch.ops.kernels import pairing_cuda as pc
+
+    one = np.ones(1, np.uint8)
+    gen = np.random.default_rng(8)
+    for curve, lanes in (("BLS12_381", N_PAIRS), ("BLS12_381", N_CHECKS), ("BN254", N_BATCH_BN)):
+        kcfg = engines[curve][1].tw.kcfg
+        L = kcfg.fp.L
+        vals = np.array([[int.from_bytes(gen.bytes(48), "big") % kcfg.fp.p for _ in range(lanes)]
+                         for _ in range(12)], dtype=object)  # random f12 values
+        f = kcfg.fp.encode(vals).reshape(2, 3, 2, L, lanes).to("cuda", torch.int32).contiguous()
+        cases = [("sqr", lambda: pc.f12_pow(kcfg, f, np.zeros(128, np.uint8), True), 128),
+                 ("sqrmul", lambda: pc.f12_pow(kcfg, f, np.ones(128, np.uint8), True), 128)]
+        if curve == "BLS12_381":
+            cases += [("fexp_fixed", lambda: pc.final_exp(kcfg, f, kcfg.inv_bits, one, False), 1),
+                      ("fexp_fixed_no_inverse", lambda: pc.final_exp(kcfg, f, one, one, False),
+                       1)]
+        for name, run, count in cases:
+            ms, _ = cuda_ms(run, reps=5)
+            log("fexp_ins", repo=repr(repo), curve=curve, lanes=lanes,
+                block=pc.fexp_shape(kcfg, "final_exp" if name.startswith("fexp") else "f12_pow",
+                                    lanes), case=name, ms_each=f"{ms / count:.5f}",
+                cycles_each=f"{ms * 1e-3 / count * 1.98e9:.0f}")
+
+
 # --time-pairing: (curve, lanes) of the Miller kernels' timings: the product
 # check and pairing_batch at BLS12-381, the grouped checks, BN254 pairing_batch
 TIME_PAIRING_SHAPES = (("BLS12_381", N_PAIRS), ("BLS12_381", 2 * N_CHECKS),
@@ -2122,14 +2201,16 @@ def time_pairing(repo: str) -> int:
     """The pairing paths alone, with the ``mathlib_tpu_torch`` of the
     checkout at ``repo`` (built there at first use): its miller_lanes and
     miller_ft at TIME_PAIRING_SHAPES (CUDA events, mean of 5 after a
-    warm-up) beside their bounds, with its Miller kernels' ptxas lines; one
+    warm-up) beside their bounds, with its Miller kernels' ptxas lines; its
+    final_exp at 4,096 and 1,024 BLS12-381 lanes and BN254's four f12_pow
+    digit chains at 1,024 lanes the same way, with their ptxas lines; one
     4,096-pair ``pairing_product_is_one`` (best of 5 host-clock runs, the
     device ms of its Montgomery entry and Miller product by CUDA events,
     pairs/s); the 1,024 grouped two-pair checks under
-    ``MATHLIB_GROUP_FEXP=device`` (best of 5); and one BLS12-381
-    ``pairing_batch`` at 4,096 pairs (best of 3).  A ``[time_pairing]``
-    line each (and ``[miller_ins]`` lines for a checkout with the split
-    kernels).  Run it for two checkouts in turns (A, B, B, A) in one call
+    ``MATHLIB_GROUP_FEXP=device`` (best of 5); and ``pairing_batch`` at
+    4,096 BLS12-381 and 1,024 BN254 pairs (best of 3 each).  A
+    ``[time_pairing]`` line each (and ``[miller_ins]`` lines for a checkout
+    with the split Miller kernels).  Run it for two checkouts in turns (A, B, B, A) in one call
     to compare them on one card."""
     import numpy as np
     import torch
@@ -2147,10 +2228,14 @@ def time_pairing(repo: str) -> int:
 
     if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
         raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    from mathlib_tpu_torch.ops.kernels.tower_rows import f12_pow_mults, final_exp_mults
+
     build.load()
-    design, smi = miller_design(build), smi_line()
+    design, fdesign, smi = miller_design(build), fexp_design(build), smi_line()
     for entry in miller_ptxas(build.BUILD_LOG):
         log("ptxas_miller", repo=repr(repo), entry=repr(entry))
+    for entry in fexp_ptxas(build.BUILD_LOG):
+        log("ptxas_fexp", repo=repr(repo), entry=repr(entry))
     rng = np.random.default_rng(7)
     engines = {}
 
@@ -2176,9 +2261,35 @@ def time_pairing(repo: str) -> int:
             log("time_pairing", repo=repr(repo), design=design, kernel=name, curve=curve,
                 lanes=lanes, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
                 over_bound=f"{ms / b['bound_ms']:.2f}x", card=repr(smi))
+        # the final-exp kernels on these Miller values: final_exp at 4,096 and
+        # 1,024 BLS12-381 lanes (pairing_batch, GROUP_FEXP=device), BN254's
+        # four digit chains of f12_pow at 1,024 (pairing_batch)
+        kcfg = be.tw.kcfg
+        tw = kcfg.tower
+        f = pc.miller_ft(cfg, xP, yP, Qx, Qy)[0]
+        if curve == "BN254":
+            u = unitary(be.tw, f)
+            digits = [pc.msb_bits(d) for d in hard_digits(be.spec)]
+            runs = [("f12_pow", lanes, lambda: [pc.f12_pow(kcfg, u, d, True) for d in digits],
+                     len(digits), sum(f12_pow_mults(tw.n, tw.twist, d, True) for d in digits))]
+        elif lanes == N_PAIRS:
+            per = final_exp_mults(tw.n, tw.twist, kcfg.inv_bits, kcfg.x_bits)
+            f_c = f[..., :N_CHECKS].contiguous()
+            runs = [("final_exp", n, lambda a=a: pc.final_exp(kcfg, a), 1, per)
+                    for n, a in ((lanes, f), (N_CHECKS, f_c))]
+        else:
+            runs = []
+        for name, n, run, calls, per in runs:
+            ms, _ = cuda_ms(run, reps=5)
+            b = bound(calls * 2 * 12 * L * 4 * n, wide_mads(n * per, L))
+            log("time_pairing", repo=repr(repo), design=fdesign, kernel=name, curve=curve,
+                lanes=n, launches=calls, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+                over_bound=f"{ms / b['bound_ms']:.2f}x", card=repr(smi))
 
     if design == "split":
         time_miller_instructions(repo, engines["BLS12_381"][1].pair.cfg)
+    if fdesign == "split":
+        time_fexp_programs(repo, engines)
 
     # the product check (a): 2,048 pairs (a g1, b g2), each beside (-ab g1, g2)
     eng, be = engines["BLS12_381"]
@@ -2242,8 +2353,8 @@ def time_pairing(repo: str) -> int:
             os.environ.pop("MATHLIB_GROUP_FEXP")
         else:
             os.environ["MATHLIB_GROUP_FEXP"] = prev
-    log("time_pairing", repo=repr(repo), design=design, call="pairing_products_are_one",
-        group_fexp="device", checks=N_CHECKS, seconds=[round(x, 4) for x in walls],
+    log("time_pairing", repo=repr(repo), design=design, fexp_design=fdesign,
+        call="pairing_products_are_one", group_fexp="device", checks=N_CHECKS, seconds=[round(x, 4) for x in walls],
         checks_per_s=f"{N_CHECKS / min(walls):.1f}")
 
     # pairing_batch at 4,096 BLS12-381 pairs, 8 lanes held to the host engine
@@ -2252,9 +2363,21 @@ def time_pairing(repo: str) -> int:
     for i in range(N_SAMPLED):
         if out[i] != eng.pairing(g1s[i], g2s[i]):
             raise AssertionError("time_pairing: pairing_batch differs from the host pairing")
-    log("time_pairing", repo=repr(repo), design=design, call="pairing_batch", curve="BLS12_381",
-        pairs=N_BATCH, seconds=[round(x, 4) for x in secs],
+    log("time_pairing", repo=repr(repo), design=design, fexp_design=fdesign,
+        call="pairing_batch", curve="BLS12_381", pairs=N_BATCH, seconds=[round(x, 4) for x in secs],
         pairings_per_s=f"{N_BATCH / min(secs):.1f}")
+
+    # pairing_batch at 1,024 BN254 pairs (its four f12_pow chains), 8 lanes
+    # held to the host engine
+    eng, be = engines["BN254"]
+    g1s, g2s = pairs("BN254", N_BATCH_BN)
+    out, secs = best_of_3(lambda: be.pairing_batch(g1s, g2s))
+    for i in range(N_SAMPLED):
+        if out[i] != eng.pairing(g1s[i], g2s[i]):
+            raise AssertionError("time_pairing: BN254 pairing_batch differs from the host pairing")
+    log("time_pairing", repo=repr(repo), design=design, fexp_design=fdesign,
+        call="pairing_batch", curve="BN254", pairs=N_BATCH_BN,
+        seconds=[round(x, 4) for x in secs], pairings_per_s=f"{N_BATCH_BN / min(secs):.1f}")
     return 0
 
 

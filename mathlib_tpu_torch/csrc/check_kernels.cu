@@ -37,7 +37,7 @@
 //
 // Bound on this card: integer multiplies.  A BLS12-381 lane runs 7,786 field
 // muls in its Miller loop, the tree 54 per lane, the final exp ~10,000 once
-// (fexp_kernels.cu), each of 588 32-bit multiply-adds (fp_rows.cuh); bytes
+// (fexp_rows.cuh), each of 588 32-bit multiply-adds (fp_rows.cuh); bytes
 // are 288 a lane in, 580 out.  The final exp is one serial chain on one
 // thread after every Miller loop has ended: at 4,096 lanes the kernel runs
 // about one Miller lane's latency plus one final exp's.

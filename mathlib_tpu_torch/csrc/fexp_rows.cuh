@@ -1,8 +1,10 @@
-// The BLS12 final exponentiation of one lane, and the unity test, shared by
-// fexp_kernels.cu (final_exp_kernel, f12_pow_kernel) and check_kernels.cu
-// (pairing_check_kernel): port of _final_exp_body and _is_one_flag of
-// mathlib_tpu/ops/kernels/pairing_pallas.py.  One thread runs one lane's
-// chain with its f12 values on the thread's stack.
+// The BLS12 final exponentiation of one lane, and the unity test, for the
+// one-launch check (check_kernels.cu pairing_check_kernel): port of
+// _final_exp_body and _is_one_flag of mathlib_tpu/ops/kernels/pairing_pallas.py.
+// One thread runs one lane's chain with its f12 values on the thread's
+// stack.  The split final-exp kernels (fexp_split_kernels.cu) run the same
+// chains over a block's workers, as programs traced from these functions'
+// tower_rows.cuh calls (ops/kernels/fexp_prog.py).
 #pragma once
 
 #include <cstdint>

@@ -57,161 +57,33 @@
 // a block (BLS12-377 at G = 32: 169 slots), the launcher takes the next
 // smaller group (180 slots at G = 16, 146 KB).
 //
+// The interpreter (SlotMem, run_phases, the launch shape) is
+// prog_interp.cuh, shared with the final-exp kernels (fexp_split_kernels.cu).
 // A thread holds acc and one operand in registers: no call, no stack, no
-// spill (ptxas' report is on chip_smoke.py's build lines).  The product is
-// fp_mul_ptx, the adds and subs fp_add_cc and fp_sub_cc (PTX carry chains).
-// What holds the kernels above their bound is the interpreter's latency: a
-// worker's instruction costs ~260 cycles before its work (fetch, decode,
-// dispatch), an add ~400, a product ~2,800 alone, on an NVIDIA H100 80GB
-// HBM3 at 700 W (chip_smoke.py --time-pairing's [miller_ins] lines,
-// PERF.md), and each phase ends at a barrier.
+// spill (ptxas' report is on chip_smoke.py's build lines).  What holds the
+// kernels above their bound is the interpreter's latency (prog_interp.cuh
+// has its costs), and each phase ends at a barrier.
 //
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return cudaGetLastError() (or -1 for an unsupported L,
-// group size or block).  The program (an int32 device array from
-// miller_prog.pack: a phase table of K + 1 code offsets a phase, then the
-// code) and its host meta (G, K, slots, words a slot, then the phase ranges
-// [begin, end) of the doubling, doubling-and-addition and tail programs)
-// come after the one-thread launchers' arguments.
+// group size or block).  The program and its host meta (G, K, slots, words
+// a slot, then the phase ranges [begin, end) of the doubling,
+// doubling-and-addition and tail programs) come after the one-thread
+// launchers' arguments.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fp_rows.cuh"
 #include "lanes.cuh"
+#include "prog_interp.cuh"
 
 namespace mlt {
-
-// instruction words (miller_prog.py): bits 0-3 op, bit 4 load acc from slot
-// x, bit 5 store acc to slot d after the op, x bits 8-15, y 16-23, d 24-31
-enum MillerOp { kAdd, kSub, kMul, kDbl, kNeg, kNop };
-constexpr uint32_t kLoad = 16, kStore = 32;
 
 // fixed slots (miller_prog.py): f 0-11, T 12-17, xP 18, yP 19, Qx 20-21,
 // Qy 22-23, tail constants 24-31
 constexpr int kSlotT = 12, kSlotXP = 18, kSlotYP = 19, kSlotQx = 20, kSlotQy = 22;
 constexpr int kSlotTail = 24, kStateSlots = 32;
-constexpr int kMillerMaxThreads = 1024;
-
-struct MillerMeta {
-  int group, workers, slots, stride;  // stride: words a slot, NW x G or more
-  int range[3][2];  // doubling, doubling and addition, tail
-};
-
-template <int NW, int G>
-struct SlotMem {
-  uint32_t* base;  // this thread's lane of slot 0
-  int stride;
-
-  __device__ __forceinline__ void get(uint32_t* v, int s) const {
-    const uint32_t* p = base + s * stride;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) v[j] = p[j * G];
-  }
-  __device__ __forceinline__ void put(int s, const uint32_t* v) const {
-    uint32_t* p = base + s * stride;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) p[j * G] = v[j];
-  }
-};
-
-// One instruction of a PTX carry chain each (fp_rows.cuh has the adds with
-// carry in and the multiply-adds): the flag passes from one asm statement to
-// the next, the chains below are unrolled over registers.
-__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-// fp_add (fp_rows.cuh) on carry chains: a + b, minus 2p when that is >= 2p.
-// r may alias a or b.
-template <int NW>
-__device__ __forceinline__ void fp_add_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                                          const FieldConsts& k) {
-  uint32_t s[NW], d[NW];
-  s[0] = add_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) s[j] = addc_cc(a[j], b[j]);  // a + b < 4p <= R: no carry out
-  d[0] = sub_cc(s[0], k.p2[0]);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) d[j] = subc_cc(s[j], k.p2[j]);
-  const uint32_t below = subc(0, 0);  // all ones when s < 2p
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = (s[j] & below) | (d[j] & ~below);
-}
-
-// fp_sub (fp_rows.cuh) on carry chains: a - b, plus 2p when that is
-// negative.  r may alias a or b.
-template <int NW>
-__device__ __forceinline__ void fp_sub_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                                          const FieldConsts& k) {
-  uint32_t d[NW];
-  d[0] = sub_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) d[j] = subc_cc(a[j], b[j]);
-  const uint32_t neg = subc(0, 0);  // all ones when a < b
-  r[0] = add_cc(d[0], k.p2[0] & neg);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) r[j] = addc_cc(d[j], k.p2[j] & neg);
-}
-
-// phases [p0, p1) of the program: this worker's instructions, then a barrier
-template <int NW, int G>
-__device__ __forceinline__ void run_phases(const int32_t* __restrict__ prog, int p0, int p1,
-                                           int K, int wk, const SlotMem<NW, G>& S,
-                                           uint32_t* acc, const FieldConsts& k) {
-  for (int p = p0; p < p1; ++p) {
-    const int beg = __ldg(prog + p * (K + 1) + wk), end = __ldg(prog + p * (K + 1) + wk + 1);
-    uint32_t next = beg < end ? (uint32_t)__ldg(prog + beg) : 0u;
-    for (int pc = beg; pc < end; ++pc) {
-      const uint32_t ins = next;  // the next word loads while this one runs
-      if (pc + 1 < end) next = (uint32_t)__ldg(prog + pc + 1);
-      const int op = ins & 15;
-      uint32_t v[NW];
-      if (ins & kLoad) S.get(acc, (ins >> 8) & 255);
-      if (op <= kMul) S.get(v, (ins >> 16) & 255);  // both loads in flight together
-      switch (op) {
-        case kAdd:
-          fp_add_cc<NW>(acc, acc, v, k);
-          break;
-        case kSub:
-          fp_sub_cc<NW>(acc, acc, v, k);
-          break;
-        case kMul:
-          fp_mul_ptx<NW>(acc, acc, v, k);
-          break;
-        case kDbl:
-          fp_add_cc<NW>(acc, acc, acc, k);
-          break;
-        case kNeg:
-#pragma unroll
-          for (int j = 0; j < NW; ++j) v[j] = 0;
-          fp_sub_cc<NW>(acc, v, acc, k);
-          break;
-        default:  // kNop
-          break;
-      }
-      if (ins & kStore) S.put(ins >> 24, acc);
-    }
-    __syncthreads();
-  }
-}
 
 // Lane i's Miller loop over the block's G lanes: state into shared memory,
 // one program a loop bit (and the tail program when LANES), then f (and T
@@ -223,7 +95,7 @@ __device__ __forceinline__ void miller_split(
     const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
     const uint8_t* __restrict__ bits, int nbits, int nvalid, uint32_t* __restrict__ f_out,
     uint32_t* __restrict__ t_out, int lanes, const FieldConsts& k, const TowerConsts& tc,
-    const int32_t* __restrict__ prog, const MillerMeta& m) {
+    const int32_t* __restrict__ prog, const ProgMeta& m) {
   extern __shared__ uint32_t smem[];
   const int t = threadIdx.x % G, wk = threadIdx.x / G, K = m.workers;
   const int64_t i = (int64_t)blockIdx.x * G + t;
@@ -272,79 +144,31 @@ __device__ __forceinline__ void miller_split(
 }
 
 template <int NW, int G>
-__global__ void __launch_bounds__(kMillerMaxThreads)
+__global__ void __launch_bounds__(kProgMaxThreads)
     miller_lanes_split_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
                               const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
                               const uint8_t* __restrict__ bits, int nbits, int nvalid,
                               uint32_t* __restrict__ out, int lanes, FieldConsts k,
-                              TowerConsts tc, const int32_t* __restrict__ prog, MillerMeta m) {
+                              TowerConsts tc, const int32_t* __restrict__ prog, ProgMeta m) {
   miller_split<NW, G, true>(xp, yp, qx, qy, bits, nbits, nvalid, out, nullptr, lanes, k, tc,
                             prog, m);
 }
 
 template <int NW, int G>
-__global__ void __launch_bounds__(kMillerMaxThreads)
+__global__ void __launch_bounds__(kProgMaxThreads)
     miller_ft_split_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
                            const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
                            const uint8_t* __restrict__ bits, int nbits,
                            uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int lanes,
                            FieldConsts k, TowerConsts tc, const int32_t* __restrict__ prog,
-                           MillerMeta m) {
+                           ProgMeta m) {
   miller_split<NW, G, false>(xp, yp, qx, qy, bits, nbits, lanes, f_out, t_out, lanes, k, tc,
                              prog, m);
-}
-
-inline MillerMeta miller_meta(const int32_t* meta) {
-  MillerMeta m;
-  m.group = meta[0];
-  m.workers = meta[1];
-  m.slots = meta[2];
-  m.stride = meta[3];
-  for (int r = 0; r < 3; ++r)
-    for (int e = 0; e < 2; ++e) m.range[r][e] = meta[4 + 2 * r + e];
-  return m;
-}
-
-// grid, block and dynamic shared memory of a launch; raises the kernel's
-// shared-memory cap when a program needs more than the 48 KB default
-template <int NW, int G, typename Kernel>
-inline bool miller_launch_shape(Kernel kernel, const MillerMeta& m, int lanes, dim3& grid,
-                                dim3& block, size_t& smem) {
-  if (m.workers < 1 || m.workers * G > kMillerMaxThreads || m.slots < kStateSlots ||
-      m.stride < NW * G)
-    return false;
-  grid = dim3((unsigned)((lanes + G - 1) / G));
-  block = dim3((unsigned)(m.workers * G));
-  smem = (size_t)m.slots * m.stride * sizeof(uint32_t);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem) == cudaSuccess;
 }
 
 }  // namespace mlt
 
 using namespace mlt;
-
-// L picks NW (MLT_PAIR_DISPATCH), the meta's group size picks G
-#define MLT_MILLER_GROUPS(G_, ...)     \
-  switch (G_) {                        \
-    case 32: {                         \
-      constexpr int G = 32;            \
-      __VA_ARGS__;                     \
-      break;                           \
-    }                                  \
-    case 16: {                         \
-      constexpr int G = 16;            \
-      __VA_ARGS__;                     \
-      break;                           \
-    }                                  \
-    case 8: {                          \
-      constexpr int G = 8;             \
-      __VA_ARGS__;                     \
-      break;                           \
-    }                                  \
-    default:                           \
-      return -1;                       \
-  }
 
 extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
                                         const uint32_t* qx, const uint32_t* qy,
@@ -353,12 +177,12 @@ extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
                                         const int32_t* tower_ints, const uint32_t* tail,
                                         const int32_t* prog, const int32_t* meta,
                                         cudaStream_t stream) {
-  const MillerMeta m = miller_meta(meta);
-  MLT_PAIR_DISPATCH(L, MLT_MILLER_GROUPS(m.group, {
+  const ProgMeta m = prog_meta(meta, 3);
+  MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
     size_t smem;
-    if (!miller_launch_shape<NW, G>(miller_lanes_split_kernel<NW, G>, m, lanes, grid, block,
-                                    smem))
+    if (!prog_launch_shape<NW, G>(miller_lanes_split_kernel<NW, G>, m, kStateSlots, lanes,
+                                  grid, block, smem))
       return -1;
     miller_lanes_split_kernel<NW, G><<<grid, block, smem, stream>>>(
         xp, yp, qx, qy, bits, nbits, nvalid, out, lanes, make_consts(consts, NW),
@@ -372,11 +196,12 @@ extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, con
                                      const uint32_t* consts, const int32_t* tower_ints,
                                      const uint32_t* tail, const int32_t* prog,
                                      const int32_t* meta, cudaStream_t stream) {
-  const MillerMeta m = miller_meta(meta);
-  MLT_PAIR_DISPATCH(L, MLT_MILLER_GROUPS(m.group, {
+  const ProgMeta m = prog_meta(meta, 3);
+  MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
     size_t smem;
-    if (!miller_launch_shape<NW, G>(miller_ft_split_kernel<NW, G>, m, lanes, grid, block, smem))
+    if (!prog_launch_shape<NW, G>(miller_ft_split_kernel<NW, G>, m, kStateSlots, lanes, grid,
+                                  block, smem))
       return -1;
     miller_ft_split_kernel<NW, G><<<grid, block, smem, stream>>>(
         xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes, make_consts(consts, NW),

@@ -1,7 +1,7 @@
 // Pairing kernels for Hopper (sm_90a): port of the product and Miller step
 // kernels of mathlib_tpu/ops/kernels/pairing_pallas.py (the Miller loops are
 // in miller_split_kernels.cu, the pow and final-exponentiation kernels in
-// fexp_kernels.cu).
+// fexp_split_kernels.cu).
 //
 //   f12_pair_mul_kernel  <- _product_all_positions (:971), the rotation
 //                           all-reduce of _pairing_prod_kernel (:1188) and

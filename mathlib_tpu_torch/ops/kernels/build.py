@@ -87,11 +87,12 @@ SIGNATURES = {
     # f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
     # tail words, stream
     "mlt_pairing_add_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # base, bits, nbits, cyclo, out, lanes, L, consts, tower ints, tail words, stream
-    "mlt_f12_pow": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
-    # f in, inverse bits, n, x bits, n, x < 0, gammas, out, lanes, L, consts,
-    # tower ints, tail words, stream
-    "mlt_final_exp": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # (csrc/fexp_split_kernels.cu) base, script, steps, out, lanes, L, consts,
+    # program, program meta, stream
+    "mlt_f12_pow": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    # f in, script, steps, inverse bits, n, gammas, out, lanes, L, consts,
+    # program, program meta, stream
+    "mlt_final_exp": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
     # (csrc/gather_kernels.cu) table, idx, idx is int64, out, M, Wr, stream
     "mlt_gather_rows": [_P, _P, _I, _P, _Q, _I, _P],
     "mlt_gather_rows_t": [_P, _P, _I, _P, _Q, _I, _P],

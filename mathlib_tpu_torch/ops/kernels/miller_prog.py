@@ -183,9 +183,12 @@ class Tower:
         c1 = self.f2_sub(self.f2_sub(x, a0b0), a1b1)
         return (c0, c1, self.f2_add(a1b1, a2b0))
 
+    def f6_neg(self, a):
+        return tuple(self.f2_neg(x) for x in a)
+
     # f12
     def f12_conj(self, f):
-        return (f[0], tuple(self.f2_neg(c) for c in f[1]))
+        return (f[0], self.f6_neg(f[1]))
 
     def f12_sqr(self, f):
         t = self.f6_mul(f[0], f[1])
@@ -193,6 +196,65 @@ class Tower:
         u = self.f6_add(f[0], self.f6_mul_v(f[1]))
         m1 = self.f6_sub(self.f6_mul(s, u), t)
         return (self.f6_sub(m1, self.f6_mul_v(t)), self.f6_add(t, t))
+
+    def f12_mul(self, f, h):
+        t0, t1 = self.f6_mul(f[0], h[0]), self.f6_mul(f[1], h[1])
+        ts = self.f6_mul(self.f6_add(f[0], f[1]), self.f6_add(h[0], h[1]))
+        return (self.f6_add(t0, self.f6_mul_v(t1)), self.f6_sub(self.f6_sub(ts, t0), t1))
+
+    def fp4_sqr(self, x, y):
+        x2, y2 = self.f2_sqr(x), self.f2_sqr(y)
+        s = self.f2_sqr(self.f2_add(x, y))
+        return (self.f2_add(x2, self.f2_mul_xi(y2)), self.f2_sub(self.f2_sub(s, x2), y2))
+
+    def gs_combine(self, t, z, sign):
+        d = self.f2_sub(t, z) if sign < 0 else self.f2_add(t, z)
+        return self.f2_add(self.f2_add(d, d), t)
+
+    def f12_cyclo_sqr(self, f):
+        (a0, a1, a2), (b0, b1, b2) = f
+        t00, t01 = self.fp4_sqr(a0, b1)
+        t10, t11 = self.fp4_sqr(b0, a2)
+        t20, t21 = self.fp4_sqr(a1, b2)
+        xt = self.f2_mul_xi(t21)
+        gs = self.gs_combine
+        return ((gs(t00, a0, -1), gs(t10, a1, -1), gs(t20, a2, -1)),
+                (gs(xt, b0, 1), gs(t01, b1, 1), gs(t11, b2, 1)))
+
+    def f12_frob(self, f, gam, n):
+        """f^(p^n): conjugate each coefficient when n is odd, then scale
+        coefficient (h, j) by the f2 ``gam[h][j]``."""
+        g = self.g
+        return tuple(tuple(self.f2_mul((c[0], g.neg(c[1])) if n & 1 else c, gam[h][j])
+                           for j, c in enumerate(f[h])) for h in range(2))
+
+    # the inverses, split around the base-field inverse: *_norm gives what
+    # the inverse one level down takes, *_finish the inverse from it
+    def f2_inv_norm(self, a):  # a0^2 + n a1^2
+        g = self.g
+        return g.add(g.mul(a[0], a[0]), self.small(g.mul(a[1], a[1]), self.n))
+
+    def f2_inv_finish(self, a, ninv):
+        g = self.g
+        return (g.mul(a[0], ninv), g.neg(g.mul(a[1], ninv)))
+
+    def f6_inv_norm(self, a):
+        """(c, norm): the cofactors c and the f2 norm a0 c0 + xi (a2 c1 + a1 c2)."""
+        a0, a1, a2 = a
+        c0 = self.f2_sub(self.f2_sqr(a0), self.f2_mul_xi(self.f2_mul(a1, a2)))
+        c1 = self.f2_sub(self.f2_mul_xi(self.f2_sqr(a2)), self.f2_mul(a0, a1))
+        c2 = self.f2_sub(self.f2_sqr(a1), self.f2_mul(a0, a2))
+        t = self.f2_mul_xi(self.f2_add(self.f2_mul(a2, c1), self.f2_mul(a1, c2)))
+        return (c0, c1, c2), self.f2_add(self.f2_mul(a0, c0), t)
+
+    def f6_inv_finish(self, c, inv2):
+        return tuple(self.f2_mul(x, inv2) for x in c)
+
+    def f12_inv_norm(self, f):  # a0^2 - v a1^2
+        return self.f6_sub(self.f6_mul(f[0], f[0]), self.f6_mul_v(self.f6_mul(f[1], f[1])))
+
+    def f12_inv_finish(self, f, inv6):
+        return (self.f6_mul(f[0], inv6), self.f6_neg(self.f6_mul(f[1], inv6)))
 
     def f12_sparse_mul(self, f, line):
         a, dmb, negc = line
@@ -349,9 +411,28 @@ def fields(word: int):
 MUL_WEIGHT = 14  # a product against a linear instruction, for balancing
 
 
-def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
+MILLER_FREE = range(F_SLOT, T_SLOT + 6)  # f and T: written or dead by a program's end
+
+
+def schedule(g: Graph, outputs: Dict[int, int], K: int, n_state: int = N_STATE,
+             free=MILLER_FREE, cap: int = 0, alap: bool = False, recompute: int = 0) -> Program:
     """Phases for K workers of the graph's values that reach ``outputs``
-    ({state slot: node}), each value one task in a slot of its own."""
+    ({state slot: node}), each value one task in a slot of its own.  Slots
+    below ``n_state`` are the state; of them, those in ``free`` hold values
+    between their old value's last reader and their new value's write (for
+    good, when the program writes none), the others keep theirs.  An output
+    overwrites its old value in place from the phase that last reads it,
+    when only earlier code of its own worker reads it there; else it takes a
+    copy phase at the end.
+
+    Two options trade phases for slots: ``cap`` puts at most that many
+    products in a layer (by deadline), ``alap`` computes each linear value
+    in the last gap before its first reader, so that the operands of a
+    later layer do not hold slots through an earlier one.  ``recompute``
+    shortens the last gap: a linear task there whose operands were stored in
+    its sub-phase by other workers (or by a worker that would run it late)
+    computes up to that many of them again on a free worker, instead of
+    waiting for the next sub-phase."""
     nodes = g.nodes
 
     def kind(v):
@@ -396,32 +477,69 @@ def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
                 preds |= {a} if is_mul[a] else mul_preds[a]
         mul_preds[v] = preds
     layer: Dict[int, int] = {}
-    for lay in range(1, D + 1):  # must-run products first, then fill the round by deadline
-        ready = [v for v in muls if v not in layer
-                 and all(layer.get(p, D + 1) < lay for p in mul_preds[v])]
-        must = [v for v in ready if late[v] <= lay]
-        room = -(-len(must) // K) * K - len(must)
-        rest = sorted((v for v in ready if late[v] > lay), key=lambda v: (late[v], v))
-        for v in must + rest[:room]:
+    lay = 0
+    while len(layer) < len(muls):  # must-run products first, then fill the round by deadline
+        lay += 1
+        ready = sorted((v for v in muls if v not in layer
+                        and all(layer.get(p, lay) < lay for p in mul_preds[v])),
+                       key=lambda v: (late[v], v))
+        if cap:
+            pick = ready[:cap]
+        else:
+            must = [v for v in ready if late[v] <= lay]
+            pick = must + [v for v in ready if late[v] > lay][: -len(must) % K]
+        for v in pick:
             layer[v] = lay
-    assert len(layer) == len(muls), "a product found no layer"
+    assert lay <= D or cap, "a product found no layer"
+    D = lay
+    latest: Dict[int, int] = {}  # the last gap a linear value may take
+    for v in reversed(tasks):
+        if not is_mul[v]:
+            latest[v] = min([layer[u] - 1 if is_mul[u] else latest[u] for u in t_users[v]] + [D])
 
     # linear tasks: (gap after product layer, sub-phase, worker); a task that
     # reads a value stored in its own sub-phase runs after it on its worker
+    op_of = {v: nodes[v][0] for v in order}  # clones (recompute) join these
+    arg_of = {v: args(v) for v in order}
     place: Dict[int, Tuple[int, int, int]] = {}
     load: Dict[Tuple, List[int]] = {}
+    emit: List[int] = []  # the tasks in code order: clones before their reader
     for v in tasks:
         if is_mul[v]:
+            emit.append(v)
             continue
-        gap = max([layer[a] for a in ins[v] if a in layer]
-                  + [place[a][0] for a in ins[v] if a in place] + [0])
+        gap = latest[v] if alap else max([layer[a] for a in ins[v] if a in layer]
+                                         + [place[a][0] for a in ins[v] if a in place] + [0])
         deps = [place[a] for a in ins[v] if a in place and place[a][0] == gap]
         sub, worker = 0, None
         if deps:
             sub = max(s for _, s, _ in deps)
             ws = {w for _, s, w in deps if s == sub}
-            if len(ws) == 1:
-                worker = ws.pop()
+            ld = load.setdefault((gap, sub), [0] * K)
+            w = ws.pop() if len(ws) == 1 else None
+            if recompute and gap == D and (w is None or ld[w] >= max(ld)):
+                redo, todo = [], [a for a in ins[v] if place.get(a, ())[:2] == (gap, sub)]
+                while todo:  # the same-sub-phase ancestors, to compute again
+                    a = todo.pop()
+                    if a not in redo:
+                        redo.append(a)
+                        todo += [x for x in ins[a] if place.get(x, ())[:2] == (gap, sub)]
+                w2 = min(range(K), key=lambda x: ld[x])
+                if len(redo) <= recompute and (w is None or ld[w2] + len(redo) < ld[w]):
+                    copy: Dict[int, int] = {}
+                    for a in sorted(redo, key=emit.index):
+                        c = len(nodes) + len(op_of) - len(order)  # a new id
+                        op_of[c] = op_of[a]
+                        arg_of[c] = tuple(copy.get(x, x) for x in arg_of[a])
+                        ins[c], is_mul[c], weight[c] = set(arg_of[c]), False, 1
+                        place[c], copy[a] = (gap, sub, w2), c
+                        ld[w2] += 1
+                        emit.append(c)
+                    arg_of[v] = tuple(copy.get(x, x) for x in arg_of[v])
+                    ins[v] = set(arg_of[v])
+                    w = w2
+            if w is not None:
+                worker = w
             else:
                 sub += 1
         ld = load.setdefault((gap, sub), [0] * K)
@@ -429,6 +547,7 @@ def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
             worker = min(range(K), key=lambda w: ld[w])
         ld[worker] += weight[v]
         place[v] = (gap, sub, worker)
+        emit.append(v)
     seq = []
     nsub: Dict[int, int] = {}
     for gap, sub, _ in place.values():
@@ -452,29 +571,37 @@ def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
 
     # lifetimes, then slots: the state's are fixed, the rest are reused once dead
     last_use: Dict[int, int] = {}
-    for v in tasks:
+    for v in emit:
         for a in ins[v]:
             last_use[a] = max(last_use.get(a, -1), phase[v])
     for v in out_nodes:
         last_use[v] = nph  # read after the program
     slot = {v: nodes[v][1] for v in order if kind(v) == "leaf"}
+    at = {v: i for i, v in enumerate(emit)}
+
+    def before_on_its_worker(old, v):  # every reader of old in v's phase precedes v there
+        return all(worker_of[r] == worker_of[v] and at[r] < at[v]
+                   for r in emit if old in ins[r] and phase[r] == phase[v])
+
     copies = []
     for s, v in sorted(outputs.items()):
         old = g.memo.get(("leaf", s))
         dead_after = last_use.get(old, -1) if old in live else -1
-        if v not in slot and v in phase and phase[v] > dead_after:
+        if v not in slot and v in phase and (
+                phase[v] > dead_after
+                or phase[v] == dead_after and before_on_its_worker(old, v)):
             slot[v] = s  # written in place
         elif slot.get(v) != s:
             copies.append((s, v))
 
     by_phase: Dict[int, List[int]] = {}
-    for v in tasks:
+    for v in emit:
         by_phase.setdefault(phase[v], []).append(v)
-    # a state slot of f or T is free between its old value's last use and the
+    # a free state slot takes values between its old value's last use and the
     # write of its new value (for good, when the program has none)
     INF = 1 << 30
     opens = []  # (phase it opens, slot, last phase a value there may live)
-    for s in range(F_SLOT, T_SLOT + 6):
+    for s in free:
         old = g.memo.get(("leaf", s))
         first = last_use.get(old, -1) + 1 if old in live else 0
         v = outputs.get(s)
@@ -488,7 +615,7 @@ def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
             opens.append((first, s, until))
     free: List[Tuple[int, int]] = []  # (until, slot)
     busy: List[Tuple[int, int, int]] = []  # (last use, slot, until)
-    top = N_STATE
+    top = n_state
 
     def take(last):
         nonlocal top
@@ -514,14 +641,14 @@ def schedule(g: Graph, outputs: Dict[int, int], K: int) -> Program:
 
     # code: acc = the value of v from its arguments' slots, then store it
     phases = [[[] for _ in range(K)] for _ in range(nph)]
-    for v in tasks:  # topological order keeps a worker's chained tasks in order
-        a, *b = args(v)
-        if kind(v) == "neg":
+    for v in emit:  # topological order keeps a worker's chained tasks in order
+        a, *b = arg_of[v]
+        if op_of[v] == "neg":
             op = [_ins(NEG)]
-        elif kind(v) == "add" and b == [a]:
+        elif op_of[v] == "add" and b == [a]:
             op = [_ins(DBL)]
         else:
-            op = [_ins({"add": ADD, "sub": SUB, "mul": MUL}[kind(v)], slot[b[0]])]
+            op = [_ins({"add": ADD, "sub": SUB, "mul": MUL}[op_of[v]], slot[b[0]])]
         phases[phase[v]][worker_of[v]] += [_ins(LD, slot[a]), *op, _ins(ST, slot[v])]
     if copies:  # one more phase: outputs that could not be written in place
         extra = [[] for _ in range(K)]

@@ -3,9 +3,10 @@ final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 
 CUDA C++ in ``csrc/miller_split_kernels.cu`` (the Miller loops, one lane's
 loop spread over the warps of a block, running the programs of
-``miller_prog``), ``csrc/pairing_kernels.cu``, ``csrc/fexp_kernels.cu`` and
-``csrc/check_kernels.cu`` over ``csrc/tower_rows.cuh``, each kernel behind a
-wrapper here:
+``miller_prog``), ``csrc/fexp_split_kernels.cu`` (the power chain and the
+final exponentiation, the same way, running the programs of ``fexp_prog``),
+``csrc/pairing_kernels.cu`` and ``csrc/check_kernels.cu`` over
+``csrc/tower_rows.cuh``, each kernel behind a wrapper here:
 
 ===================  =========================================  ==============================
 wrapper              computes                                   replaces (TPU kernel)
@@ -53,7 +54,7 @@ import numpy as np
 import torch
 
 from ..field import FpCtx
-from . import build, miller_prog
+from . import build, fexp_prog, miller_prog
 from .tower_rows import MulBatch, RowTower
 
 Tensor = torch.Tensor
@@ -335,17 +336,18 @@ def _check(cfg, *tensors: Tensor, shapes) -> None:
         raise ValueError("the kernels index lanes with a 32-bit int")
 
 
-def _launch(name: str, like: Tensor, cfg, *args, extra=()) -> None:
-    """Launch ``name`` on ``like``'s card with the curve's constants after
-    ``args``, then ``extra``, then the stream."""
-    ints, tail = _tower_args(cfg)
+def _launch(name: str, like: Tensor, cfg, *args, extra=(), tower: bool = True) -> None:
+    """Launch ``name`` on ``like``'s card with the curve's constants (and,
+    when ``tower``, its tower flags and tail words) after ``args``, then
+    ``extra``, then the stream."""
     L = cfg.fp.L
+    towers = [ctypes.addressof(a) for a in _tower_args(cfg)] if tower else []
     with torch.cuda.device(like.device):
-        build.launch(name, *args, L, ctypes.addressof(build.consts(cfg.fp.p, L)),
-                     ctypes.addressof(ints), ctypes.addressof(tail), *extra, build.stream(like))
+        build.launch(name, *args, L, ctypes.addressof(build.consts(cfg.fp.p, L)), *towers,
+                     *extra, build.stream(like))
 
 
-# lanes a block of the Miller kernels (G) and its workers (K)
+# lanes a block of the split kernels (Miller and final exp: G) and its workers (K)
 MILLER_WORKERS = {32: 32, 16: 48, 8: 64}
 MILLER_BLOCKS = 128  # blocks a call should put on the card
 MILLER_SMEM = 227 * 1024  # shared memory a block may take on an H100
@@ -367,17 +369,24 @@ def miller_programs(cfg: MillerCfg, G: int):
     return progs, max(p.nslots for p in progs if p is not None), slot_words(cfg.fp.L, G)
 
 
-def miller_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
-    """(G, K) of a Miller launch over ``lanes`` lanes: the largest group of
+def _block_shape(lanes: int, programs_of) -> Tuple[int, int]:
+    """(G, K) of a split launch over ``lanes`` lanes: the largest group of
     32, 16 or 8 lanes that still gives ``MILLER_BLOCKS`` blocks and whose
-    programs' slots fit ``MILLER_SMEM`` (BLS12-377's do not at 32)."""
+    programs' slots (``programs_of(G)``: programs, slots, slot words) fit
+    ``MILLER_SMEM``."""
     for G in (32, 16, 8):
         if G == 8 or -(-lanes // G) >= MILLER_BLOCKS:
-            _, slots, words = miller_programs(cfg, G)
+            _, slots, words = programs_of(G)
             if slots * words * 4 <= MILLER_SMEM:
                 return G, MILLER_WORKERS[G]
-    raise ValueError(f"the Miller programs need {slots} slots of {4 * words} bytes, more "
+    raise ValueError(f"the programs need {slots} slots of {4 * words} bytes, more "
                      f"shared memory than a block has")
+
+
+def miller_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
+    """(G, K) of a Miller launch over ``lanes`` lanes (BLS12-377's programs
+    do not fit a 32-lane block)."""
+    return _block_shape(lanes, lambda G: miller_programs(cfg, G))
 
 
 def _miller_program(cfg: MillerCfg, device, lanes: int):
@@ -392,6 +401,44 @@ def _miller_program(cfg: MillerCfg, device, lanes: int):
         meta = (ctypes.c_int32 * 10)(G, K, slots, words, *ranges)
         cfg._dev[key] = (torch.from_numpy(code).to(device), meta)
     return cfg._dev[key]
+
+
+FEXP_KINDS = {"f12_pow": (fexp_prog.pow_programs, fexp_prog.POW_PROGRAMS),
+              "final_exp": (fexp_prog.fexp_programs, fexp_prog.FEXP_PROGRAMS)}
+
+
+def fexp_programs(cfg: TowerCfg, kind: str, G: int):
+    """(programs, slots, slot words) of ``cfg``'s ``kind`` ("f12_pow" or
+    "final_exp") for a block of G lanes and ``MILLER_WORKERS[G]`` workers."""
+    tw = cfg.tower
+    progs = FEXP_KINDS[kind][0](tw.n, tw.xi0, MILLER_WORKERS[G], 32 // G)
+    return progs, max(p.nslots for p in progs), slot_words(cfg.fp.L, G)
+
+
+def fexp_shape(cfg: TowerCfg, kind: str, lanes: int) -> Tuple[int, int]:
+    """(G, K) of an ``f12_pow`` or ``final_exp`` launch over ``lanes`` lanes
+    (BLS12-377's final exp does not fit a 32-lane block)."""
+    return _block_shape(lanes, lambda G: fexp_programs(cfg, kind, G))
+
+
+def _fexp_launch_args(cfg: TowerCfg, kind: str, device, lanes: int, steps_key, steps):
+    """(program, script, meta) of a ``kind`` launch over ``lanes`` lanes: the
+    programs of the block ``fexp_shape`` picks, packed onto the card once per
+    device and block, and the script of ``steps`` (``steps_key``: the
+    exponent it encodes), once per device, block and exponent."""
+    G, K = fexp_shape(cfg, kind, lanes)
+    key = (kind, str(device), G)
+    if key not in cfg._dev:
+        progs, slots, words = fexp_programs(cfg, kind, G)
+        code, ranges = miller_prog.pack(progs, K)
+        cfg._dev[key] = (torch.from_numpy(code).to(device), ranges,
+                         (ctypes.c_int32 * 4)(G, K, slots, words))
+    code, ranges, meta = cfg._dev[key]
+    skey = key + (steps_key,)
+    if skey not in cfg._dev:
+        script = fexp_prog.encode_steps(steps(), FEXP_KINDS[kind][1], ranges)
+        cfg._dev[skey] = torch.from_numpy(script).to(device)
+    return code, cfg._dev[skey], meta
 
 
 def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
@@ -480,9 +527,12 @@ def f12_pow(cfg: TowerCfg, f: Tensor, bits, cyclo: bool = False) -> Tensor:
     _check(cfg, f, shapes=[(2, 3, 2, L, B)])
     out = torch.empty_like(f)
     if B:
-        dev_bits = _bits_on(cfg, f.device, bits)
-        _launch("mlt_f12_pow", f, cfg, f.data_ptr(), dev_bits.data_ptr(), len(dev_bits),
-                int(cyclo), out.data_ptr(), B)
+        bits = np.ascontiguousarray(bits, dtype=np.uint8)
+        prog, script, meta = _fexp_launch_args(
+            cfg, "f12_pow", f.device, B, (bits.tobytes(), bool(cyclo)),
+            lambda: fexp_prog.pow_steps(bits, cyclo))
+        _launch("mlt_f12_pow", f, cfg, f.data_ptr(), script.data_ptr(), len(script),
+                out.data_ptr(), B, extra=(prog.data_ptr(), ctypes.addressof(meta)), tower=False)
         f12_pow.launches += 1
     return out
 
@@ -501,10 +551,14 @@ def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None) 
     _check(cfg, f, shapes=[(2, 3, 2, L, B)])
     out = torch.empty_like(f)
     if B:
-        ib, xb = _bits_on(cfg, f.device, inv_bits), _bits_on(cfg, f.device, x_bits)
-        _launch("mlt_final_exp", f, cfg, f.data_ptr(), ib.data_ptr(), len(ib), xb.data_ptr(),
-                len(xb), int(bool(x_neg)), _gammas_on(cfg, f.device).data_ptr(), out.data_ptr(),
-                B)
+        x_bits = np.ascontiguousarray(x_bits, dtype=np.uint8)
+        prog, script, meta = _fexp_launch_args(
+            cfg, "final_exp", f.device, B, (x_bits.tobytes(), bool(x_neg)),
+            lambda: fexp_prog.fexp_steps(x_bits, bool(x_neg)))
+        ib = _bits_on(cfg, f.device, inv_bits)
+        _launch("mlt_final_exp", f, cfg, f.data_ptr(), script.data_ptr(), len(script),
+                ib.data_ptr(), len(ib), _gammas_on(cfg, f.device).data_ptr(), out.data_ptr(), B,
+                extra=(prog.data_ptr(), ctypes.addressof(meta)), tower=False)
         final_exp.launches += 1
     return out
 

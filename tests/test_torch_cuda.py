@@ -324,6 +324,41 @@ def test_split_miller_kernels_equal_plain_versions(pair_ctx, monkeypatch):
     assert sum(pairing_cuda.launches().values()) == launches
 
 
+def test_split_fexp_kernels_equal_plain_versions(pair_ctx, monkeypatch):
+    """final_exp and f12_pow (both squarings) at every block the launcher can
+    pick (32, 16 and 8 lanes, forced through ``fexp_shape``, where the
+    curve's programs fit), on 1, 33 and 40 lanes, against one plain run on
+    40 lanes (lanes are independent)."""
+    eng, be = pair_ctx
+    cfg, kcfg, spec = be.pair.cfg, be.tw.kcfg, eng.spec
+    xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(*_pairs(eng, 40, 14)))
+    f = pairing_cuda.miller_ft(cfg, xP, yP, Qx, Qy)[0]
+    inv, xb, neg = kcfg.inv_bits, pairing_cuda.msb_bits(abs(spec.x)), spec.x < 0
+    want = {"final_exp": pairing_cuda.final_exp_plain(kcfg, f, inv, xb, neg),
+            True: pairing_cuda.f12_pow_plain(kcfg, f, xb, True),
+            False: pairing_cuda.f12_pow_plain(kcfg, f, xb, False)}
+    pairing_cuda.reset_launches()
+    launches = {"final_exp": 0, "f12_pow": 0}
+    for kind in launches:
+        for G, K in pairing_cuda.MILLER_WORKERS.items():
+            _, slots, words = pairing_cuda.fexp_programs(kcfg, kind, G)
+            if slots * words * 4 > pairing_cuda.MILLER_SMEM:
+                continue
+            monkeypatch.setattr(pairing_cuda, "fexp_shape", lambda cfg, kind, lanes: (G, K))
+            for n in (1, 33, 40):
+                a = f[..., :n].contiguous()
+                if kind == "final_exp":
+                    got = pairing_cuda.final_exp(kcfg, a, inv, xb, neg)
+                    assert torch.equal(got, want[kind][..., :n]), (G, n)
+                    launches[kind] += 1
+                else:
+                    for cyclo in (True, False):
+                        got = pairing_cuda.f12_pow(kcfg, a, xb, cyclo)
+                        assert torch.equal(got, want[cyclo][..., :n]), (G, n, cyclo)
+                        launches[kind] += 1
+    assert {k: v for k, v in pairing_cuda.launches().items() if k in launches} == launches
+
+
 def test_product_check_on_the_card(pair_ctx):
     eng, be = pair_ctx
     g1s, g2s = _pairs(eng, 3, 8)
