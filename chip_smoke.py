@@ -13,9 +13,12 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      nvcc (ptxas register and spill report in the build log);
   3. each kernel (add, double, addsel, smul) against its plain PyTorch
      version on the card, bit for bit (tolerance: exact), and each one's
-     time beside the plain version's at the main path's shapes; add and
-     addsel (one add over six warps) also at addsel's 4,096-lane shape,
-     with their ptxas registers, stack and spills (none allowed, at most 128
+     time beside the plain version's at the main path's shapes; double (one
+     doubling over four warps) on 1, 16, 33 and 4,097 lanes (infinity and
+     P = -P lanes among them), timed at the MSM's 16 lanes, at Horner's one
+     and at 2^20, device and host time a launch; add and addsel (one add
+     over six warps) also at addsel's 4,096-lane shape; the three with their
+     ptxas registers, stack and spills (none allowed, at most 128
      registers);
   4. the n=512 gates of ``bench.py``: msm_totals + horner_host and the split
      path must equal the port's msm_naive and the host engine's MSM;
@@ -30,14 +33,17 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
 The second main path, the pairing-product check a BLS verifier pays for
 (``BatchEngine.pairing_product_is_one`` / ``pairing_products_are_one``):
 
-  6. the split Miller kernels' ptxas lines (no stack and no spill allowed);
-     the pairing kernels (mont_mul, miller_lanes, f12_seg_product) against
-     their plain PyTorch versions on the card, exact: miller_lanes on 64
-     lanes with n = 61 (3 pad lanes) on BLS12-381, BN254 and BLS12-377,
-     f12_seg_product with seg in {2, 64}; then each at the shapes of phase 7
-     (BLS12-381, 4,096 and 2,048 lanes; miller_lanes at both, each in the
-     block size the launcher picks there), checked against the plain version
-     and timed beside it;
+  6. the split Miller and tree kernels' ptxas lines (no stack and no spill
+     allowed); the pairing kernels (mont_mul, miller_lanes, f12_seg_product)
+     against their plain PyTorch versions on the card, exact: miller_lanes
+     on 64 lanes with n = 61 (3 pad lanes) on BLS12-381, BN254 and
+     BLS12-377, the product tree (several levels a launch) on those lanes
+     tiled to 1, 2, 64 and 4,096 with seg 2, 64 and the whole batch; then
+     each at the shapes of phase 7 (BLS12-381, 4,096 and 2,048 lanes;
+     miller_lanes at both, each in the block size the launcher picks there),
+     checked against the plain version and timed beside it with its
+     launches a call, and the tree's time of one level, of a 4-level launch
+     and its depth floor;
   7. the product check at full width on BLS12-381 through ``BatchEngine``
      on the card: (a) 4,096 pairs (a_i g1, b_i g2) beside (-a_i b_i g1, g2)
      must check True and their twin with one scalar changed False; (b) 1,024
@@ -187,15 +193,18 @@ the ``add`` kernel's time at 2^20 lanes on BLS12-381 (12 words) beside BN254
     python3 chip_smoke.py --time-msm REPO
 
 times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
-REPO, then that checkout's add and addsel kernels at phase 3's shapes; run
-for two checkouts in turns to compare them on one card.
+REPO, then that checkout's add and addsel kernels at phase 3's shapes and
+its double at 16, 1 and 2^20 lanes; run for two checkouts in turns to
+compare them on one card.
 
     python3 chip_smoke.py --time-pairing REPO
 
 times, with the checkout at REPO, miller_lanes and miller_ft at 4,096 and
 2,048 BLS12-381 lanes and 1,024 BN254 lanes, final_exp at 4,096 and 1,024
-BLS12-381 lanes and BN254's four f12_pow chains at 1,024 lanes, beside their
-bounds (and prints those kernels' ptxas lines), one 4,096-pair product check
+BLS12-381 lanes and BN254's four f12_pow chains at 1,024 lanes, the product
+tree at 4,096 lanes and 2,048 lanes with seg 2,
+beside their bounds (and prints those kernels' ptxas lines), one 4,096-pair
+product check
 (pairs/s and device ms), the 1,024 grouped checks under
 ``MATHLIB_GROUP_FEXP=device``, and ``pairing_batch`` at 4,096 BLS12-381 and
 1,024 BN254 pairs.
@@ -223,6 +232,7 @@ PLAIN_CHUNK = 1 << 16  # lanes per plain-version call when timing big shapes
 N_PAIRS = 4096  # phase 7 (a): pairs in one product check
 N_CHECKS = 1024  # phase 7 (b): two-pair checks in one grouped call
 N_LANES_CHECK, N_VALID_CHECK = 64, 61  # phase 6: lanes, real lanes (3 pad)
+TREE_LANES = (1, 2, 64, 4096)  # phase 6: lanes of the product tree against its plain version
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
 G1_SRC = "mathlib_tpu_torch/csrc/g1_kernels.cu"
@@ -233,7 +243,7 @@ MILLER_SRC = "mathlib_tpu_torch/csrc/miller_split_kernels.cu"
 FEXP_SRC = "mathlib_tpu_torch/csrc/fexp_split_kernels.cu"
 KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "add": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
-    "double": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
+    "double": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
     "addsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
     "smul": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
     "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
@@ -242,8 +252,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "maddselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
     "mont_mul": ("mathlib_tpu_torch/csrc/fp_kernels.cu", "mathlib_tpu/ops/kernels/fp_pallas.py:40"),
     "miller_lanes": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
-    "f12_seg_product": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
-                        "mathlib_tpu/ops/kernels/pairing_pallas.py:1244"),
+    "f12_seg_product": (FEXP_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:1244"),
     "miller_ft": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:788"),
     "add_step": ("mathlib_tpu_torch/csrc/pairing_kernels.cu",
                  "mathlib_tpu/ops/kernels/pairing_pallas.py:807"),
@@ -467,9 +476,51 @@ def time_g1_adds(g1_cuda, F, P, Q, sel, design: str) -> None:
             over_bound=f"{ms / bnd['bound_ms']:.2f}x")
 
 
+# the doubling's shapes: one lane a window of the 2^20 MSM (hi_sum and the
+# bit Horner of the window sums, 22 launches), one lane (horner_windows, c a
+# window), and phase 3's 2^20 lanes
+DOUBLE_SHAPES = (16, 1, N_MAIN)
+
+
+def time_double(g1_cuda, F, P, design: str) -> None:
+    """``double`` of the imported checkout at DOUBLE_SHAPES on contiguous
+    slices of P (at least 2^20 lanes): device time a launch (CUDA events
+    over 200 launches queued behind a spin, 5 at 2^20) and host wall time a
+    call (200 calls, one synchronise), beside the bound and, at the small
+    shapes, one run of the plain version (phase 3 times it at 2^20); a
+    ``[time_double]`` line each."""
+    import torch
+
+    L = F.fp.L
+    for lanes in DOUBLE_SHAPES:
+        a = P[..., :lanes].contiguous()
+        reps = 5 if lanes > 4096 else 200
+        plain = {}
+        if lanes <= 4096:
+            plain_ms, _ = cuda_ms(lambda: g1_cuda.double_plain(F, a), reps=1)
+            plain = {"plain_us": f"{1e3 * plain_ms:.1f}"}
+        ms, _ = cuda_ms(lambda: g1_cuda.double(F, a), reps=reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            g1_cuda.double(F, a)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / reps
+        bnd = bound(2 * 3 * L * 4 * lanes, wide_mads(8 * lanes, L))
+        log("time_double", design=design, lanes=lanes, L=L, device_us=f"{1e3 * ms:.2f}",
+            wall_us=f"{1e3 * wall:.2f}", **plain, bound_us=f"{1e3 * bnd['bound_ms']:.4f}",
+            bound_by=bnd["bound_by"], over_bound=f"{ms / bnd['bound_ms']:.1f}x")
+
+
 def split_ptxas(path: str) -> list:
-    """The build log's ptxas lines of the add and addsel kernels."""
-    return [e for e in ptxas_entries(path) if e.startswith(("g1_add_kernel", "g1_addsel_kernel"))]
+    """The build log's ptxas lines of the add, addsel and double kernels."""
+    return [e for e in ptxas_entries(path)
+            if e.startswith(("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel"))]
+
+
+def tree_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the product tree's kernel."""
+    return [e for e in ptxas_entries(path) if e.startswith(("f12_tree", "f12_pair_mul"))]
 
 
 def miller_ptxas(path: str) -> list:
@@ -502,6 +553,26 @@ def split_design(build) -> str:
     """Which add and addsel kernels the imported checkout has: "six-warp"
     (csrc/g1_split_kernels.cu) or "one-thread" (rcb_add a thread)."""
     return ("six-warp" if os.path.exists(os.path.join(build.CSRC, "g1_split_kernels.cu"))
+            else "one-thread")
+
+
+def _source_has(build, source: str, word: str) -> bool:
+    path = os.path.join(build.CSRC, source)
+    return os.path.exists(path) and word in open(path).read()
+
+
+def double_design(build) -> str:
+    """Which double kernel the imported checkout has: "four-warp"
+    (split_dbl in csrc/g1_split_kernels.cu) or "one-thread" (rcb_dbl a
+    thread)."""
+    return "four-warp" if _source_has(build, "g1_split_kernels.cu", "split_dbl") else "one-thread"
+
+
+def tree_design(build) -> str:
+    """Which product tree the imported checkout has: "split" (levels a
+    launch over a block's workers, csrc/fexp_split_kernels.cu) or
+    "one-thread" (a launch a level, a lane a thread)."""
+    return ("split" if _source_has(build, "fexp_split_kernels.cu", "f12_tree_split_kernel")
             else "one-thread")
 
 
@@ -571,6 +642,25 @@ def add_ms_by_curve(dev, rng) -> None:
         log("profile_add", curve=curve, L=g.fp.L, lanes=N_MAIN, ms=f"{ms:.4f}")
 
 
+def time_tree_levels(pc, cfg, f, smi: str) -> None:
+    """The product tree's depth at check (a)'s 4,096 lanes: one level alone
+    (2 lanes, seg 2: one f12 product and one launch), one launch of 4 levels
+    (16 lanes), and the whole tree, beside the depth floor (12 levels at one
+    level's time) and the ops bound; a ``[tree_levels]`` line (CUDA events,
+    mean of 20 calls)."""
+    t = {}
+    for B in (2, 16, N_PAIRS):
+        a = f[..., :B].contiguous()
+        t[B], _ = cuda_ms(lambda: pc.f12_seg_product(cfg, a, B), reps=20)
+    depth = N_PAIRS.bit_length() - 1
+    ops = bound(0, wide_mads(seg_product_fp_muls(cfg, N_PAIRS, N_PAIRS), cfg.fp.L))
+    log("tree_levels", lanes=N_PAIRS, levels=depth, launches=len(pc.tree_plan(cfg, N_PAIRS)[2]),
+        block=pc.tree_shape(cfg), one_level_ms=f"{t[2]:.4f}", four_levels_ms=f"{t[16]:.4f}",
+        level_in_a_launch_ms=f"{(t[16] - t[2]) / 3:.4f}", tree_ms=f"{t[N_PAIRS]:.4f}",
+        depth_floor_ms=f"{depth * t[2]:.4f}", ops_bound_ms=f"{ops['bound_ms']:.4f}",
+        card=repr(smi))
+
+
 def pairing_phases(dev, smi: str, results: dict, profile: bool):
     """Phases 6 and 7; fills ``results`` for the pairing kernels and returns
     their launch counts over phase 7's main-path runs, and phase 7's checks
@@ -598,10 +688,12 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
     # the pairing kernels against their plain versions (exact)
     from mathlib_tpu_torch.ops.kernels import build
 
-    for entry in miller_ptxas(build.BUILD_LOG):
+    for entry in miller_ptxas(build.BUILD_LOG) + tree_ptxas(build.BUILD_LOG):
         log("ptxas_miller", entry=repr(entry))
         if not entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
-            raise AssertionError(f"split Miller kernel with a stack or a spill: {entry}")
+            raise AssertionError(f"split pairing kernel with a stack or a spill: {entry}")
+    if not tree_ptxas(build.BUILD_LOG):
+        raise AssertionError("the tree kernel's ptxas lines are missing from the build log")
     for curve in ("BLS12_381", "BN254", "BLS12_377"):
         spec = get_spec(curve)
         eng, be = get_engine(spec), BatchEngine(spec, dev)
@@ -615,11 +707,19 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
         check("miller_lanes", f, pc.miller_lanes_plain(cfg, xP, yP, Qx, Qy, N_VALID_CHECK))
         if not (f[..., N_VALID_CHECK:] == be.pair.cfg.tower.f12_one_like(1, dev)).all():
             raise AssertionError(f"pad lanes of miller_lanes are not one on {curve}")
-        for seg in (2, N_LANES_CHECK):
-            check("f12_seg_product", pc.f12_seg_product(cfg, f, seg),
-                  pc.f12_seg_product_plain(cfg, f, seg))
+        # the tree on 1, 2, 64 and 4,096 lanes (f tiled; its pad lanes are the
+        # f12 one, as tree_width pads a check), seg 2, 64 and the whole batch
+        tiled = f.repeat(1, 1, 1, 1, N_PAIRS // N_LANES_CHECK)
+        segs = {}
+        for B in TREE_LANES:
+            a = tiled[..., :B].contiguous()
+            segs[B] = sorted({s for s in (2, N_LANES_CHECK, B) if s <= B})
+            for seg in segs[B]:
+                check("f12_seg_product", pc.f12_seg_product(cfg, a, seg),
+                      pc.f12_seg_product_plain(cfg, a, seg))
         log("pair_kernels_vs_plain", curve=curve, L=be.fp.L, lanes=N_LANES_CHECK,
-            n=N_VALID_CHECK, segs=[2, N_LANES_CHECK], equal=True)
+            n=N_VALID_CHECK, tree_lanes_segs=segs, tree_block=pc.tree_shape(cfg), equal=True)
+        del tiled
 
     # the same kernels at phase 7's shapes (BLS12-381), timed beside their
     # plain versions (run in PLAIN_PAIR_CHUNK-lane slices)
@@ -668,7 +768,10 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
             12 * limb_bytes * 3 * N_CHECKS, seg_product_fp_muls(cfg, 2 * N_CHECKS, 2)),
     }
     for name, (what, kern, plain, nbytes, fp_muls) in shapes.items():
+        pc.reset_launches()
         ms, got = cuda_ms(kern, reps=3)
+        calls = 4  # cuda_ms's warm-up and 3 runs
+        per_call = {k: v // calls for k, v in pc.launches().items() if v}
         plain_ms, want = cuda_ms(plain, reps=1)
         check(name.replace("_seg2", ""), got, want)
         del got, want
@@ -677,7 +780,8 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
             results[name].update(ms=ms, plain_ms=plain_ms, **b)
         log("time", kernel=name, shape=repr(what), equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
-            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], launches_a_call=per_call)
+    time_tree_levels(pc, cfg, f, smi)
     del f, f_b, t, xP, yP, Qx, Qy
 
     # ---- 7. the product check at full width through BatchEngine
@@ -2049,7 +2153,8 @@ def time_msm(repo: str) -> int:
     warm-up and 5 host-clock runs of msm_totals + horner_host, each beside
     the device time of its msm_totals (CUDA events, gaps included); one
     ``[time_msm]`` line; then that checkout's add and addsel kernels timed
-    at phase 3's shapes (``time_g1_adds``) with their ptxas lines.  Run it
+    at phase 3's shapes (``time_g1_adds``) with their ptxas lines, and its
+    double at 16, 1 and 2^20 lanes (``time_double``).  Run it
     for two checkouts in turns (A, B, B, A) in one call to compare them on
     one card."""
     import numpy as np
@@ -2105,6 +2210,7 @@ def time_msm(repo: str) -> int:
     Q = torch.roll(points, 1, dims=-1).contiguous()
     sel = torch.from_numpy(np.random.default_rng(1).random(N_MAIN) < 15 / 16).to(points.device)
     time_g1_adds(g1_cuda, g1.F, points, Q, sel, split_design(build))
+    time_double(g1_cuda, g1.F, points, double_design(build))
     return 0
 
 
@@ -2191,6 +2297,21 @@ def time_fexp_programs(repo: str, engines: dict) -> None:
                 cycles_each=f"{ms * 1e-3 / count * 1.98e9:.0f}")
 
 
+def time_tree(pc, cfg, f, lanes: int, seg: int, repo: str, design: str, smi: str) -> None:
+    """The imported checkout's ``f12_seg_product`` on f (``lanes`` lanes)
+    with segments of ``seg`` (CUDA events, mean of 5 after a warm-up) and its
+    launches a call, beside the bound; a ``[time_pairing]`` line."""
+    L = cfg.fp.L
+    b = bound(12 * L * 4 * (lanes + lanes // seg),
+              wide_mads(seg_product_fp_muls(cfg, lanes, seg), L))
+    pc.reset_launches()
+    ms, _ = cuda_ms(lambda: pc.f12_seg_product(cfg, f, seg), reps=5)
+    log("time_pairing", repo=repr(repo), design=design, kernel="f12_seg_product",
+        curve="BLS12_381", lanes=lanes, seg=seg, launches=pc.launches()["f12_seg_product"] // 6,
+        ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+        over_bound=f"{ms / b['bound_ms']:.2f}x", card=repr(smi))
+
+
 # --time-pairing: (curve, lanes) of the Miller kernels' timings: the product
 # check and pairing_batch at BLS12-381, the grouped checks, BN254 pairing_batch
 TIME_PAIRING_SHAPES = (("BLS12_381", N_PAIRS), ("BLS12_381", 2 * N_CHECKS),
@@ -2208,7 +2329,10 @@ def time_pairing(repo: str) -> int:
     device ms of its Montgomery entry and Miller product by CUDA events,
     pairs/s); the 1,024 grouped two-pair checks under
     ``MATHLIB_GROUP_FEXP=device`` (best of 5); and ``pairing_batch`` at
-    4,096 BLS12-381 and 1,024 BN254 pairs (best of 3 each).  A
+    4,096 BLS12-381 and 1,024 BN254 pairs (best of 3 each); its product
+    tree (``f12_seg_product``) at check (a)'s 4,096 lanes and at the grouped
+    checks' 2,048 lanes, seg 2, with its launches a call and its ptxas
+    lines.  A
     ``[time_pairing]`` line each (and ``[miller_ins]`` lines for a checkout
     with the split Miller kernels).  Run it for two checkouts in turns (A, B, B, A) in one call
     to compare them on one card."""
@@ -2236,6 +2360,9 @@ def time_pairing(repo: str) -> int:
         log("ptxas_miller", repo=repr(repo), entry=repr(entry))
     for entry in fexp_ptxas(build.BUILD_LOG):
         log("ptxas_fexp", repo=repr(repo), entry=repr(entry))
+    for entry in tree_ptxas(build.BUILD_LOG):
+        log("ptxas_tree", repo=repr(repo), entry=repr(entry))
+    tdesign = tree_design(build)
     rng = np.random.default_rng(7)
     engines = {}
 
@@ -2285,6 +2412,8 @@ def time_pairing(repo: str) -> int:
             log("time_pairing", repo=repr(repo), design=fdesign, kernel=name, curve=curve,
                 lanes=n, launches=calls, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
                 over_bound=f"{ms / b['bound_ms']:.2f}x", card=repr(smi))
+        if curve == "BLS12_381":  # the product tree: check (a) at 4,096, (b) at 2,048, seg 2
+            time_tree(pc, cfg, f, lanes, lanes if lanes == N_PAIRS else 2, repo, tdesign, smi)
 
     if design == "split":
         time_miller_instructions(repo, engines["BLS12_381"][1].pair.cfg)
@@ -2441,6 +2570,7 @@ def main() -> int:
         return [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(count)]
 
     # ---- 3. kernels vs plain versions on the card (exact)
+    t_phase = time.perf_counter()
     pool = [eng.g1.mul(eng.gen_g1, k) for k in rand_ints(257)]
     n = N_CHECK
     ia, ib = rng.integers(0, len(pool), n), rng.integers(0, len(pool), n)
@@ -2462,7 +2592,12 @@ def main() -> int:
         return check_equal(results, name, got, want)
 
     S1 = check("add", g1_cuda.add(F, P, Q), g1_cuda.add_plain(F, P, Q))  # relaxed outputs
-    check("double", g1_cuda.double(F, S1), g1_cuda.double_plain(F, S1))
+    # double on 1, 16, 33 and 4,097 lanes (ragged blocks of 32): the relaxed
+    # sums (P = Q and P = -Q lanes among them), P with its infinity lanes, -P
+    for a in (S1, P, g1.neg(P)):
+        for m in (1, 16, 33, n):
+            b = a[..., :m].contiguous()
+            check("double", g1_cuda.double(F, b), g1_cuda.double_plain(F, b))
     check("addsel", g1_cuda.addsel(F, S1, Q, sel), g1_cuda.addsel_plain(F, S1, Q, sel))
     ks = rand_ints(N_SMUL)
     ks[:3] = [0, 1, spec.r - 1]
@@ -2484,6 +2619,7 @@ def main() -> int:
     Pw, Qw = Pb[..., :WC].contiguous(), Qb[..., :WC].contiguous()  # as a scan step's operands
     Kb_ints = rand_ints(N_BASE)
     Kb = g1.encode_scalars(Kb_ints)
+    P16 = Pb[..., :16].contiguous()  # the MSM's windows, as the wrapper gets them there
     shapes = {
         "add": (N_MAIN, lambda: g1_cuda.add(F, Pb[..., :N_MAIN], Qb[..., :N_MAIN]),
                 lambda: chunked(lambda a, b: g1_cuda.add_plain(F, a, b), N_MAIN,
@@ -2491,6 +2627,7 @@ def main() -> int:
         "double": (N_MAIN, lambda: g1_cuda.double(F, Pb[..., :N_MAIN]),
                    lambda: chunked(lambda a: g1_cuda.double_plain(F, a), N_MAIN,
                                    Pb[..., :N_MAIN])),
+        "double_16": (16, lambda: g1_cuda.double(F, P16), lambda: g1_cuda.double_plain(F, P16)),
         "addsel": (WC, lambda: g1_cuda.addsel(F, Pw, Qw, selb),
                    lambda: chunked(lambda a, b, s: g1_cuda.addsel_plain(F, a, b, s), WC,
                                    Pw, Qw, selb)),
@@ -2505,20 +2642,27 @@ def main() -> int:
     work = {
         "add": (3 * pt_bytes * N_MAIN, 12 * N_MAIN),
         "double": (2 * pt_bytes * N_MAIN, 8 * N_MAIN),
+        "double_16": (2 * pt_bytes * 16, 8 * 16),
         "addsel": ((3 * pt_bytes + 1) * WC, 12 * int(selb.sum())),
         "smul": ((2 * pt_bytes + 4 * Kb.shape[-2]) * N_BASE, 8 * g1.nbits * N_BASE + 12 * ones),
     }
+    # the JSON line keeps each kernel at its main-path shape: double at the
+    # 16 lanes the MSM launches it at (2^20 lanes logged beside it)
     for name, (lanes, kern, plain) in shapes.items():
-        ms, got = cuda_ms(kern, reps=5)
+        ms, got = cuda_ms(kern, reps=200 if lanes <= 4096 else 5)
         plain_ms, want = cuda_ms(plain, reps=1)
-        check(name, got, want)
+        kernel = name.split("_16")[0]
+        check(kernel, got, want)
         del got, want
         nbytes, fp_muls = work[name]
-        results[name].update(ms=ms, plain_ms=plain_ms, lanes=lanes,
-                             **bound(nbytes, wide_mads(fp_muls, g1.fp.L)))
-        log("time", kernel=name, lanes=lanes, equal=True, ms=f"{ms:.4f}",
+        b = bound(nbytes, wide_mads(fp_muls, g1.fp.L))
+        if name != "double":
+            results[kernel].update(ms=ms, plain_ms=plain_ms, lanes=lanes, **b)
+        log("time", kernel=kernel, lanes=lanes, equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
-            bound_ms=f"{results[name]['bound_ms']:.4f}", bound_by=results[name]["bound_by"])
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+    # the doubling at its shapes, device and host time a launch
+    time_double(g1_cuda, F, Pb, double_design(build))
     # the six-warp add kernels at their three shapes, and their ptxas lines:
     # no stack, no spill, at most 128 registers a thread
     sel_t = np.random.default_rng(6).random(N_MAIN) < 15 / 16  # leaves rng's draws as they were
@@ -2528,10 +2672,15 @@ def main() -> int:
         regs = int(entry.split(": ")[1].split()[0])
         if regs > 128 or not entry.endswith(
                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
-            raise AssertionError(f"six-warp add kernel over its register budget: {entry}")
+            raise AssertionError(f"split G1 kernel over its register budget: {entry}")
+    if len(split_ptxas(build.BUILD_LOG)) != 6:  # add, addsel, double at 8 and 12 words
+        raise AssertionError("the split G1 kernels' ptxas lines are missing from the build log")
     del Pb, Qb, selb, Pw, Qw
 
+    log("phase3", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
     # ---- 4. the n=512 gates
+    t_phase = time.perf_counter()
     pts0 = g1.scalar_mul(g1.gen, g1.encode_scalars(rand_ints(N_GATE)))
     ks0 = rand_ints(N_GATE)
     scs0 = g1.encode_scalars(ks0)
@@ -2613,13 +2762,19 @@ def main() -> int:
         profile_run(run)
         add_ms_by_curve(dev, rng)
 
+    log("phase4_5", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
     # ---- 6 and 7. the pairing-product check
+    t_phase = time.perf_counter()
     pair_launches, checks = pairing_phases(dev, smi, results, args.profile)
     launches.update(pair_launches)
+    log("phase6_7", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
     # ---- 8 and 9. pairing_batch and the device final exp; mont_mul runs on
     # both pairing paths and reports its pairing_batch count
+    t_phase = time.perf_counter()
     launches.update(pairing_batch_phases(dev, smi, results, checks))
+    log("phase8_9", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
     # ---- 10 and 11. the G1 MSM options, the bridge and BatchEngine's G1 entry points
     launches.update(g1_option_phases(dev, smi, results, {

@@ -1,15 +1,20 @@
-// The final exponentiation and the Fp12 power chain for Hopper (sm_90a),
-// one lane's chain spread over the workers of a block: port of
-// mathlib_tpu/ops/kernels/pairing_pallas.py
+// The final exponentiation, the Fp12 power chain and the product tree for
+// Hopper (sm_90a), one lane's chain spread over the workers of a block: port
+// of mathlib_tpu/ops/kernels/pairing_pallas.py
 //
 //   f12_pow_split_kernel   <- _f12_pow_kernel (:828): f^e per lane, e's
 //                             MSB-first bits, cyclotomic or plain squaring
 //   final_exp_split_kernel <- _final_exp_kernel (:914): the whole BLS12 final
 //                             exponentiation (factor-3 chain) per lane
+//   f12_tree_split_kernel  <- _product_all_positions (:971), the product of
+//                             _pairing_prod_kernel (:1188) and
+//                             _pairing_prod_seg_kernel (:1244): several
+//                             levels of the product tree a launch
 //
-// They compute what f12_pow_lane and final_exp_lane (fexp_rows.cuh) compute,
-// add for add and product for product, so the relaxed [0, 2p) limbs that
-// come out are the one-thread chains' and the plain versions'.
+// They compute what f12_pow_lane and final_exp_lane (fexp_rows.cuh) and
+// tower_rows.cuh's f12_mul compute, add for add and product for product, so
+// the relaxed [0, 2p) limbs that come out are the one-thread chains' and the
+// plain versions'.
 //
 // What bounds them on an H100 is the integer multiply rate: a BLS12-381
 // final exp is 8,675 field products of 588 32-bit multiply-adds a lane (the
@@ -42,7 +47,17 @@
 //     device input) has no width: worker 0 runs its square-and-multiply in
 //     registers with fp_mul_ptx, the others wait at the barrier.
 //
-// The interpreter is prog_interp.cuh's, one call site here: a thread holds
+// The product tree (ops/kernels/tree_prog.py) is one f12 product a lane and
+// a level, so its depth, not its work, sets its time: a block of G lanes
+// takes 2G input lanes and runs up to log2(2G) levels in shared memory, the
+// f12 product program (one layer of 54 products at K = 64) and, between two
+// levels, a PAIR row that moves lanes 2t and 2t + 1's products into lane t's
+// operands.  A block owns 8 lanes and 64 workers, so the 54 products are
+// one layer (a level is 8 phases at BLS12-381, against 11 for 16 and 32
+// lanes, which also ran slower on an H100: PERF.md section 6), and runs 4
+// levels a launch: a 4,096-lane tree in 3 launches, not 12.
+//
+// The interpreter is prog_interp.cuh's, one call site a kernel: a thread holds
 // acc and one operand in registers, no call, no stack, no spill (ptxas'
 // report is on chip_smoke.py's build lines).
 //
@@ -59,13 +74,15 @@
 
 namespace mlt {
 
-// fixed slots (fexp_prog.py): f12_pow's acc and base, final_exp's input and
-// output, and the state slots of each
+// fixed slots (fexp_prog.py, tree_prog.py): f12_pow's acc and base,
+// final_exp's input and output, the tree's operands A and B (the product
+// over A), and the state slots of each
 constexpr int kPowAcc = 0, kPowBase = 12, kPowState = 24;
 constexpr int kFexpF = 0, kFexpState = 70;
+constexpr int kTreeA = 0, kTreeState = 24, kTreeGroup = 8;
 
-// script rows (fexp_prog.py): (op, a, b)
-enum ScriptOp { kRun, kOne, kInv, kConst };
+// script rows (fexp_prog.py, tree_prog.py): (op, a, b)
+enum ScriptOp { kRun, kOne, kInv, kConst, kPair };
 
 // Lane i's chain over the block's G lanes: its 12 input values into slots
 // in_slot.., the script, then the 12 values at out_slot.. out.  Pad lanes
@@ -148,6 +165,59 @@ __global__ void __launch_bounds__(kProgMaxThreads)
                     gammas, k, prog, m);
 }
 
+// `levels` levels of the product tree over each aligned run of 2G input
+// lanes: lane t's A and B are input lanes 2t and 2t + 1 (pad lanes zero),
+// the script alternates the product program (RUN) and PAIR rows, and lanes
+// t < 2G >> levels end with the products of the block's runs of 2^levels
+// input lanes, stored to out's lanes >> levels lanes.  PAIR a b: slots
+// a..a+23 of lane t <- slots b..b+11 of lanes 2t and 2t + 1, worker q < 24
+// moving value q; every worker reads, then all write (K >= 24).
+template <int NW, int G>
+__global__ void __launch_bounds__(kProgMaxThreads)
+    f12_tree_split_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int lanes,
+                          int levels, const int32_t* __restrict__ script, int nsteps,
+                          FieldConsts k, const int32_t* __restrict__ prog, ProgMeta m) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x % G, wk = threadIdx.x / G, K = m.workers;
+  const SlotMem<NW, G> S{smem + t, m.stride};
+  uint32_t acc[NW];
+  for (int q = wk; q < kTreeState; q += K) {
+    const int64_t i = (int64_t)blockIdx.x * 2 * G + 2 * t + q / 12;
+    if (i < lanes) {
+      load_fp<NW>(acc, in, q % 12, lanes, i);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) acc[j] = 0;
+    }
+    S.put(q, acc);
+  }
+  __syncthreads();
+  for (int s = 0; s < nsteps; ++s) {
+    const int op = __ldg(script + 3 * s), a = __ldg(script + 3 * s + 1),
+              b = __ldg(script + 3 * s + 2);
+    if (op == kRun) {  // ends at the program's last barrier
+      run_phases<NW, G>(prog, a, b, K, wk, S, acc, k);
+      continue;
+    }
+    const int src = 2 * t + wk / 12;  // kPair
+    const bool moves = wk < kTreeState && src < G;
+    if (moves) {
+      const SlotMem<NW, G> from{smem + src, m.stride};
+      from.get(acc, b + wk % 12);
+    }
+    __syncthreads();
+    if (moves) S.put(a + wk, acc);
+    __syncthreads();
+  }
+  const int nout = (2 * G) >> levels;
+  const int64_t o = (int64_t)blockIdx.x * nout + t, n_out = lanes >> levels;
+  if (t >= nout || o >= n_out) return;
+  for (int q = wk; q < 12; q += K) {
+    S.get(acc, kTreeA + q);
+    store_fp<NW>(out, acc, q, n_out, o);
+  }
+}
+
 }  // namespace mlt
 
 using namespace mlt;
@@ -184,4 +254,25 @@ extern "C" int mlt_final_exp(const uint32_t* f_in, const int32_t* script, int ns
         f_in, out, lanes, script, nsteps, inv_bits, inv_nbits, gammas, make_consts(consts, NW),
         prog, m);
   }))
+}
+
+// lanes: the input's; its lanes >> levels products go to out.  The tree
+// runs in 8-lane blocks only (pairing_cuda.tree_shape).
+extern "C" int mlt_f12_tree(const uint32_t* in, uint32_t* out, int lanes, int levels,
+                            const int32_t* script, int nsteps, int L, const uint32_t* consts,
+                            const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+  constexpr int G = kTreeGroup;
+  const ProgMeta m = prog_meta(meta, 0);
+  if (m.group != G || m.workers < kTreeState || levels < 1 || (1 << levels) > 2 * G ||
+      lanes % (1 << levels))
+    return -1;
+  MLT_PAIR_DISPATCH(L, {
+    dim3 grid, block;
+    size_t smem;
+    if (!prog_launch_shape<NW, G>(f12_tree_split_kernel<NW, G>, m, kTreeState, lanes / 2, grid,
+                                  block, smem))
+      return -1;
+    f12_tree_split_kernel<NW, G><<<grid, block, smem, stream>>>(
+        in, out, lanes, levels, script, nsteps, make_consts(consts, NW), prog, m);
+  })
 }

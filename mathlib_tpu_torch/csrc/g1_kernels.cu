@@ -1,7 +1,6 @@
 // G1 group-law kernels for Hopper (sm_90a): port of
 // mathlib_tpu/ops/kernels/g1_pallas.py.
 //
-//   g1_double_kernel  <- g1_pallas.py:_double_kernel  (double_pallas)
 //   g1_smul_kernel    <- g1_pallas.py:_smul_kernel    (smul_pallas)
 //   g1_dbladd_kernel  <- g1_pallas.py:_dbladd_kernel  (dbladd_pallas)
 //   g1_addselneg_kernel  <- g1_pallas.py:_addselneg_kernel  (addselneg_pallas)
@@ -11,8 +10,9 @@
 //
 // The point formulas, the lane layout and the operation order that keeps
 // the relaxed limbs the reference's are in g1_rows.cuh (shared with the
-// hash-to-G1 kernel).  The add and addsel kernels (g1_pallas.py:_add_kernel,
-// _addsel_kernel) spread one add over six warps: g1_split_kernels.cu.
+// hash-to-G1 kernel).  The add, addsel and double kernels
+// (g1_pallas.py:_add_kernel, _addsel_kernel, _double_kernel) spread one
+// formula over the warps of a block: g1_split_kernels.cu.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
 // and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
@@ -32,17 +32,6 @@
 #include "g1_rows.cuh"
 
 namespace mlt {
-
-template <int NW>
-__global__ void g1_double_kernel(const uint32_t* __restrict__ P, uint32_t* __restrict__ out,
-                                 int n, FieldConsts k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> a;
-  load_point<NW>(a, P, n, i);
-  rcb_dbl<NW>(a, a, k, b3);
-  store_point<NW>(out, a, n, i);
-}
 
 // out = sel ? 2P + Q : 2P -- one step of a double-and-add ladder
 template <int NW>
@@ -211,12 +200,6 @@ using namespace mlt;
       return -1;                         \
   }                                      \
   return (int)cudaGetLastError();
-
-extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,
-                             const uint32_t* consts, int b3, cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_double_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, out, n, make_consts(consts, NW), b3))
-}
 
 extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,
                            int S, int nbits, const uint32_t* consts, int b3,

@@ -1,11 +1,12 @@
-// The MSM's two hottest G1 kernels for Hopper (sm_90a), one RCB complete add
-// spread over six warps: port of mathlib_tpu/ops/kernels/g1_pallas.py
+// The MSM's G1 kernels for Hopper (sm_90a), one RCB formula spread over the
+// warps of a block: port of mathlib_tpu/ops/kernels/g1_pallas.py
 //
 //   g1_add_kernel     <- g1_pallas.py:_add_kernel     (add_pallas)
 //   g1_addsel_kernel  <- g1_pallas.py:_addsel_kernel  (addsel_pallas)
+//   g1_double_kernel  <- g1_pallas.py:_double_kernel  (double_pallas)
 //
-// out = P + Q, and out = sel ? P + Q : Q (the MSM scan's combiner), on
-// (3, L, n) int32 words holding 16-bit limbs, Montgomery form, relaxed to
+// out = P + Q, out = sel ? P + Q : Q (the MSM scan's combiner), and out = 2P,
+// on (3, L, n) int32 words holding 16-bit limbs, Montgomery form, relaxed to
 // [0, 2p), as the other G1 kernels (g1_rows.cuh has the layout).
 //
 // What bounds them on an H100 is the integer multiply rate: an add is 12
@@ -28,12 +29,19 @@
 //   4. warps 0-2 form X3 = xa - xb, Y3 = ya + yb, Z3 = za + zb, one
 //      coordinate each, and store (Q's limbs where sel is 0).
 //
+// The doubling (RCB Alg 9, rcb_dbl) is 8 products in two layers of four
+// (Y Y, Y Z, Z Z, X Y; then t0m xy, t2 z3t, t0m y3t, t1 z3t) for 288 bytes:
+// the same design over four warps.  The MSM runs it at 16 lanes (one a
+// window) and Horner at one, so what it pays there is the latency of a
+// lane, two products instead of eight.
+//
 // A thread holds two operands and one product: no stack, no spill (ptxas'
 // report is on chip_smoke.py's build lines), and a lane waits for two
-// products, not twelve.  A block none of whose lanes adds copies Q.  Shared
-// memory: 12 slots of NW x 32 words (18 KB at NW = 12).  The field product
-// is fp_mul_ptx (PTX carry chains): 1-2 % faster than fp_mul in these
-// kernels on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+// products, not twelve or eight.  A block none of whose lanes adds copies
+// Q.  Shared memory: 12 slots of NW x 32 words (18 KB at NW = 12) for the
+// add, 7 for the doubling.  The field product is fp_mul_ptx (PTX carry
+// chains): 1-2 % faster than fp_mul in these kernels on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md section 6).
 //
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return cudaGetLastError() (or -1 for an unsupported L).
@@ -213,6 +221,95 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
   split_add<NW, true>(P, Q, sel, out, n, k, b3);
 }
 
+constexpr int kDblThreads = 4 * kSplitLanes;
+// blocks an SM must hold: caps the registers at 65,536 / (4 x 128) = 128
+constexpr int kDblMinBlocks = 4;
+
+// slots: 0-2 P's X, Y, Z, then (once the first layer has read them) the
+// second layer's dxa, dya, dyb; 3-6 the first layer's t0 = Y Y, t1 = Y Z,
+// zz = Z Z, xy = X Y, and dz over t1, which warp 3 alone reads
+template <int NW>
+using DblSlots = uint32_t[7][NW][kSplitLanes];
+
+// warp w's operands of the second layer: dxa = t0m xy, dya = t2 z3t,
+// dyb = t0m y3t, dz = t1 z3t, each middle value by rcb_dbl's operations in
+// rcb_dbl's order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
+// t0m = t0 - ((t2 + t2) + t2))
+template <int NW>
+__device__ __forceinline__ void dbl_mid(uint32_t* a, uint32_t* b, int w, const DblSlots<NW>& S,
+                                        int t, const FieldConsts& k, int b3) {
+  uint32_t t0[NW], u[NW];
+  slot_get<NW>(t0, S[3], t);
+  if (w == 1 || w == 3) {
+    fp_mul_small<NW>(b, t0, 8, k);  // z3t
+    if (w == 1) {
+      slot_get<NW>(u, S[5], t);
+      fp_mul_small<NW>(a, u, b3, k);  // t2
+    } else {
+      slot_get<NW>(a, S[4], t);  // t1
+    }
+    return;
+  }
+  slot_get<NW>(u, S[5], t);
+  fp_mul_small<NW>(u, u, b3, k);  // t2
+  if (w == 2) {
+    fp_add<NW>(b, t0, u, k);  // y3t
+  } else {
+    slot_get<NW>(b, S[6], t);  // xy
+  }
+  fp_add<NW>(a, u, u, k);
+  fp_add<NW>(a, a, u, k);  // t2_3
+  fp_sub<NW>(a, t0, a, k);  // t0m
+}
+
+// out = 2P for the 32 lanes of this block
+template <int NW>
+__device__ __forceinline__ void split_dbl(const uint32_t* __restrict__ P,
+                                          uint32_t* __restrict__ out, int n, const FieldConsts& k,
+                                          int b3) {
+  __shared__ DblSlots<NW> S;
+  const int t = threadIdx.x & (kSplitLanes - 1);
+  const int w = threadIdx.x / kSplitLanes;
+  const int64_t i = (int64_t)blockIdx.x * kSplitLanes + t;
+  const bool live = i < n;
+  if (w < 3) {  // 1. stage coordinate w of P
+    uint32_t v[NW] = {};
+    if (live) load_coord<NW>(v, P, w, n, i);
+    slot_put<NW>(S[w], v, t);
+  }
+  __syncthreads();
+  {  // 2. t0 = Y Y, t1 = Y Z, zz = Z Z, xy = X Y
+    uint32_t a[NW], b[NW];
+    slot_get<NW>(a, S[w == 2 ? 2 : w == 3 ? 0 : 1], t);
+    slot_get<NW>(b, S[w == 0 || w == 3 ? 1 : 2], t);
+    fp_mul_ptx<NW>(a, a, b, k);
+    slot_put<NW>(S[3 + w], a, t);
+  }
+  __syncthreads();
+  uint32_t a[NW], b[NW];  // 3. the middle values, then the second layer
+  dbl_mid<NW>(a, b, w, S, t, k, b3);
+  fp_mul_ptx<NW>(a, a, b, k);
+  slot_put<NW>(S[w == 3 ? 4 : w], a, t);
+  __syncthreads();
+  if (w < 3 && live) {  // 4. X3 = dxa + dxa, Y3 = dya + dyb, Z3 = dz
+    slot_get<NW>(a, S[w == 0 ? 0 : w == 1 ? 1 : 4], t);
+    if (w == 0) {
+      fp_add<NW>(a, a, a, k);
+    } else if (w == 1) {
+      slot_get<NW>(b, S[2], t);
+      fp_add<NW>(a, a, b, k);
+    }
+    store_coord<NW>(out, a, w, n, i);
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kDblThreads, kDblMinBlocks)
+    g1_double_kernel(const uint32_t* __restrict__ P, uint32_t* __restrict__ out, int n,
+                     FieldConsts k, int b3) {
+  split_dbl<NW>(P, out, n, k, b3);
+}
+
 inline dim3 split_grid(int n) { return dim3((unsigned)((n + kSplitLanes - 1) / kSplitLanes)); }
 
 }  // namespace mlt
@@ -248,4 +345,10 @@ extern "C" int mlt_g1_addsel(const uint32_t* P, const uint32_t* Q, const uint8_t
                              cudaStream_t stream) {
   MLT_DISPATCH(L, g1_addsel_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
+}
+
+extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,
+                             const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_DISPATCH(L, g1_double_kernel<NW><<<split_grid(n), kDblThreads, 0, stream>>>(
+                      P, out, n, make_consts(consts, NW), b3))
 }

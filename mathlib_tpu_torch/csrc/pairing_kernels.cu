@@ -1,35 +1,24 @@
-// Pairing kernels for Hopper (sm_90a): port of the product and Miller step
-// kernels of mathlib_tpu/ops/kernels/pairing_pallas.py (the Miller loops are
-// in miller_split_kernels.cu, the pow and final-exponentiation kernels in
-// fexp_split_kernels.cu).
+// Pairing kernels for Hopper (sm_90a): port of the Miller addition step
+// kernel of mathlib_tpu/ops/kernels/pairing_pallas.py (the Miller loops are
+// in miller_split_kernels.cu; the pow and final-exponentiation kernels and
+// the product tree in fexp_split_kernels.cu).
 //
-//   f12_pair_mul_kernel  <- _product_all_positions (:971), the rotation
-//                           all-reduce of _pairing_prod_kernel (:1188) and
-//                           _pairing_prod_seg_kernel (:1244)
 //   add_step_kernel      <- _add_step_kernel (:807): (f l_{T,Q}(P), T + Q)
 //
 // Layout (lanes.cuh): field elements are (..., L, B) 16-bit limbs in 32-bit
 // words, lane batch last, as everywhere in the port: xP, yP (L, B); Qx, Qy
 // (2, L, B); T (3, 2, L, B); an f12 (2, 3, 2, L, B).  One thread owns one
-// lane; limb pairs are packed into NW = L/2 words, and f, T and each step's
+// lane; limb pairs are packed into NW = L/2 words, and f, T and the step's
 // temporaries live on the thread's stack (local memory, cached in L1): an
 // f12 is 144 words and T 72 at NW = 12, far past the 255 registers a thread
 // has.
 //
-// The TPU kernels reduce lanes with rotate-and-multiply steps and carry the
-// product across their sequential grid in scratch.  Blocks run in parallel
-// and in no order on Hopper, so nothing carries across them: the product is
-// a separate tree, one launch per level, each multiplying lanes 2i and 2i+1
-// (aligned power-of-two segments reduce independently, a whole product in
-// log2(B) launches).
+// Bound on this card: integer multiplies.  An add step is 83 field muls
+// (BLS12-381) of 588 32-bit multiply-adds each (fp_rows.cuh).  What this
+// simple design leaves on the table: the stack traffic of the __noinline__
+// calls, and occupancy (one lane per thread).
 //
-// Bound on this card: integer multiplies.  The tree's f12 mul is 54 field
-// muls per pair, an add step 83 (BLS12-381), of 588 32-bit multiply-adds
-// each (fp_rows.cuh).  What this simple design leaves on the table: the
-// stack traffic of the __noinline__ calls, and occupancy (one lane per
-// thread).
-//
-// Every launcher runs on the caller's stream, allocates nothing, never
+// The launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
 #include <cuda_runtime.h>
 
@@ -40,20 +29,6 @@
 #include "tower_rows.cuh"
 
 namespace mlt {
-
-// out[:, i] = in[:, 2i] * in[:, 2i + 1] for i < half: one level of the
-// product tree.
-template <int NW>
-__global__ void f12_pair_mul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                                    int half, FieldConsts k, TowerConsts tc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= half) return;
-  F12<NW> a, b;
-  load_f12<NW>(a, in, 2 * (int64_t)half, 2 * i);
-  load_f12<NW>(b, in, 2 * (int64_t)half, 2 * i + 1);
-  f12_mul<NW>(a, a, b, k, tc);
-  store_f12<NW>(out, a, half, i);
-}
 
 // (f, T) <- (f * l_{T,Q}(P), T + Q) per lane
 template <int NW>
@@ -84,14 +59,6 @@ __global__ void add_step_kernel(const uint32_t* __restrict__ f_in, const uint32_
 }  // namespace mlt
 
 using namespace mlt;
-
-extern "C" int mlt_f12_pair_mul(const uint32_t* in, uint32_t* out, int half, int L,
-                                const uint32_t* consts, const int32_t* tower_ints,
-                                const uint32_t* tail, cudaStream_t stream) {
-  MLT_PAIR_DISPATCH(L, f12_pair_mul_kernel<NW><<<pair_grid(half), kPairThreads, 0, stream>>>(
-                           in, out, half, make_consts(consts, NW),
-                           tower_consts(tower_ints, tail, NW)))
-}
 
 extern "C" int mlt_pairing_add_step(const uint32_t* f_in, const uint32_t* t_in,
                                     const uint32_t* qx, const uint32_t* qy, const uint32_t* xp,

@@ -78,14 +78,16 @@ def bits_of(e: int, n: int = None) -> np.ndarray:
     return np.array([(e >> i) & 1 for i in range(n)], dtype=np.uint32)
 
 
+# The plain arithmetic runs many small tensor ops (a few lanes in the tests):
+# the pads call the aten op directly, without functional.pad's Python checks.
 def _shift_in(c: Tensor, fill: int = 0) -> Tensor:
     """out[..., k, :] = c[..., k-1, :]; out[..., 0, :] = fill (limb axis -2)."""
-    return torch.nn.functional.pad(c[..., :-1, :], (0, 0, 1, 0), value=fill)
+    return torch.constant_pad_nd(c[..., :-1, :], (0, 0, 1, 0), fill)
 
 
 def _pad_top(t: Tensor, n: int = 1) -> Tensor:
     """Append n zero limbs above the top limb."""
-    return torch.nn.functional.pad(t, (0, 0, 0, n))
+    return torch.constant_pad_nd(t, (0, 0, 0, n))
 
 
 @lru_cache(maxsize=None)
@@ -94,18 +96,20 @@ def _limb_index1(K: int, device: torch.device) -> Tensor:
     return torch.arange(1, K + 1, device=device).view(K, 1)
 
 
-def _normalize(t: Tensor) -> Tensor:
-    """Redundant non-negative int64 limbs (each < 2^47) -> canonical 16-bit
-    digits of the same value mod 2^(16K), K = t.shape[-2]."""
-    v = (t & LIMB_MASK) + _shift_in(t >> LIMB_BITS)
-    v = (v & LIMB_MASK) + _shift_in(v >> LIMB_BITS)  # now < 2^16 + 2^15
+def _normalize(t: Tensor, passes: int = 2) -> Tensor:
+    """Redundant non-negative int64 limbs (each < 2^47; < 2^31 with
+    ``passes=1``, the sums of add and sub) -> canonical 16-bit digits of the
+    same value mod 2^(16K), K = t.shape[-2]."""
+    v = t
+    for _ in range(passes):
+        v = (v & LIMB_MASK) + _shift_in(v >> LIMB_BITS)  # in the end < 2^16 + 2^15
     g = v >> LIMB_BITS  # 0/1: carry out of the limb whatever comes in
     keep = (v & LIMB_MASK) != LIMB_MASK  # does not pass an incoming carry on
     # 1 + the last non-propagating limb at or below k (0: none)
     last1 = torch.cummax(torch.where(keep, _limb_index1(v.shape[-2], v.device), 0), dim=-2).values
     # limb k takes the carry out of the last non-propagating limb below it;
     # row 0 of the padded g is the zero carry of "none"
-    cin = torch.gather(torch.nn.functional.pad(g, (0, 0, 1, 0)), -2, _shift_in(last1))
+    cin = torch.gather(torch.constant_pad_nd(g, (0, 0, 1, 0)), -2, _shift_in(last1))
     return (v + cin) & LIMB_MASK
 
 
@@ -116,12 +120,15 @@ def _conv(a: Tensor, b: Tensor) -> Tensor:
     prod = a.unsqueeze(-2) * b.unsqueeze(-3)  # (..., A, A2, B)
     lead, lanes = prod.shape[:-3], prod.shape[-1]
     prod = prod.reshape(lead + (A * A2, lanes))
-    idx = (
-        torch.arange(A, device=a.device)[:, None]
-        + torch.arange(A2, device=a.device)[None, :]
-    ).reshape(-1)
     out = torch.zeros(lead + (A + A2 - 1, lanes), dtype=torch.int64, device=a.device)
-    return out.index_add_(-2, idx, prod)
+    return out.index_add_(-2, _conv_index(A, A2, a.device), prod)
+
+
+@lru_cache(maxsize=None)
+def _conv_index(A: int, A2: int, device: torch.device) -> Tensor:
+    """(A * A2,) int64: the output limb i + j of each partial product."""
+    return (torch.arange(A, device=device)[:, None]
+            + torch.arange(A2, device=device)[None, :]).reshape(-1)
 
 
 def _i64(x: Tensor) -> Tensor:
@@ -158,6 +165,7 @@ class FpCtx:
         self.nprime_limbs = col((-pow(p, -1, self.R)) % self.R)
         self.r_minus_p = col(self.R - p)
         self.r_minus_2p = col(self.R - 2 * p)
+        self._r_minus_2p_top = _pad_top(self.r_minus_2p)
         # borrow-absorbing limbs of 2p + R: every limb >= 2^16 - 1, so
         # a + X - b never goes negative limbwise (see ``sub``)
         self.sub_offset = col(2 * p) + LIMB_MASK
@@ -221,7 +229,7 @@ class FpCtx:
         # s = a + b < 4p <= R, and s + (R - 2p) >= R iff s >= 2p: both
         # candidates normalised in one call
         s = _pad_top(a + b)
-        r, w = _normalize(torch.stack([s, s + _pad_top(self.r_minus_2p)]))
+        r, w = _normalize(torch.stack([s, s + self._r_minus_2p_top]), passes=1).unbind(0)
         L = self.L
         return torch.where((w[..., L, :] > 0).unsqueeze(-2), w[..., :L, :], r[..., :L, :])
 
@@ -230,7 +238,7 @@ class FpCtx:
         # digits are r = a - b + 2p < 4p, and v + (R - 2p) = a - b + 2R
         # reaches 2R iff r >= 2p: both candidates normalised in one call
         v = _pad_top(a + self.sub_offset - b)
-        r, w = _normalize(torch.stack([v, v + _pad_top(self.r_minus_2p)]))
+        r, w = _normalize(torch.stack([v, v + self._r_minus_2p_top]), passes=1).unbind(0)
         L = self.L
         return torch.where((w[..., L, :] >= 2).unsqueeze(-2), w[..., :L, :], r[..., :L, :])
 

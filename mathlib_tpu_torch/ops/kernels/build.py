@@ -82,9 +82,7 @@ SIGNATURES = {
     # xP, yP, Qx, Qy, bits, nbits, f out, T out, lanes, L, consts, tower ints,
     # tail words, program, program meta, stream
     "mlt_pairing_miller_ft": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # (csrc/pairing_kernels.cu) in, out, half, L, consts, tower ints, tail words, stream
-    "mlt_f12_pair_mul": [_P, _P, _I, _I, _P, _P, _P, _P],
-    # f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
+    # (csrc/pairing_kernels.cu) f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
     # tail words, stream
     "mlt_pairing_add_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # (csrc/fexp_split_kernels.cu) base, script, steps, out, lanes, L, consts,
@@ -93,6 +91,8 @@ SIGNATURES = {
     # f in, script, steps, inverse bits, n, gammas, out, lanes, L, consts,
     # program, program meta, stream
     "mlt_final_exp": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # in, out, lanes, levels, script, steps, L, consts, program, program meta, stream
+    "mlt_f12_tree": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     # (csrc/gather_kernels.cu) table, idx, idx is int64, out, M, Wr, stream
     "mlt_gather_rows": [_P, _P, _I, _P, _Q, _I, _P],
     "mlt_gather_rows_t": [_P, _P, _I, _P, _Q, _I, _P],

@@ -1,8 +1,9 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
 Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
-``csrc/g1_rows.cuh`` (``add`` and ``addsel``: ``csrc/g1_split_kernels.cu``,
-one add spread over six warps), each behind a wrapper here:
+``csrc/g1_rows.cuh`` (``add``, ``addsel`` and ``double``:
+``csrc/g1_split_kernels.cu``, one add spread over six warps, one doubling
+over four), each behind a wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)

@@ -4,7 +4,8 @@ final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 CUDA C++ in ``csrc/miller_split_kernels.cu`` (the Miller loops, one lane's
 loop spread over the warps of a block, running the programs of
 ``miller_prog``), ``csrc/fexp_split_kernels.cu`` (the power chain and the
-final exponentiation, the same way, running the programs of ``fexp_prog``),
+final exponentiation, the same way, running the programs of ``fexp_prog``,
+and the product tree, several levels a launch, running ``tree_prog``'s),
 ``csrc/pairing_kernels.cu`` and ``csrc/check_kernels.cu`` over
 ``csrc/tower_rows.cuh``, each kernel behind a wrapper here:
 
@@ -17,7 +18,7 @@ wrapper              computes                                   replaces (TPU ke
                                                                 (``_miller_conj_tail``,
                                                                 ``_mask_pad_to_one``)
 ``f12_seg_product``  product of each aligned segment of ``seg``  their rotation product
-                     lanes (a tree, one launch per level)       (``_product_all_positions``)
+                     lanes (a tree, 4 levels a launch)          (``_product_all_positions``)
 ``miller_ft``        per lane: (f, T) after the Miller loop     ``_miller_kernel``
                                                                 (``miller_pallas``)
 ``add_step``         per lane: (f l_{T,Q}(P), T + Q)            ``_add_step_kernel``
@@ -54,7 +55,7 @@ import numpy as np
 import torch
 
 from ..field import FpCtx
-from . import build, fexp_prog, miller_prog
+from . import build, fexp_prog, miller_prog, tree_prog
 from .tower_rows import MulBatch, RowTower
 
 Tensor = torch.Tensor
@@ -441,6 +442,60 @@ def _fexp_launch_args(cfg: TowerCfg, kind: str, device, lanes: int, steps_key, s
     return code, cfg._dev[skey], meta
 
 
+TREE_GROUP = 8  # lanes a block of the product tree (tree_shape; csrc's kTreeGroup)
+
+
+def tree_programs(cfg: MillerCfg, G: int):
+    """(programs, slots, slot words) of the product tree of ``cfg``'s curve
+    for a block of G lanes and ``MILLER_WORKERS[G]`` workers."""
+    tw = cfg.tower
+    progs = tree_prog.tree_programs(tw.n, tw.xi0, MILLER_WORKERS[G], 32 // G)
+    return progs, max(p.nslots for p in progs), slot_words(cfg.fp.L, G)
+
+
+def tree_shape(cfg: MillerCfg) -> Tuple[int, int]:
+    """(G, K) of the tree's launches: 8-lane blocks of 64 workers, whatever
+    the lane count.  A level is one f12 product a lane, and the levels are
+    serial, so the tree's time is its depth times a level's latency: with
+    K = 64 a block runs the product's 54 field products in one layer, a
+    worker each, the shortest level its programs have (8 phases at
+    BLS12-381, against 11 for 16- and 32-lane blocks, which took 0.2077 and
+    0.3014 ms at 4,096 lanes against 0.1588: PERF.md section 6)."""
+    G = TREE_GROUP
+    _, slots, words = tree_programs(cfg, G)
+    if slots * words * 4 > MILLER_SMEM:
+        raise ValueError(f"the tree's program needs {slots} slots of {4 * words} bytes, more "
+                         f"shared memory than a block has")
+    return G, MILLER_WORKERS[G]
+
+
+def tree_plan(cfg: MillerCfg, seg: int) -> Tuple[int, int, list]:
+    """(G, K, levels of each launch) of a product over segments of ``seg``
+    lanes: log2(seg) levels, at most log2(2G) of them a launch."""
+    G, K = tree_shape(cfg)
+    depth, most = seg.bit_length() - 1, tree_prog.max_levels(G)
+    return G, K, [min(most, depth - d) for d in range(0, depth, most)]
+
+
+def _tree_launch_args(cfg: MillerCfg, device, G: int, K: int, levels: int):
+    """(program, script, meta) of a tree launch of ``levels`` levels: the
+    program packed onto the card once per device and block, the script once
+    per device, block and level count."""
+    key = ("tree", str(device), G)
+    if key not in cfg._dev:
+        progs, slots, words = tree_programs(cfg, G)
+        code, ranges = miller_prog.pack(progs, K)
+        cfg._dev[key] = (torch.from_numpy(code).to(device), ranges,
+                         (ctypes.c_int32 * 4)(G, K, slots, words))
+    code, ranges, meta = cfg._dev[key]
+    skey = key + (levels,)
+    if skey not in cfg._dev:
+        script = fexp_prog.encode_steps(tree_prog.tree_steps(levels), tree_prog.TREE_PROGRAMS,
+                                        ranges)
+        cfg._dev[skey] = torch.from_numpy(script).to(device)
+    return code, cfg._dev[skey], meta
+
+
 def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
                  n: int) -> Tensor:
     """Per-lane Miller values (2, 3, 2, L, B) of affine G1 (xP, yP: (L, B))
@@ -464,16 +519,21 @@ def miller_lanes(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor,
 def f12_seg_product(cfg: MillerCfg, f: Tensor, seg: int) -> Tensor:
     """(2, 3, 2, L, B) -> (2, 3, 2, L, B/seg): one product per aligned
     segment of ``seg`` lanes (a power of two); ``seg == B`` multiplies all
-    lanes.  On the card: log2(seg) launches, each multiplying lane pairs."""
+    lanes.  On the card: log2(seg) levels of the plain version's tree, up to
+    4 of them a launch (``tree_plan``)."""
     if f.device.type == "cpu":
         return f12_seg_product_plain(cfg, f, seg)
     L, B = f.shape[-2:]
     _check(cfg, f, shapes=[(2, 3, 2, L, B)])
     _check_seg(f, seg)
-    while f.shape[-1] > B // seg:
-        half = f.shape[-1] // 2
-        out = torch.empty((2, 3, 2, L, half), dtype=torch.int32, device=f.device)
-        _launch("mlt_f12_pair_mul", f, cfg, f.data_ptr(), out.data_ptr(), half)
+    G, K, plan = tree_plan(cfg, seg)
+    for levels in plan:
+        prog, script, meta = _tree_launch_args(cfg, f.device, G, K, levels)
+        out = torch.empty((2, 3, 2, L, f.shape[-1] >> levels), dtype=torch.int32,
+                          device=f.device)
+        _launch("mlt_f12_tree", f, cfg, f.data_ptr(), out.data_ptr(), f.shape[-1], levels,
+                script.data_ptr(), len(script), extra=(prog.data_ptr(), ctypes.addressof(meta)),
+                tower=False)
         f12_seg_product.launches += 1
         f = out
     return f

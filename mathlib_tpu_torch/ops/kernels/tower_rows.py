@@ -32,7 +32,10 @@ Tensor = torch.Tensor
 
 
 def _stack(xs, dim: int) -> Tensor:
-    return torch.stack(torch.broadcast_tensors(*xs), dim=dim)
+    shape = xs[0].shape
+    if any(x.shape != shape for x in xs):
+        xs = torch.broadcast_tensors(*xs)
+    return torch.stack(xs, dim=dim)
 
 
 def _c(a: Tensor, i: int, dim: int) -> Tensor:
@@ -77,11 +80,11 @@ class RowTower:
         self.one = fp.one_mont  # (L, 1) int64
 
     # ---------------------------------------------------------- fp helpers --
-    def add(self, a, b):
-        return self.fp._add64(*torch.broadcast_tensors(a, b))
+    def add(self, a, b):  # the sums broadcast
+        return self.fp._add64(a, b)
 
     def sub(self, a, b):
-        return self.fp._sub64(*torch.broadcast_tensors(a, b))
+        return self.fp._sub64(a, b)
 
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)

@@ -99,6 +99,20 @@ def test_six_warp_add_kernels_equal_plain_versions(ctx, n):
     assert {k: v for k, v in g1_cuda.launches().items() if v} == {"add": 3, "addsel": 9}
 
 
+@pytest.mark.parametrize("n", [1, 16, 33, 4097])
+def test_four_warp_double_equals_the_plain_version(ctx, n):
+    """double (32 lanes a block: ragged last blocks) on canonical points with
+    infinity lanes, their negations, and relaxed sums with P = Q and P = -Q
+    lanes (infinity with relaxed limbs), against its plain version."""
+    eng, g1 = ctx
+    F = g1.F
+    P, Q = _edge_points(eng, g1, n, n + 1)
+    g1_cuda.reset_launches()
+    for a in (P, g1.neg(P), g1_cuda.add_plain(F, P, Q)):
+        assert torch.equal(g1_cuda.double(F, a), g1_cuda.double_plain(F, a))
+    assert {k: v for k, v in g1_cuda.launches().items() if v} == {"double": 3}
+
+
 def test_six_warp_add_kernels_write_into_a_capture_buffer(ctx):
     """out= a step ys[s] of a (K, 3, L, n) buffer: the kernels write that step
     in place and leave the others alone."""
@@ -285,7 +299,7 @@ def test_pairing_kernels_equal_plain_versions(pair_ctx):
         assert torch.equal(pairing_cuda.f12_seg_product(cfg, f, seg),
                            pairing_cuda.f12_seg_product_plain(cfg, f, seg))
     assert fp_cuda.launches() == {"mont_mul": 1, "fp_pow": 0}
-    assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 6, "miller_ft": 0,
+    assert pairing_cuda.launches() == {"miller_lanes": 1, "f12_seg_product": 1 + 2, "miller_ft": 0,
                                        "add_step": 0, "f12_pow": 0, "final_exp": 0,
                                        "pairing_check": 0}
 
@@ -357,6 +371,36 @@ def test_split_fexp_kernels_equal_plain_versions(pair_ctx, monkeypatch):
                         assert torch.equal(got, want[cyclo][..., :n]), (G, n, cyclo)
                         launches[kind] += 1
     assert {k: v for k, v in pairing_cuda.launches().items() if k in launches} == launches
+
+
+def _f12_lanes(be, n, seed):
+    """n lanes of random relaxed [0, 2p) f12 values on the card."""
+    p, L = be.fp.p, be.fp.L
+    rng = np.random.default_rng(seed)
+    vals = np.array([[int.from_bytes(rng.bytes(64), "big") % (2 * p) for _ in range(n)]
+                     for _ in range(12)], dtype=object)
+    limbs = np.stack([(vals >> (16 * k)) & 0xFFFF for k in range(L)], axis=1).astype(np.int32)
+    return torch.from_numpy(limbs.reshape(2, 3, 2, L, n)).cuda()
+
+
+def test_split_tree_equals_the_plain_version(pair_ctx):
+    """f12_seg_product with seg 2, 64 and the whole batch on 1, 2, 64 and
+    4,096 lanes, and on 61 lanes padded with ones by ``tree_width``, against
+    the plain version; the launches a call are ``tree_plan``'s."""
+    eng, be = pair_ctx
+    cfg = be.pair.cfg
+    f = _f12_lanes(be, 4096, 15)
+    one = cfg.tower.f12_one_like(3, f.device).to(torch.int32)
+    padded = torch.cat([f[..., :61], one], dim=-1)
+    assert padded.shape[-1] == pairing_cuda.tree_width(61)
+    for a in [f[..., :n].contiguous() for n in (1, 2, 64, 4096)] + [padded]:
+        B = a.shape[-1]
+        for seg in sorted({s for s in (2, 64, B) if s <= B}):
+            pairing_cuda.reset_launches()
+            got = pairing_cuda.f12_seg_product(cfg, a, seg)
+            assert torch.equal(got, pairing_cuda.f12_seg_product_plain(cfg, a, seg)), (B, seg)
+            want = len(pairing_cuda.tree_plan(cfg, seg)[2])
+            assert pairing_cuda.launches()["f12_seg_product"] == want, (B, seg)
 
 
 def test_product_check_on_the_card(pair_ctx):

@@ -202,6 +202,64 @@ def test_add_wrappers_refuse_a_bad_out(ctx):
     assert torch.equal(g1_cuda.add(port.F, P, Q, out=ok), g1_cuda.add_plain(port.F, P, Q))
 
 
+def _split_dbl_model(P, p, L, b3):
+    """``split_dbl`` (csrc/g1_split_kernels.cu) on one lane's Python ints,
+    warp by warp: the first layer's four products, each warp's middle values
+    by ``rcb_dbl``'s operations in its order and its second-layer product,
+    then X3, Y3, Z3 as warps 0-2 form them (relaxed [0, 2p) arithmetic, the
+    CIOS product's REDC output)."""
+    R = 1 << (16 * L)
+    npf = (-pow(p, -1, R)) % R
+
+    def mul(a, b):
+        t = a * b
+        return (t + (t * npf % R) * p) // R
+
+    def add(a, b):
+        return a + b - 2 * p if a + b >= 2 * p else a + b
+
+    def sub(a, b):
+        return a - b + 2 * p if a < b else a - b
+
+    def small(a, m):  # fp_mul_small: the add chain, MSB first
+        acc = a
+        for bit in bin(m)[3:]:
+            acc = add(acc, acc)
+            if bit == "1":
+                acc = add(acc, a)
+        return acc
+
+    X, Y, Z = P
+    t0, t1, zz, xy = mul(Y, Y), mul(Y, Z), mul(Z, Z), mul(X, Y)
+
+    def mid(w):  # warp w's operands of the second layer
+        if w in (1, 3):
+            return (small(zz, b3) if w == 1 else t1), small(t0, 8)
+        t2 = small(zz, b3)
+        t0m = sub(t0, add(add(t2, t2), t2))
+        return t0m, add(t0, t2) if w == 2 else xy
+
+    dxa, dya, dyb, dz = (mul(*mid(w)) for w in range(4))
+    return add(dxa, dxa), add(dya, dyb), dz
+
+
+def test_split_dbl_model_equals_double_plain(ctx):
+    """The four-warp doubling's order of operations, modelled on Python ints,
+    equals ``double_plain`` limb for limb (held to the reference's doubling
+    in ``test_add_and_double_match_reference``) on random points, their
+    negations, infinity and relaxed [p, 2p) limbs."""
+    eng, _, port = ctx
+    left, right = _lanes(eng, seed=4)
+    pts = port.encode_points(left + [eng.g1.neg(x) if x else None for x in left])
+    pts = torch.cat([pts, port.add(pts[..., :8], port.encode_points(right))], dim=-1)
+    L, p = port.fp.L, port.fp.p
+    ints = lambda t: (t.to(torch.int64).numpy().astype(object)  # noqa: E731
+                      * np.array([1 << (16 * k) for k in range(L)], dtype=object)[:, None]
+                      ).sum(axis=1).T.tolist()
+    want = ints(g1_cuda.double_plain(port.F, pts))
+    assert [list(_split_dbl_model(P, p, L, port.F.b3)) for P in ints(pts)] == want
+
+
 def test_dbl_add_select_neg_is_inf_match_reference(bls):
     eng, ref, port = bls
     _, _, a, b, s = _relaxed_inputs(eng, ref, port, seed=1)
