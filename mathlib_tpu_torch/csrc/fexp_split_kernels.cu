@@ -5,7 +5,10 @@
 //   f12_pow_split_kernel   <- _f12_pow_kernel (:828): f^e per lane, e's
 //                             MSB-first bits, cyclotomic or plain squaring
 //   final_exp_split_kernel <- _final_exp_kernel (:914): the whole BLS12 final
-//                             exponentiation (factor-3 chain) per lane
+//                             exponentiation (factor-3 chain) per lane; on
+//                             BN curves the whole final exponentiation (the
+//                             easy part around _fp_pow_kernel (:1291) and one
+//                             _f12_pow_kernel a base-p digit) by a BN script
 //   f12_tree_split_kernel  <- _product_all_positions (:971), the product of
 //                             _pairing_prod_kernel (:1188) and
 //                             _pairing_prod_seg_kernel (:1244): several

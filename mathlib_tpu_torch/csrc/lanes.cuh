@@ -1,7 +1,6 @@
 // Lane I/O and launch helpers shared by the pairing kernel sources
-// (pairing_kernels.cu, check_kernels.cu; the tower constants and the L
-// dispatch also miller_split_kernels.cu, the L dispatch
-// fexp_split_kernels.cu): one thread owns one lane of (..., L, B) limb
+// (check_kernels.cu; the tower constants and the L dispatch also
+// miller_split_kernels.cu, the L dispatch fexp_split_kernels.cu): one thread owns one lane of (..., L, B) limb
 // arrays (16-bit limbs in 32-bit words, lane batch last); T is
 // (3, 2, L, B), an f12 (2, 3, 2, L, B) = (12, L, B) with coefficient
 // q = (h*3 + j)*2 + c.

@@ -6,10 +6,13 @@
 //                                and _pairing_prod_seg_kernel (:1244)
 //   miller_ft_split_kernel    <- _miller_kernel (:788): (f, T) after the
 //                                loop, no conjugation and no tail
+//   add_step_split_kernel     <- _add_step_kernel (:807): (f l_{T,Q}(P),
+//                                T + Q), BN's chord steps after miller_ft
 //
-// They compute what miller_lane and miller_loop (tower_rows.cuh) compute,
-// add for add and product for product, so the relaxed [0, 2p) limbs that
-// come out are the one-thread functions' and the plain versions'.
+// They compute what miller_lane, miller_loop, add_step and f12_sparse_mul
+// (tower_rows.cuh) compute, add for add and product for product, so the
+// relaxed [0, 2p) limbs that come out are the one-thread functions' and the
+// plain versions'.
 //
 // What bounds them on an H100 is the integer multiply rate: a BLS12-381 lane
 // runs 63 doubling iterations (117 field products each: dbl_step 39,
@@ -64,12 +67,16 @@
 // kernels above their bound is the interpreter's latency (prog_interp.cuh
 // has its costs), and each phase ends at a barrier.
 //
+// The addition step alone (one program: add_step then the sparse product,
+// 83 products at the M-twist) runs the same way: f, T, xP, yP, Qx and Qy
+// into their loop slots, the program, f and T out.
+//
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return cudaGetLastError() (or -1 for an unsupported L,
 // group size or block).  The program and its host meta (G, K, slots, words
 // a slot, then the phase ranges [begin, end) of the doubling,
-// doubling-and-addition and tail programs) come after the one-thread
-// launchers' arguments.
+// doubling-and-addition and tail programs, or of the addition step's) come
+// after the one-thread launchers' arguments.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +91,7 @@ namespace mlt {
 // Qy 22-23, tail constants 24-31
 constexpr int kSlotT = 12, kSlotXP = 18, kSlotYP = 19, kSlotQx = 20, kSlotQy = 22;
 constexpr int kSlotTail = 24, kStateSlots = 32;
+constexpr int kAddState = 24;  // the addition step's: f, T, xP, yP, Qx, Qy
 
 // Lane i's Miller loop over the block's G lanes: state into shared memory,
 // one program a loop bit (and the tail program when LANES), then f (and T
@@ -166,6 +174,51 @@ __global__ void __launch_bounds__(kProgMaxThreads)
                              prog, m);
 }
 
+// (f, T) <- (f l_{T,Q}(P), T + Q) per lane over the block's G lanes: the
+// state into its loop slots, the program, f and T out.  Pad lanes run on
+// zeros and are never stored.
+template <int NW, int G>
+__global__ void __launch_bounds__(kProgMaxThreads)
+    add_step_split_kernel(const uint32_t* __restrict__ f_in, const uint32_t* __restrict__ t_in,
+                          const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                          const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                          uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out,
+                          int lanes, FieldConsts k, const int32_t* __restrict__ prog,
+                          ProgMeta m) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x % G, wk = threadIdx.x / G, K = m.workers;
+  const int64_t i = (int64_t)blockIdx.x * G + t;
+  const SlotMem<NW, G> S{smem + t, m.stride};
+  uint32_t acc[NW];
+  for (int q = wk; q < kAddState; q += K) {
+    if (i < lanes) {
+      const uint32_t* src = q < kSlotT    ? f_in
+                            : q < kSlotXP ? t_in
+                            : q == kSlotXP ? xp
+                            : q == kSlotYP ? yp
+                            : q < kSlotQy  ? qx
+                                           : qy;
+      const int c = q < kSlotT ? q : q < kSlotXP ? q - kSlotT : q < kSlotQx ? 0 : q % 2;
+      load_fp<NW>(acc, src, c, lanes, i);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) acc[j] = 0;
+    }
+    S.put(q, acc);
+  }
+  __syncthreads();
+  run_phases<NW, G>(prog, m.range[0][0], m.range[0][1], K, wk, S, acc, k);
+  if (i >= lanes) return;
+  for (int q = wk; q < kSlotXP; q += K) {
+    S.get(acc, q);
+    if (q < kSlotT) {
+      store_fp<NW>(f_out, acc, q, lanes, i);
+    } else {
+      store_fp<NW>(t_out, acc, q - kSlotT, lanes, i);
+    }
+  }
+}
+
 }  // namespace mlt
 
 using namespace mlt;
@@ -206,5 +259,23 @@ extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, con
     miller_ft_split_kernel<NW, G><<<grid, block, smem, stream>>>(
         xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes, make_consts(consts, NW),
         tower_consts(tower_ints, tail, NW), prog, m);
+  }))
+}
+
+extern "C" int mlt_pairing_add_step(const uint32_t* f_in, const uint32_t* t_in,
+                                    const uint32_t* qx, const uint32_t* qy, const uint32_t* xp,
+                                    const uint32_t* yp, uint32_t* f_out, uint32_t* t_out,
+                                    int lanes, int L, const uint32_t* consts,
+                                    const int32_t* prog, const int32_t* meta,
+                                    cudaStream_t stream) {
+  const ProgMeta m = prog_meta(meta, 1);
+  MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
+    dim3 grid, block;
+    size_t smem;
+    if (!prog_launch_shape<NW, G>(add_step_split_kernel<NW, G>, m, kAddState, lanes, grid,
+                                  block, smem))
+      return -1;
+    add_step_split_kernel<NW, G><<<grid, block, smem, stream>>>(
+        f_in, t_in, qx, qy, xp, yp, f_out, t_out, lanes, make_consts(consts, NW), prog, m);
   }))
 }

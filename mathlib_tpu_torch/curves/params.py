@@ -77,6 +77,15 @@ class CurveSpec:
         return self.easy_exp * self.hard_part_exp
 
 
+def hard_part_digits(spec) -> Tuple[int, ...]:
+    """The base-p digits of ``spec.hard_part_exp``, lowest first."""
+    digits, e = [], spec.hard_part_exp
+    while e:
+        digits.append(e % spec.p)
+        e //= spec.p
+    return tuple(digits)
+
+
 # ---------------------------------------------------------------------------
 # family polynomial constructions
 # ---------------------------------------------------------------------------

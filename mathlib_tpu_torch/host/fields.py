@@ -21,7 +21,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Optional, Tuple
 
-from ..curves.params import CurveSpec, _f2_sqrt, _fp_sqrt
+from ..curves.params import CurveSpec, _f2_sqrt, _fp_sqrt, hard_part_digits
 
 Fp2 = Tuple[int, int]
 Fp6 = Tuple[Fp2, Fp2, Fp2]
@@ -242,16 +242,11 @@ class Tower:
         the hard part by Frobenius-decomposed multi-exponentiation of
         spec.hard_part_exp (= fexp_factor * (p^4-p^2+1)/r; see params.py).
         """
-        p = self.p
         # easy part
         t = self.f12_mul(self.f12_conj(f), self.f12_inv(f))  # f^(p^6-1)
         f = self.f12_mul(self.f12_frob(t, 2), t)  # ^(p^2+1)
         # hard part: decompose exponent in base p, share squarings
-        e = self.spec.hard_part_exp
-        digits = []
-        while e:
-            digits.append(e % p)
-            e //= p
+        digits = hard_part_digits(self.spec)
         bases = [f]
         for _ in range(len(digits) - 1):
             bases.append(self.f12_frob(bases[-1], 1))

@@ -25,7 +25,7 @@ import threading
 from functools import lru_cache
 from typing import Optional
 
-from ..curves.params import CurveSpec, Family
+from ..curves.params import CurveSpec, Family, hard_part_digits
 from .engine import HostEngine
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -176,11 +176,7 @@ def _build_cfg(spec: CurveSpec, tower) -> bytes:
         co.fp(tower.frob_w[1]),
     ]
     # base-p digits of the hard-part exponent (as fields.py f12_final_exp)
-    e = spec.hard_part_exp
-    digits = []
-    while e:
-        digits.append(e % spec.p)
-        e //= spec.p
+    digits = hard_part_digits(spec)
     parts.append(u32(len(digits)))
     parts += [d.to_bytes(co.fb, "little") for d in digits]
     return b"".join(parts)

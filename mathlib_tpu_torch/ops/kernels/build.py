@@ -82,8 +82,8 @@ SIGNATURES = {
     # xP, yP, Qx, Qy, bits, nbits, f out, T out, lanes, L, consts, tower ints,
     # tail words, program, program meta, stream
     "mlt_pairing_miller_ft": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # (csrc/pairing_kernels.cu) f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, tower ints,
-    # tail words, stream
+    # f in, T in, Qx, Qy, xP, yP, f out, T out, lanes, L, consts, program,
+    # program meta, stream
     "mlt_pairing_add_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # (csrc/fexp_split_kernels.cu) base, script, steps, out, lanes, L, consts,
     # program, program meta, stream

@@ -21,7 +21,17 @@ K workers, as the Miller programs are:
   fixed steps between them (``CHAINS``): ``step1`` y = acc conj(f1),
   ``step2`` y = acc conj(y), ``step3`` y = acc frob(y), ``copy_x`` (the
   fifth chain's base is the fourth's result), ``step5a``
-  y = (acc frob^2(y)) conj(y), and ``step5b``, the output y (f1^2 f1).
+  y = (acc frob^2(y)) conj(y), and ``step5b``, the output y (f1^2 f1);
+* ``final_exp_bn``, BN curves' whole final exponentiation in
+  ``final_exp_bn_plain``'s order: the same ``pre``, inverse and ``post``
+  (f1, the easy part), then one chain a base-p digit d_i of the hard-part
+  exponent, lowest first (``BN_PROGRAMS``: ``load``, acc = f1 for d_i's
+  leading one, then ``sqr`` and ``sqrmul``, the cyclotomic squaring and
+  the multiply by f1, over the bits after it), each folded into the
+  running product y: ``copy`` (y = acc, after digit 0), then
+  ``frob_odd`` / ``frob_even`` (y = y frob^i(acc), gamma_i in GAM).  y
+  lives in F's slots, dead once ``post`` has read the input, so the last
+  product lands in the output slot.
 
 A 32-lane block at 12 words has room for 151 slots.  So the programs are
 scheduled with at most K products a layer and each linear value in the last
@@ -33,9 +43,10 @@ squarings, the bulk of every chain, also recompute up to two operands a
 worker in their last gap (``recompute``): at BLS12-381 a cyclotomic squaring
 is then 5 phases and 14 instructions on its critical worker, not 6 and 21.
 
-Each chain starts from acc = 1.  The values are those of the one-thread
-chains and of the plain versions ``f12_pow_plain`` and ``final_exp_plain``,
-limb for limb: ``emulate`` runs a kernel's whole script on Python integers,
+Each chain starts from acc = 1, BN's digit chains from acc = f1.  The
+values are those of the one-thread chains and of the plain versions
+``f12_pow_plain``, ``final_exp_plain`` and ``final_exp_bn_plain``, limb for
+limb: ``emulate`` runs a kernel's whole script on Python integers,
 and the tests hold it to the plain versions.
 
 Fixed slots (an f12 is 12 slots in the kernels' coefficient order
@@ -46,6 +57,7 @@ q = (h * 3 + j) * 2 + c):
                 output), F1 12, Y 24, ACC 36, GAM 48, the inverse's
                 cofactors C 60 (an f6), its f2 norm N2 66, its base-field
                 norm NORM 68 and inverse NINV 69; 70 state slots
+    final_exp_bn: the same, Y unused (y is F)
 """
 
 from __future__ import annotations
@@ -75,6 +87,11 @@ GAMMA_OF = {"post": 2, "step3": 1, "step5a": 2}  # the kernel writes gamma_n int
 KEEP = {"pre": (F,), "post": (), "sqr": (F1, Y, X), "sqrmul_f1": (F1,), "sqrmul_y": (F1, Y),
         "sqrmul_x": (F1, Y, X), "conj": (F1, Y, X), "step1": (F1,), "step2": (F1,),
         "step3": (F1,), "copy_x": (F1, Y), "step5a": (F1,), "step5b": ()}
+# final_exp_bn: the digit chains read f1 and must keep y (in F) between them
+BN_PROGRAMS = ("pre", "post", "load", "sqr", "sqrmul", "copy", "frob_odd", "frob_even")
+KEEP_BN = {"pre": (F,), "post": (), "load": (F1, F), "sqr": (F1, F), "sqrmul": (F1, F),
+           "copy": (F1,), "frob_odd": (F1,), "frob_even": (F1,)}
+BN_DIGITS = 4  # the constants reach gamma_3: digits 0-3
 
 
 def _f12(g: mp.Graph, s: int):
@@ -143,6 +160,32 @@ def trace_fexp(kind: str, n: int, xi0: int):
     return g, outs, [s for s in range(FEXP_STATE) if s not in keep]
 
 
+def trace_fexp_bn(kind: str, n: int, xi0: int):
+    """(graph, {slot: node}, free slots) of one BN final-exp program
+    (``BN_PROGRAMS``)."""
+    if kind in ("pre", "post"):
+        g, outs, _ = trace_fexp(kind, n, xi0)
+    else:
+        g = mp.Graph()
+        tw = mp.Tower(g, n, xi0, False)
+        f12 = lambda s: _f12(g, s)  # noqa: E731
+        if kind == "load":
+            outs = _out(f12(F1), FX_ACC)
+        elif kind == "sqr":
+            outs = _out(tw.f12_cyclo_sqr(f12(FX_ACC)), FX_ACC)
+        elif kind == "sqrmul":
+            outs = _out(tw.f12_mul(tw.f12_cyclo_sqr(f12(FX_ACC)), f12(F1)), FX_ACC)
+        elif kind == "copy":
+            outs = _out(f12(FX_ACC), F)
+        elif kind in ("frob_odd", "frob_even"):  # y = y frob^i(acc)
+            part = tw.f12_frob(f12(FX_ACC), f12(GAM), 1 if kind == "frob_odd" else 2)
+            outs = _out(tw.f12_mul(f12(F), part), F)
+        else:
+            raise ValueError(f"no BN final-exp program {kind!r}")
+    keep = set(_slots(*KEEP_BN[kind]))
+    return g, outs, [s for s in range(FEXP_STATE) if s not in keep]
+
+
 SQUARINGS = ("sqr", "sqr_cyclo")  # recompute shortens their last phases (not the others')
 
 
@@ -171,12 +214,19 @@ def fexp_programs(n: int, xi0: int, K: int, per_warp: int = 1) -> Tuple[mp.Progr
                  for kind in FEXP_PROGRAMS)
 
 
+@lru_cache(maxsize=None)
+def fexp_bn_programs(n: int, xi0: int, K: int, per_warp: int = 1) -> Tuple[mp.Program, ...]:
+    """The BN final-exp programs of one curve, in ``BN_PROGRAMS``' order."""
+    return tuple(_build(kind, trace_fexp_bn(kind, n, xi0), FEXP_STATE, K, per_warp)
+                 for kind in BN_PROGRAMS)
+
+
 # ------------------------------------------------------------------- scripts --
 # A kernel's run is a script of steps (csrc/fexp_split_kernels.cu), one
 # (op, a, b) row each: RUN the phases [a, b) of a program; ONE: the f12 one
 # into slots a..a+11; INV: S[b] = S[a]^(p - 2) by one worker, over the
 # kernel's inverse bits; CONST: the 12 values b..b+11 of the kernel's
-# constants (gamma_1, then gamma_2) into slots a..a+11.  The bits of the
+# constants (gamma_1, gamma_2, then gamma_3) into slots a..a+11.  The bits of the
 # exponent, |x| and x's sign are in the script; the host builds it once per
 # exponent, so one build of the kernels serves every curve and exponent.
 RUN, ONE, INV, CONST = range(4)
@@ -208,6 +258,32 @@ def fexp_steps(x_bits, x_neg: bool) -> list:
     return out
 
 
+def check_bn_digits(digit_bits) -> None:
+    """ValueError unless there are 1 to ``BN_DIGITS`` digits, each one's
+    MSB-first bits led by a one (every digit > 0)."""
+    if not 0 < len(digit_bits) <= BN_DIGITS:
+        raise ValueError(f"the BN script takes 1 to {BN_DIGITS} digits, got {len(digit_bits)}")
+    if not all(len(bits) and bits[0] for bits in digit_bits):
+        raise ValueError("each BN digit's bits must start with its leading one")
+
+
+def fexp_bn_steps(digit_bits) -> list:
+    """final_exp_bn's steps: the easy part as ``fexp_steps``', then one
+    cyclotomic chain a digit, lowest digit first: acc = f1 for the leading
+    one, one program for each bit after it; each chain folded into y as
+    ``final_exp_bn_plain`` folds it."""
+    check_bn_digits(digit_bits)
+    out = [(RUN, "pre"), (INV, NORM, NINV), (CONST, GAM, 12), (RUN, "post")]
+    for i, bits in enumerate(digit_bits):
+        out.append((RUN, "load"))
+        out.extend((RUN, "sqrmul" if b else "sqr") for b in bits[1:])
+        if i:
+            out += [(CONST, GAM, 12 * (i - 1)), (RUN, "frob_odd" if i % 2 else "frob_even")]
+        else:
+            out.append((RUN, "copy"))
+    return out
+
+
 def encode_steps(steps, names, ranges) -> np.ndarray:
     """The (n, 3) int32 script of ``steps``; ``names`` and ``ranges`` are the
     programs' names and ``miller_prog.pack``'s phase ranges."""
@@ -222,7 +298,8 @@ def emulate(progs: Dict[str, mp.Program], steps, lanes: List[List[int]], in_slot
     """A kernel's run on Python integers, lane by lane: the lane's 12 input
     values (Montgomery form, the kernels' coefficient order) into
     ``in_slot``, the steps (the programs by name), the 12 values at
-    ``out_slot`` out.  ``consts``: gamma_1's 12 values, then gamma_2's."""
+    ``out_slot`` out.  ``consts``: gamma_1's 12 values, then gamma_2's
+    (and gamma_3's)."""
     R = 1 << (16 * L)
     npf = (-pow(p, -1, R)) % R
     one = R % p

@@ -6,8 +6,9 @@ but each step of it is a few layers of products that do not depend on each
 other: the reference stacks each such layer into one ``MulBatch``
 (``mathlib_tpu/ops/kernels/pairing_pallas.py RowTower``).  This module traces
 one doubling iteration (``dbl_step``, ``f12_sqr``, ``f12_sparse_mul``), one
-doubling iteration followed by an addition step, and the end of the loop (the
-conjugation and the BN chord steps), operation for operation as
+doubling iteration followed by an addition step, the end of the loop (the
+conjugation and the BN chord steps), and one addition step alone (the
+``add_step`` kernel: the BN tail of ``miller_loop``), operation for operation as
 ``csrc/tower_rows.cuh`` computes them, into a graph of base-field adds, subs,
 negations and Montgomery products, and schedules each graph for a block of
 ``K`` workers:
@@ -65,6 +66,7 @@ LOAD, STORE = 16, 32
 # (6, L, B) T, and of TowerConsts.tail)
 F_SLOT, T_SLOT, XP_SLOT, YP_SLOT, QX_SLOT, QY_SLOT, TAIL_SLOT = 0, 12, 18, 19, 20, 22, 24
 N_STATE = 32
+ADD_STATE = 24  # the add_step kernel's state: no tail constants
 
 
 class Graph:
@@ -327,12 +329,16 @@ def _t_outputs(T) -> Dict[int, int]:
 def trace(kind: str, n: int, xi0: int, twist_m: bool, conj_end: bool = False,
           bn_tail: bool = False):
     """(graph, {slot: node}) of one program: "dbl" (a doubling iteration),
-    "dbladd" (one followed by an addition step), or "tail" (the end of
-    ``miller_lane``: conjugation when ``conj_end``, the BN chord steps when
-    ``bn_tail``; f only)."""
+    "dbladd" (one followed by an addition step), "add" (an addition step
+    alone: ``add_step_kernel``'s f l_{T,Q}(P) and T + Q), or "tail" (the
+    end of ``miller_lane``: conjugation when ``conj_end``, the BN chord
+    steps when ``bn_tail``; f only)."""
     g = Graph()
     tw = Tower(g, n, xi0, twist_m)
     f, T, xP, yP, Qx, Qy, tail = _state(g)
+    if kind == "add":
+        line, T = tw.add_step(T, Qx, Qy, xP, yP)
+        return g, {**_f12_outputs(tw.f12_sparse_mul(f, line)), **_t_outputs(T)}
     if kind in ("dbl", "dbladd"):
         line, T = tw.dbl_step(T, xP, yP)
         f = tw.f12_sparse_mul(tw.f12_sqr(f), line)
@@ -747,24 +753,31 @@ def align(prog: Program, per_warp: int) -> None:
                 ph[w0 + w] = code + rest
 
 
+def _scheduled(traced, K: int, per_warp: int, n_state: int = N_STATE) -> Program:
+    prog = schedule(*traced, K, n_state)
+    check_races(prog)
+    if per_warp > 1:
+        align(prog, per_warp)
+    return prog
+
+
 @lru_cache(maxsize=None)
 def programs(n: int, xi0: int, twist_m: bool, conj_end: bool, bn_tail: bool, K: int,
              per_warp: int = 1):
     """(dbl, dbladd, tail) programs of one curve for K workers, ``per_warp``
     of them to a warp; tail is None when the loop's end does nothing (no
     conjugation and no BN tail)."""
-    out = []
-    for kind in ("dbl", "dbladd", "tail"):
-        if kind == "tail" and not (conj_end or bn_tail):
-            out.append(None)
-            continue
-        g, outs = trace(kind, n, xi0, twist_m, conj_end, bn_tail)
-        prog = schedule(g, outs, K)
-        check_races(prog)
-        if per_warp > 1:
-            align(prog, per_warp)
-        out.append(prog)
-    return tuple(out)
+    return tuple(
+        None if kind == "tail" and not (conj_end or bn_tail)
+        else _scheduled(trace(kind, n, xi0, twist_m, conj_end, bn_tail), K, per_warp)
+        for kind in ("dbl", "dbladd", "tail"))
+
+
+@lru_cache(maxsize=None)
+def add_program(n: int, xi0: int, twist_m: bool, K: int, per_warp: int = 1) -> Program:
+    """The addition step's program ("add") of one curve for K workers, over
+    the ``ADD_STATE`` slots the ``add_step`` kernel fills."""
+    return _scheduled(trace("add", n, xi0, twist_m), K, per_warp, ADD_STATE)
 
 
 def pack(progs, K: int) -> Tuple[np.ndarray, List[int]]:

@@ -1,13 +1,13 @@
 """Pairing kernels for Hopper (port of the fused Miller, product, step, pow and
 final-exponentiation kernels of ``mathlib_tpu/ops/kernels/pairing_pallas.py``).
 
-CUDA C++ in ``csrc/miller_split_kernels.cu`` (the Miller loops, one lane's
-loop spread over the warps of a block, running the programs of
-``miller_prog``), ``csrc/fexp_split_kernels.cu`` (the power chain and the
-final exponentiation, the same way, running the programs of ``fexp_prog``,
-and the product tree, several levels a launch, running ``tree_prog``'s),
-``csrc/pairing_kernels.cu`` and ``csrc/check_kernels.cu`` over
-``csrc/tower_rows.cuh``, each kernel behind a wrapper here:
+CUDA C++ in ``csrc/miller_split_kernels.cu`` (the Miller loops and the
+addition step, one lane's work spread over the warps of a block, running
+the programs of ``miller_prog``), ``csrc/fexp_split_kernels.cu`` (the power
+chain and the final exponentiations, the same way, running the programs of
+``fexp_prog``, and the product tree, several levels a launch, running
+``tree_prog``'s) and ``csrc/check_kernels.cu`` over ``csrc/tower_rows.cuh``,
+each kernel behind a wrapper here:
 
 ===================  =========================================  ==============================
 wrapper              computes                                   replaces (TPU kernel)
@@ -25,9 +25,12 @@ wrapper              computes                                   replaces (TPU ke
                                                                 (``add_step_pallas``)
 ``f12_pow``          per lane: f^e, MSB-first bits, optional    ``_f12_pow_kernel``
                      cyclotomic squaring                        (``f12_pow_pallas``)
-``final_exp``        per lane: the BLS12 final exponentiation   ``_final_exp_kernel``
-                     (easy part with the Fp12 inverse, x-chain  (``final_exp_pallas``)
-                     hard part)
+``final_exp``        per lane: the final exponentiation (easy   ``_final_exp_kernel``
+                     part with the Fp12 inverse; hard part:     (``final_exp_pallas``);
+                     BLS12 x-chains, or BN's base-p digit       on BN curves the easy part
+                     chains and their Frobenius products)       around ``_fp_pow_kernel``
+                                                                and one ``_f12_pow_kernel``
+                                                                a digit
 ``pairing_check``    prod_i e(P_i, Q_i) == 1 in one launch:     ``_pairing_check_kernel``
                      Miller loops, pad lanes to one, the        (``pairing_check_pallas``)
                      product, final exp, unity test
@@ -38,7 +41,8 @@ wrapper              computes                                   replaces (TPU ke
 ``_pairing_prod_seg_kernel`` (``pairing_products_pallas``).  Each wrapper
 takes a config of the curve (``MillerCfg``: loop bits and tail, beside the
 ``TowerCfg`` that ``f12_pow`` and ``final_exp`` take: the ``RowTower``,
-Frobenius constants and x) and int32 limb tensors.  On a CPU tensor it
+Frobenius constants, x or the hard part's base-p digits) and int32 limb
+tensors.  On a CPU tensor it
 returns its plain PyTorch version (``*_plain``, on ``tower_rows.RowTower``,
 bit-equal to the reference's kernel body).  On a CUDA tensor it launches its
 kernel on the current stream, adds one to its ``launches`` count per launch,
@@ -69,14 +73,16 @@ def msb_bits(e: int) -> np.ndarray:
 @dataclass
 class TowerCfg:
     """What the tower kernels (``f12_pow``, ``final_exp``) need of one curve:
-    its in-kernel tower, the Frobenius constants gamma_1 and gamma_2 as
-    (2, 2, 3, 2, L, 1) Montgomery limbs (``gammas[n - 1]`` laid out as an
-    f12: its coefficient (h, j) scales coefficient (h, j) of a^(p^n)), and
-    the curve parameter x."""
+    its in-kernel tower, the Frobenius constants gamma_1, gamma_2 and
+    gamma_3 as (3, 2, 3, 2, L, 1) Montgomery limbs (``gammas[n - 1]`` laid
+    out as an f12: its coefficient (h, j) scales coefficient (h, j) of
+    a^(p^n)), and the curve parameter x (BLS12) or the base-p digits of the
+    hard-part exponent, lowest first (BN)."""
 
     tower: RowTower
     gammas: Optional[Tensor] = None
     x: Optional[int] = None
+    digits: Optional[Tuple[int, ...]] = None
     _dev: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -96,6 +102,13 @@ class TowerCfg:
     def x_bits(self) -> np.ndarray:
         """MSB-first bits of |x|: the exponent of the hard part's x-chains."""
         return msb_bits(abs(self.x))
+
+    @property
+    def digit_bits(self) -> list:
+        """MSB-first bits of each BN hard-part digit, lowest digit first."""
+        if self.digits is None:
+            raise ValueError("the config holds no hard-part digits (a BLS12 curve takes x)")
+        return [msb_bits(d) for d in self.digits]
 
 
 @dataclass
@@ -199,8 +212,9 @@ def add_step_plain(cfg: MillerCfg, f: Tensor, T: Tensor, Qx: Tensor, Qy: Tensor,
     return f.to(torch.int32), T.to(torch.int32)
 
 
-def _f12_pow64(tw: RowTower, base: Tensor, bits, cyclo: bool) -> Tensor:
-    acc = tw.f12_one_like(base.shape[-1], base.device)
+def _f12_pow64(tw: RowTower, base: Tensor, bits, cyclo: bool, acc=None) -> Tensor:
+    """acc * base^e, e's MSB-first bits (acc: one when None)."""
+    acc = tw.f12_one_like(base.shape[-1], base.device) if acc is None else acc
     sqr = tw.f12_cyclo_sqr if cyclo else tw.f12_sqr
     for bit in bits:
         acc = sqr(acc)
@@ -238,6 +252,24 @@ def final_exp_plain(cfg: TowerCfg, f: Tensor, inv_bits, x_bits, x_neg: bool) -> 
     y = tw.f12_mul(tw.f12_mul(exp_x(exp_x(y)), tw.f12_frob(y, g2, 2)), tw.f12_conj(y))
     f3 = tw.f12_mul(tw.f12_sqr(f1), f1)
     return tw.f12_mul(y, f3).to(torch.int32)
+
+
+def final_exp_bn_plain(cfg: TowerCfg, f: Tensor, inv_bits, digit_bits) -> Tensor:
+    """The BN final exponentiation of each lane, as ``final_exp_bn``'s
+    script runs it: the easy part of ``final_exp_plain`` (f1), then
+    y = prod_i frob^i(f1^(d_i)) over the digits' MSB-first bits, lowest
+    digit first, each power a cyclotomic chain from f1 (the leading one)
+    over the bits after it."""
+    fexp_prog.check_bn_digits(digit_bits)
+    tw = cfg.tower
+    f = f.to(torch.int64)
+    t = tw.f12_mul(tw.f12_conj(f), tw.f12_inv(f, inv_bits))
+    f1 = tw.f12_mul(tw.f12_frob(t, cfg.gamma_limbs(2, f.device), 2), t)
+    y = _f12_pow64(tw, f1, digit_bits[0][1:], True, acc=f1)
+    for i, bits in enumerate(digit_bits[1:], 1):
+        part = _f12_pow64(tw, f1, bits[1:], True, acc=f1)
+        y = tw.f12_mul(y, tw.f12_frob(part, cfg.gamma_limbs(i, f.device), i))
+    return y.to(torch.int32)
 
 
 def tree_width(B: int) -> int:
@@ -306,8 +338,8 @@ def _bits_on(cfg, device, bits=None) -> Tensor:
 
 
 def _gammas_on(cfg: TowerCfg, device) -> Tensor:
-    """gamma_1 and gamma_2 as Montgomery words [n-1][h][j][c][NW] on the card:
-    the limbs of ``cfg.gammas``, two to a 32-bit word."""
+    """gamma_1, gamma_2 and gamma_3 as Montgomery words [n-1][h][j][c][NW] on
+    the card: the limbs of ``cfg.gammas``, two to a 32-bit word."""
     key = ("gammas", str(device))
     if key not in cfg._dev:
         limbs = cfg.gammas[..., 0].cpu().numpy().astype(np.uint32)
@@ -390,6 +422,33 @@ def miller_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
     return _block_shape(lanes, lambda G: miller_programs(cfg, G))
 
 
+def add_programs(cfg: MillerCfg, G: int):
+    """(programs, slots, slot words) of ``cfg``'s addition step (the add
+    step and the sparse product, one program) for a block of G lanes and
+    ``MILLER_WORKERS[G]`` workers."""
+    tw = cfg.tower
+    prog = miller_prog.add_program(tw.n, tw.xi0, tw.twist == "M", MILLER_WORKERS[G], 32 // G)
+    return (prog,), prog.nslots, slot_words(cfg.fp.L, G)
+
+
+def add_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
+    """(G, K) of an ``add_step`` launch over ``lanes`` lanes."""
+    return _block_shape(lanes, lambda G: add_programs(cfg, G))
+
+
+def _add_program(cfg: MillerCfg, device, lanes: int):
+    """The addition step's program for the block ``add_shape`` picks, packed
+    onto the card once per device and block, and its host meta."""
+    G, K = add_shape(cfg, lanes)
+    key = ("add_prog", str(device), G)
+    if key not in cfg._dev:
+        progs, slots, words = add_programs(cfg, G)
+        code, ranges = miller_prog.pack(progs, K)
+        meta = (ctypes.c_int32 * 6)(G, K, slots, words, *ranges)
+        cfg._dev[key] = (torch.from_numpy(code).to(device), meta)
+    return cfg._dev[key]
+
+
 def _miller_program(cfg: MillerCfg, device, lanes: int):
     """The programs of ``cfg``'s Miller loop for the block ``miller_shape``
     picks for ``lanes`` lanes, packed onto the card once per device and
@@ -405,20 +464,23 @@ def _miller_program(cfg: MillerCfg, device, lanes: int):
 
 
 FEXP_KINDS = {"f12_pow": (fexp_prog.pow_programs, fexp_prog.POW_PROGRAMS),
-              "final_exp": (fexp_prog.fexp_programs, fexp_prog.FEXP_PROGRAMS)}
+              "final_exp": (fexp_prog.fexp_programs, fexp_prog.FEXP_PROGRAMS),
+              "final_exp_bn": (fexp_prog.fexp_bn_programs, fexp_prog.BN_PROGRAMS)}
 
 
 def fexp_programs(cfg: TowerCfg, kind: str, G: int):
-    """(programs, slots, slot words) of ``cfg``'s ``kind`` ("f12_pow" or
-    "final_exp") for a block of G lanes and ``MILLER_WORKERS[G]`` workers."""
+    """(programs, slots, slot words) of ``cfg``'s ``kind`` ("f12_pow",
+    "final_exp" or "final_exp_bn") for a block of G lanes and
+    ``MILLER_WORKERS[G]`` workers."""
     tw = cfg.tower
     progs = FEXP_KINDS[kind][0](tw.n, tw.xi0, MILLER_WORKERS[G], 32 // G)
     return progs, max(p.nslots for p in progs), slot_words(cfg.fp.L, G)
 
 
 def fexp_shape(cfg: TowerCfg, kind: str, lanes: int) -> Tuple[int, int]:
-    """(G, K) of an ``f12_pow`` or ``final_exp`` launch over ``lanes`` lanes
-    (BLS12-377's final exp does not fit a 32-lane block)."""
+    """(G, K) of an ``f12_pow`` or ``final_exp`` launch (``kind`` as
+    ``fexp_programs``) over ``lanes`` lanes (BLS12-377's final exp does not
+    fit a 32-lane block)."""
     return _block_shape(lanes, lambda G: fexp_programs(cfg, kind, G))
 
 
@@ -562,7 +624,8 @@ def miller_ft(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor):
 def add_step(cfg: MillerCfg, f: Tensor, T: Tensor, Qx: Tensor, Qy: Tensor, xP: Tensor,
              yP: Tensor):
     """(f * l_{T,Q}(P), T + Q) per lane: one Miller addition step through the
-    affine G2 points (Qx, Qy), the line evaluated at (xP, yP)."""
+    affine G2 points (Qx, Qy), the line evaluated at (xP, yP).  On the card
+    one lane's step runs over the workers of a block (``add_shape``)."""
     if f.device.type == "cpu":
         return add_step_plain(cfg, f, T, Qx, Qy, xP, yP)
     L, B = cfg.fp.L, f.shape[-1]
@@ -570,9 +633,10 @@ def add_step(cfg: MillerCfg, f: Tensor, T: Tensor, Qx: Tensor, Qy: Tensor, xP: T
                                              (2, L, B), (L, B), (L, B)])
     f_out, T_out = torch.empty_like(f), torch.empty_like(T)
     if B:
+        prog, meta = _add_program(cfg, f.device, B)
         _launch("mlt_pairing_add_step", f, cfg, f.data_ptr(), T.data_ptr(), Qx.data_ptr(),
                 Qy.data_ptr(), xP.data_ptr(), yP.data_ptr(), f_out.data_ptr(), T_out.data_ptr(),
-                B)
+                B, extra=(prog.data_ptr(), ctypes.addressof(meta)), tower=False)
         add_step.launches += 1
     return f_out, T_out
 
@@ -597,24 +661,37 @@ def f12_pow(cfg: TowerCfg, f: Tensor, bits, cyclo: bool = False) -> Tensor:
     return out
 
 
-def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None) -> Tensor:
-    """The BLS12 final exponentiation (factor-3 chain) of each lane of f
-    (2, 3, 2, L, B).  The inverse chain runs over ``inv_bits`` (default: p - 2)
-    and the x-chains over ``x_bits`` (default: |x|), conjugated when ``x_neg``
-    (default: x < 0); all three are inputs of the kernel."""
+def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None,
+              digit_bits=None) -> Tensor:
+    """The final exponentiation of each lane of f (2, 3, 2, L, B), one launch.
+    The inverse chain runs over ``inv_bits`` (default: p - 2).  BLS12
+    (factor-3 chain): the x-chains over ``x_bits`` (default: |x|),
+    conjugated when ``x_neg`` (default: x < 0).  BN (a config with digits
+    and no ``x_bits`` given, or ``digit_bits`` given): one cyclotomic chain a
+    hard-part digit over its MSB-first bits (default: ``cfg.digit_bits``),
+    at most ``fexp_prog.BN_DIGITS`` digits.  The bits are inputs of the
+    kernel."""
     inv_bits = cfg.inv_bits if inv_bits is None else inv_bits
-    x_bits = cfg.x_bits if x_bits is None else x_bits
-    x_neg = cfg.x < 0 if x_neg is None else x_neg
+    bn = digit_bits is not None or (x_bits is None and cfg.digits is not None)
+    if bn:
+        digit_bits = [np.ascontiguousarray(b, dtype=np.uint8)
+                      for b in (cfg.digit_bits if digit_bits is None else digit_bits)]
+        kind, key = "final_exp_bn", tuple(b.tobytes() for b in digit_bits)
+        steps = lambda: fexp_prog.fexp_bn_steps(digit_bits)  # noqa: E731
+    else:
+        x_bits = np.ascontiguousarray(cfg.x_bits if x_bits is None else x_bits, dtype=np.uint8)
+        x_neg = bool(cfg.x < 0 if x_neg is None else x_neg)
+        kind, key = "final_exp", (x_bits.tobytes(), x_neg)
+        steps = lambda: fexp_prog.fexp_steps(x_bits, x_neg)  # noqa: E731
     if f.device.type == "cpu":
+        if bn:
+            return final_exp_bn_plain(cfg, f, inv_bits, digit_bits)
         return final_exp_plain(cfg, f, inv_bits, x_bits, x_neg)
     L, B = cfg.fp.L, f.shape[-1]
     _check(cfg, f, shapes=[(2, 3, 2, L, B)])
     out = torch.empty_like(f)
     if B:
-        x_bits = np.ascontiguousarray(x_bits, dtype=np.uint8)
-        prog, script, meta = _fexp_launch_args(
-            cfg, "final_exp", f.device, B, (x_bits.tobytes(), bool(x_neg)),
-            lambda: fexp_prog.fexp_steps(x_bits, bool(x_neg)))
+        prog, script, meta = _fexp_launch_args(cfg, kind, f.device, B, key, steps)
         ib = _bits_on(cfg, f.device, inv_bits)
         _launch("mlt_final_exp", f, cfg, f.data_ptr(), script.data_ptr(), len(script),
                 ib.data_ptr(), len(ib), _gammas_on(cfg, f.device).data_ptr(), out.data_ptr(), B,

@@ -485,3 +485,15 @@ def final_exp_mults(n: int, twist: str, inv_bits, x_bits) -> int:
     c = mults_per_step(n, twist)
     return (c["f12_inv"] + pow_mults(inv_bits) + 9 * c["f12_mul"] + c["f12_sqr"]
             + 3 * c["f12_frob"] + 5 * f12_pow_mults(n, twist, x_bits, True))
+
+
+def final_exp_bn_mults(n: int, twist: str, inv_bits, digit_bits) -> int:
+    """Products of one lane of BN's final exponentiation (``final_exp_bn``):
+    the easy part (f12_inv with its fp_pow chain, 2 f12 muls, 1 Frobenius
+    map), a cyclotomic chain a digit from f1 over the bits after its
+    leading one, and a Frobenius map and an f12 mul for each digit after the
+    first."""
+    c = mults_per_step(n, twist)
+    return (c["f12_inv"] + pow_mults(inv_bits) + 2 * c["f12_mul"] + c["f12_frob"]
+            + sum(f12_pow_mults(n, twist, b[1:], True) for b in digit_bits)
+            + (len(digit_bits) - 1) * (c["f12_frob"] + c["f12_mul"]))

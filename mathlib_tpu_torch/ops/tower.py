@@ -14,11 +14,11 @@ it: they follow the reference's in-kernel tower (``kernels/tower_rows.py``),
 whose relaxed limbs differ.  The host tower (``host/fields.py``) is the
 exactness oracle.
 
-``f12_final_exp`` dispatches as the reference does on a TPU: one
-``final_exp`` kernel launch on BLS12 curves (factor-3 chain); on BN curves
-the easy part on the ops here (its base-field inverse is the ``fp_pow``
-kernel) and one cyclotomic ``f12_pow`` launch per base-p digit of the hard
-exponent.
+``f12_final_exp`` is one ``final_exp`` kernel launch on both families:
+BLS12 curves' factor-3 chain, and on BN curves the easy part, one cyclotomic
+chain per base-p digit of the hard exponent and their Frobenius products,
+the whole of what the reference runs on a TPU as XLA ops around its
+``fp_pow`` kernel and one ``f12_pow`` kernel a digit.
 """
 
 from __future__ import annotations
@@ -29,10 +29,10 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..curves.params import CurveSpec, Family
+from ..curves.params import CurveSpec, Family, hard_part_digits
 from ..host.fields import get_tower as get_host_tower
 from .field import LIMB_BITS, FpCtx
-from .kernels import fp_cuda, pairing_cuda
+from .kernels import fexp_prog, fp_cuda, pairing_cuda
 from .kernels.tower_rows import RowTower
 
 Tensor = torch.Tensor
@@ -69,11 +69,14 @@ class TowerCtx:
         beta_neg = (spec.p - spec.beta) % spec.p
         if not 0 < beta_neg < 256 or not 0 <= x0 < 256:
             raise ValueError("the in-kernel tower takes beta = -n and xi = xi0 + u, n and xi0 small")
-        # what the tower kernels need of this curve (PairingCtx's MillerCfg holds it)
+        # what the tower kernels need of this curve (PairingCtx's MillerCfg
+        # holds it): BLS12's x, or BN's base-p digits of the hard exponent
+        bls = spec.family == Family.BLS12
         self.kcfg = pairing_cuda.TowerCfg(
             RowTower(self.fp, beta_neg, x0, spec.twist),
-            gammas=torch.stack([self.frob_limbs[1], self.frob_limbs[2]]),
-            x=spec.x if spec.family == Family.BLS12 else None,
+            gammas=torch.stack([self.frob_limbs[n] for n in (1, 2, 3)]),
+            x=spec.x if bls else None,
+            digits=None if bls else hard_part_digits(spec),
         )
 
     # ---------------------------------------------------------------- Fp2 ---
@@ -298,32 +301,18 @@ class TowerCtx:
         """The pairing final exponentiation of each lane of f (2, 3, 2, L, B),
         equal to the host engine's (``host/fields.py f12_final_exp``).
 
-        BLS12 curves with the factor-3 convention: one ``final_exp`` kernel
-        launch (easy part with the in-kernel Fp12 inverse, hard part as five
-        cyclotomic x-chains, by 3 (p^4 - p^2 + 1)/r =
-        (x-1)^2 (x + p) (x^2 + p^2 - 1) + 3).  BN curves: the easy part
-        f^((p^6 - 1)(p^2 + 1)) on the ops here, then the hard part as
-        prod_i frob^i(f^(d_i)) over the base-p digits d_i, one cyclotomic
-        ``f12_pow`` launch per digit (f is unitary after the easy part)."""
-        spec = self.spec
-        if spec.family == Family.BLS12:
-            if spec.fexp_factor != 3:
-                raise NotImplementedError(f"{spec.name}: only the factor-3 BLS12 final exp is ported")
-            return pairing_cuda.final_exp(self.kcfg, f.contiguous())
-        t = self.f12_mul(self.f12_conj(f), self.f12_inv(f))
-        f = self.f12_mul(self.f12_frob(t, 2), t).contiguous()
-        e, digits = spec.hard_part_exp, []
-        while e:
-            digits.append(e % spec.p)
-            e //= spec.p
-        if len(digits) > 4:
+        One ``final_exp`` kernel launch on both families, the easy part
+        f^((p^6 - 1)(p^2 + 1)) with the in-kernel Fp12 inverse first.  BLS12
+        curves with the factor-3 convention: the hard part as five cyclotomic
+        x-chains, by 3 (p^4 - p^2 + 1)/r = (x-1)^2 (x + p) (x^2 + p^2 - 1) + 3.
+        BN curves: the hard part as prod_i frob^i(f^(d_i)) over the base-p
+        digits d_i, one cyclotomic chain per digit (f is unitary after the
+        easy part)."""
+        spec, kcfg = self.spec, self.kcfg
+        if spec.family == Family.BLS12 and spec.fexp_factor != 3:
+            raise NotImplementedError(f"{spec.name}: only the factor-3 BLS12 final exp is ported")
+        if spec.family != Family.BLS12 and len(kcfg.digits) > fexp_prog.BN_DIGITS:
             raise NotImplementedError(
-                f"{spec.name}: the hard part has {len(digits)} base-p digits; the reference's "
-                "table multi-exponentiation for more than 4 is not ported")
-        acc = None
-        for i, d in enumerate(digits):
-            part = pairing_cuda.f12_pow(self.kcfg, f, pairing_cuda.msb_bits(d), cyclo=True)
-            if i:
-                part = self.f12_frob(part, i)
-            acc = part if acc is None else self.f12_mul(acc, part)
-        return acc
+                f"{spec.name}: the hard part has {len(kcfg.digits)} base-p digits; the "
+                "reference's table multi-exponentiation for more than 4 is not ported")
+        return pairing_cuda.final_exp(kcfg, f.contiguous())

@@ -419,8 +419,10 @@ def test_product_check_on_the_card(pair_ctx):
 def test_pairing_batch_kernels_equal_plain_versions(pair_ctx):
     """miller_ft, add_step, f12_pow, final_exp and fp_pow against their plain
     versions on 40 lanes, full chains; and pairing_batch against the host
-    engine on 4 of them (BLS12-377 has no ported pairing_batch path: its
-    kernels are checked all the same)."""
+    engine on 4 of them, with its launches: one final_exp (BN254: its whole
+    final exp too, no fp_pow or f12_pow), two add_step on BN254 (BLS12-377
+    has no ported pairing_batch path: its kernels are checked all the
+    same)."""
     eng, be = pair_ctx
     cfg, kcfg = be.pair.cfg, be.tw.kcfg
     spec = eng.spec
@@ -447,7 +449,55 @@ def test_pairing_batch_kernels_equal_plain_versions(pair_ctx):
             if k in ("miller_ft", "add_step", "f12_pow", "final_exp")} == {
         "miller_ft": 1, "add_step": 1, "f12_pow": 2, "final_exp": 1}
     if spec.name != "BLS12_377":
+        fp_cuda.reset_launches()
+        pairing_cuda.reset_launches()
         assert be.pairing_batch(g1s[:4], g2s[:4]) == [eng.pairing(P, Q) for P, Q in zip(g1s, g2s[:4])]
+        bn = spec.family.name == "BN"
+        assert {k: v for k, v in pairing_cuda.launches().items() if v} == {
+            "miller_ft": 1, "final_exp": 1, **({"add_step": 2} if bn else {})}
+        assert fp_cuda.launches()["fp_pow"] == 0
+
+
+def test_split_add_step_equals_the_plain_version(pair_ctx, monkeypatch):
+    """add_step at every block the launcher can pick (forced through
+    ``add_shape``) on 1, 33 and 1,024 lanes of Miller (f, T), against one
+    plain run on 1,024 lanes (lanes are independent)."""
+    eng, be = pair_ctx
+    cfg = be.pair.cfg
+    xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(*_pairs(eng, 1024, 18)))
+    f, T = pairing_cuda.miller_ft(cfg, xP, yP, Qx, Qy)
+    want = pairing_cuda.add_step_plain(cfg, f, T, Qx, Qy, xP, yP)
+    pairing_cuda.reset_launches()
+    launches = 0
+    for G, K in pairing_cuda.MILLER_WORKERS.items():
+        monkeypatch.setattr(pairing_cuda, "add_shape", lambda cfg, lanes: (G, K))
+        for n in (1, 33, 1024):
+            args = [t[..., :n].contiguous() for t in (f, T, Qx, Qy, xP, yP)]
+            got = pairing_cuda.add_step(cfg, *args)
+            assert all(torch.equal(a, b[..., :n]) for a, b in zip(got, want)), (G, n)
+            launches += 1
+    assert pairing_cuda.launches()["add_step"] == launches
+
+
+def test_split_final_exp_bn_equals_the_plain_version(monkeypatch):
+    """BN254's one-launch final exp (its whole script: easy part, the four
+    digit chains, the Frobenius products) on 64 lanes at every block the
+    launcher can pick (forced through ``fexp_shape``) and on 1,024 lanes at
+    the block it picks there, against the plain version on Miller values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec("BN254")
+    eng, be = get_engine(spec), BatchEngine(spec)
+    cfg, kcfg = be.pair.cfg, be.tw.kcfg
+    f = pairing_cuda.miller_ft(cfg, *be._pair_split_mont(be._encode_pairs(*_pairs(eng, 1024, 19))))[0]
+    want = pairing_cuda.final_exp_bn_plain(kcfg, f, kcfg.inv_bits, kcfg.digit_bits)
+    pairing_cuda.reset_launches()
+    assert torch.equal(pairing_cuda.final_exp(kcfg, f), want)
+    a = f[..., :64].contiguous()
+    for G, K in pairing_cuda.MILLER_WORKERS.items():
+        monkeypatch.setattr(pairing_cuda, "fexp_shape", lambda cfg, kind, lanes: (G, K))
+        assert torch.equal(pairing_cuda.final_exp(kcfg, a), want[..., :64]), G
+    assert pairing_cuda.launches()["final_exp"] == 4
 
 
 def test_device_strategies_give_the_default_verdicts(pair_ctx, monkeypatch):

@@ -5,13 +5,16 @@
   its graph on random relaxed [0, 2p) slots: scheduling and slot reuse keep
   every value, and the state a later step reads.
 * The kernels' whole run, emulated (the script: the programs, acc = 1 before
-  each chain, the base-field inverse loop, the Frobenius constants), against
+  each chain (BN's digit chains: acc = f1), the base-field inverse loop, the Frobenius constants), against
   ``final_exp_plain`` on BLS12-381 and BLS12-377 and on BN254 over its own
   x, and against ``f12_pow_plain`` with and without cyclotomic squaring on
   BN254 (a hard-part digit) and BLS12-381 (|x|), full chains, at each block
   the launcher can pick for the curve -- and through the plain versions
-  against the reference kernel bodies (``tests/test_torch_final_exp.py``).
-  Tolerance: exact (every limb).
+  against the reference kernel bodies (``tests/test_torch_final_exp.py``);
+  BN254's one-launch final exp (``final_exp_bn``: the real easy part, four
+  short digits) against ``final_exp_bn_plain`` the same way (its full
+  digits: ``tests/test_torch_final_exp.py``).  Tolerance: exact (every
+  limb).
 * No worker touches a slot another worker writes in the same phase; the
   workers of a warp have their products at the same instruction index;
   the script's rows run the programs ``pack`` laid out; the products the
@@ -32,12 +35,19 @@ from mathlib_tpu_torch.batch import BatchEngine
 from mathlib_tpu_torch.ops.kernels import fexp_prog as fp
 from mathlib_tpu_torch.ops.kernels import miller_prog as mp
 from mathlib_tpu_torch.ops.kernels import pairing_cuda as pc
-from mathlib_tpu_torch.ops.kernels.tower_rows import f12_pow_mults, final_exp_mults, pow_mults
+from mathlib_tpu_torch.ops.kernels.tower_rows import (
+    f12_pow_mults,
+    final_exp_bn_mults,
+    final_exp_mults,
+    pow_mults,
+)
 
 torch.set_num_threads(1)
 
 CURVES = ["BLS12_381", "BN254", "BLS12_377"]
-KINDS = {"f12_pow": (fp.trace_pow, fp.POW_STATE), "final_exp": (fp.trace_fexp, fp.FEXP_STATE)}
+KINDS = {"f12_pow": (fp.trace_pow, fp.POW_STATE), "final_exp": (fp.trace_fexp, fp.FEXP_STATE),
+         "final_exp_bn": (fp.trace_fexp_bn, fp.FEXP_STATE)}
+BN_SHORT = ([1, 0, 1], [1, 1], [1, 0, 0], [1])  # synthetic digits: every program, each gamma
 
 
 def _kcfg(curve):
@@ -88,6 +98,8 @@ def test_launcher_picks_the_block_from_the_lane_count():
         assert pc.fexp_shape(bls, "final_exp", lanes) == (8, W[8])
         assert pc.fexp_shape(bn, "f12_pow", lanes) == (8, W[8])
     assert pc.fexp_shape(bls, "final_exp", 2048) == (16, W[16])
+    assert pc.fexp_shape(bn, "final_exp_bn", 1024) == (8, W[8])  # pairing_batch
+    assert pc.fexp_shape(bn, "final_exp_bn", 4096) == (32, W[32])
     _, slots, words = pc.fexp_programs(b377, "final_exp", 32)
     assert slots * words * 4 > pc.MILLER_SMEM
     assert pc.fexp_shape(b377, "final_exp", 4096) == (16, W[16])
@@ -117,6 +129,11 @@ def test_programs_fit_shared_memory_and_keep_to_their_slots(curve, kind):
             assert by_name["sqr_cyclo"].products == 9 * (2 if kcfg.tower.n == 1 else 3)
             assert by_name["sqr"].products == 36
             assert by_name["sqrmul"].products == 36 + 54
+        if kind == "final_exp_bn":  # the chains' programs as f12_pow's cyclotomic ones
+            sq = 9 * (2 if kcfg.tower.n == 1 else 3)
+            assert by_name["sqr"].products == sq and by_name["sqrmul"].products == sq + 54
+            assert by_name["copy"].products == by_name["load"].products == 0
+            assert by_name["frob_odd"].products == by_name["frob_even"].products == 18 + 54
 
 
 @pytest.mark.parametrize("curve", CURVES)
@@ -165,11 +182,14 @@ def test_scripts_run_the_packed_programs_and_the_counted_products(kind):
     row is its program's phase range in the packed code, and the products
     it runs (with the inverse loop's) are those ``final_exp_mults`` and
     ``f12_pow_mults`` count for the bound."""
-    curve = "BLS12_381"
+    curve = "BN254" if kind == "final_exp_bn" else "BLS12_381"
     kcfg = _kcfg(curve)
     tw, bits = kcfg.tower, _x_bits(curve)
     names = pc.FEXP_KINDS[kind][1]
-    if kind == "final_exp":
+    if kind == "final_exp_bn":
+        steps = fp.fexp_bn_steps(kcfg.digit_bits)
+        want = final_exp_bn_mults(tw.n, tw.twist, kcfg.inv_bits, kcfg.digit_bits)
+    elif kind == "final_exp":
         steps = fp.fexp_steps(bits, True)
         want = final_exp_mults(tw.n, tw.twist, kcfg.inv_bits, bits)
     else:
@@ -195,6 +215,9 @@ def test_scripts_run_the_packed_programs_and_the_counted_products(kind):
                 if step[0] == fp.INV:
                     products += pow_mults(kcfg.inv_bits)
         assert products == want
+    if kind == "final_exp_bn":  # gamma_2 for post, then gamma_1, 2, 3 before the folds
+        assert [s[2] for s in steps if s[0] == fp.CONST] == [12, 0, 12, 24]
+        return
     runs = [s[1] for s in fp.fexp_steps(bits, False) if s[0] == fp.RUN]
     assert "conj" not in runs and runs.count("sqr") == 5 * (len(bits) - int(bits.sum()))
 
@@ -218,7 +241,7 @@ def test_final_exp_run_equals_the_plain_version(curve):
     x_bits, x_neg = _x_bits(curve), spec.x < 0
     f, vals = _lanes_in(kcfg, 3)
     want = _ints(pc.final_exp_plain(kcfg, f, kcfg.inv_bits, x_bits, x_neg), 12, L)
-    gammas = _ints(kcfg.gammas.to(torch.int64), 24, L)[0]
+    gammas = _ints(kcfg.gammas.to(torch.int64), 36, L)[0]
     for G, _ in _shapes(kcfg, "final_exp"):
         progs = dict(zip(fp.FEXP_PROGRAMS, pc.fexp_programs(kcfg, "final_exp", G)[0]))
         got = fp.emulate(progs, fp.fexp_steps(x_bits, x_neg), vals, fp.F, fp.F, p, L,
@@ -240,3 +263,26 @@ def test_f12_pow_run_equals_the_plain_version(curve, cyclo):
     for G, _ in _shapes(kcfg, "f12_pow"):
         progs = dict(zip(fp.POW_PROGRAMS, pc.fexp_programs(kcfg, "f12_pow", G)[0]))
         assert fp.emulate(progs, fp.pow_steps(bits, cyclo), vals, fp.BASE, fp.ACC, p, L) == want
+
+
+def test_final_exp_bn_run_equals_the_plain_version():
+    """BN254's whole final exp as one script: the real easy part (the
+    inverse over p - 2, gamma_2), then four short digit chains folded with
+    gamma_1, gamma_2 and gamma_3, on 1 lane at every block the launcher can
+    pick."""
+    kcfg = _kcfg("BN254")
+    p, L = kcfg.fp.p, kcfg.fp.L
+    digits = [np.array(b, np.uint8) for b in BN_SHORT]
+    f, vals = _lanes_in(kcfg, 16, B=1)
+    want = _ints(pc.final_exp_bn_plain(kcfg, f, kcfg.inv_bits, digits), 12, L)
+    assert want == _ints(pc.final_exp(kcfg, f, digit_bits=digits), 12, L)  # the wrapper's CPU path
+    gammas = _ints(kcfg.gammas.to(torch.int64), 36, L)[0]
+    for G, _ in _shapes(kcfg, "final_exp_bn"):
+        progs = dict(zip(fp.BN_PROGRAMS, pc.fexp_programs(kcfg, "final_exp_bn", G)[0]))
+        got = fp.emulate(progs, fp.fexp_bn_steps(digits), vals, fp.F, fp.F, p, L,
+                         kcfg.inv_bits, gammas)
+        assert got == want, G
+    with pytest.raises(ValueError):
+        fp.fexp_bn_steps(digits + digits[:1])  # no gamma_4
+    with pytest.raises(ValueError):  # each chain starts at f1, its digit's leading one
+        pc.final_exp(kcfg, f, digit_bits=[np.array([0, 1], np.uint8)])

@@ -12,7 +12,8 @@ add step, f12 pow, final exp and Fp pow) against the JAX package, on the CPU.
   ``TowerCtx``'s inverses and Frobenius maps against the port's host tower,
   canonically.
 * The slice: ``BatchEngine(spec, "cpu").pairing_batch`` on BLS12-381 against
-  the reference's ``HostEngine.pairing``, exactly.
+  the reference's ``HostEngine.pairing``, exactly (BN254's final exp:
+  ``tests/test_torch_final_exp_bn.py``).
 * The strategies: ``MATHLIB_PAIR_FUSED=check`` reaches the one-launch
   ``pairing_check``; ``split`` and ``MATHLIB_GROUP_FEXP=device`` finish on the
   device path.
@@ -303,14 +304,14 @@ def test_row_tower_counts_the_products_of_the_new_chains(curve):
 
 
 # ----------------------------------------------------------------- slice ---
-def _ref_bls12_381(spec):
-    """The reference's BLS12-381 ``CurveSpec`` holding the port's values,
-    which tests/test_torch_host.py holds field for field to the ones the
+def _ref_spec(spec, ser_format=ref_params.SerFormat.ZCASH):
+    """The reference's ``CurveSpec`` holding the port's values, which
+    tests/test_torch_host.py holds field for field to the ones the
     reference computes (computing them anew costs seconds of cofactor
     search); the port keeps no wire format, and the pairing reads none."""
     vals = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     vals["family"] = ref_params.Family[spec.family.name]
-    return ref_params.CurveSpec(ser_format=ref_params.SerFormat.ZCASH, **vals)
+    return ref_params.CurveSpec(ser_format=ser_format, **vals)
 
 
 def test_pairing_batch_equals_the_reference_host_pairing():
@@ -318,7 +319,7 @@ def test_pairing_batch_equals_the_reference_host_pairing():
     eng = get_engine(spec)
     P, Q = eng.g1.mul(eng.gen_g1, 12345), eng.g2.mul(eng.gen_g2, 777)
     be = BatchEngine(spec, "cpu")
-    assert be.pairing_batch([P], [Q]) == [RefHostEngine(_ref_bls12_381(spec)).pairing(P, Q)]
+    assert be.pairing_batch([P], [Q]) == [RefHostEngine(_ref_spec(spec)).pairing(P, Q)]
 
 
 @pytest.fixture(scope="module")
@@ -388,7 +389,7 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take():
     fp_cuda.reset_launches()
     for call in (lambda: pc.miller_ft(cfg, x, x, q, q), lambda: pc.add_step(cfg, f, T, q, q, x, x),
                  lambda: pc.f12_pow(cfg, f, [1, 0, 1]), lambda: fp_cuda.fp_pow(tw.fp, x, [1]),
-                 lambda: pc.final_exp(cfg, f, [1], [1], False)):
+                 lambda: pc.final_exp(cfg, f, [1], [1], False), lambda: pc.final_exp(cfg, f)):
         with pytest.raises(ValueError):
             call()
     pc.f12_pow(cfg, _relaxed(spec, (2, 3, 2, 1), 10), [1, 1])

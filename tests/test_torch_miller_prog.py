@@ -9,7 +9,10 @@
   ``miller_ft_plain`` -- and through them against the reference kernel
   bodies (``tests/test_torch_pairing.py``, ``test_torch_final_exp.py``) -- on
   BLS12-381, BN254 and BLS12-377, at each block the launcher can pick for
-  the curve, over a prefix of the loop bits.  Tolerance: exact (every limb).
+  the curve, over a prefix of the loop bits; the ``add_step`` kernel's run
+  (f, T, P, Q into their slots, the "add" program, f and T out) against
+  ``add_step_plain`` on random relaxed inputs the same way.  Tolerance:
+  exact (every limb).
 * No worker touches a slot another worker writes in the same phase; the
   workers of a warp have their products at the same instruction index;
   ``pack`` lays out what ``miller_split_kernels.cu`` reads; the launcher's
@@ -98,6 +101,13 @@ def test_programs_fit_shared_memory_and_keep_to_their_slots(curve):
         assert slots * words * 4 <= pc.MILLER_SMEM and words >= cfg.fp.L // 2 * G
         assert progs[0].products == sum(progs[0].layers) == dbl  # the bound's count
         assert progs[1].products == dbl + m["add_step"] + m["f12_sparse_mul"]
+        (add,), add_slots, _ = pc.add_programs(cfg, G)
+        assert add.products == m["add_step"] + m["f12_sparse_mul"]
+        assert add_slots * words * 4 <= pc.MILLER_SMEM
+        mp.check_races(add)
+        assert all(s is None or s < add_slots
+                   for ph in add.phases for code_w in ph for word in code_w
+                   for s in mp.fields(word)[1:])
         code, ranges = mp.pack(progs, K)
         assert code.dtype == np.int32 and len(ranges) == 6
         words32 = code.view(np.uint32)
@@ -122,7 +132,7 @@ def test_each_program_keeps_every_value(curve):
     R = 1 << (16 * L)
     rnd = random.Random(5)
     for G, K in _shapes(cfg):
-        for kind in ("dbl", "dbladd", "tail"):
+        for kind in ("dbl", "dbladd", "tail", "add"):
             g, outs = mp.trace(kind, *_flags(cfg))
             prog = mp.schedule(g, outs, K)
             S = [rnd.randrange(2 * p) for _ in range(prog.nslots)]
@@ -178,3 +188,33 @@ def test_kernel_run_equals_the_plain_versions(curve):
         progs = pc.miller_programs(cfg, G)[0]
         assert mp.emulate_loop(progs, lanes, short.bits, p, L, tail) == want_f
         assert mp.emulate_loop(progs, lanes, short.bits, p, L, tail, lanes_out=False) == want_ft
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_add_step_run_equals_the_plain_version(curve):
+    """The ``add_step`` kernel's run on 2 lanes of random relaxed [0, 2p)
+    f, T, P and Q, at every block the launcher can pick, against
+    ``add_step_plain``: the state into the loop's slots, the "add"
+    program, then f (slots 0-11) and T (12-17) out."""
+    cfg = _cfg(curve)
+    p, L = cfg.fp.p, cfg.fp.L
+    R = 1 << (16 * L)
+    rng = np.random.default_rng(17)
+    vals = [[int.from_bytes(rng.bytes(64), "big") % (2 * p) for _ in range(2)]
+            for _ in range(mp.ADD_STATE)]  # [slot][lane]
+    limbs = np.array([[[(v >> (16 * k)) & 0xFFFF for k in range(L)] for v in row] for row in vals],
+                     dtype=np.int32).transpose(0, 2, 1)  # (slot, L, lane)
+    t = torch.from_numpy(np.ascontiguousarray(limbs))
+    f, T = t[:12].reshape(2, 3, 2, L, 2), t[12:18].reshape(3, 2, L, 2)
+    xP, yP, Qx, Qy = t[18], t[19], t[20:22], t[22:24]
+    f2, T2 = pc.add_step_plain(cfg, f, T, Qx, Qy, xP, yP)
+    weights = np.array([1 << (16 * k) for k in range(L)], dtype=object)
+    out = torch.cat([f2.reshape(12, L, 2), T2.reshape(6, L, 2)]).to(torch.int64).numpy()
+    want = [list(out[..., i].astype(object) @ weights) for i in range(2)]
+    for G, K in sorted({pc.add_shape(cfg, n) for n in (4096, 2048, 1024)}):
+        prog = pc.add_programs(cfg, G)[0][0]
+        for i in range(2):
+            S = [0] * prog.nslots
+            S[: mp.ADD_STATE] = [row[i] for row in vals]
+            mp.emulate(prog, S, p, R, (-pow(p, -1, R)) % R)
+            assert S[:18] == want[i], (G, i)
