@@ -17,9 +17,10 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      doubling over four warps) on 1, 16, 33 and 4,097 lanes (infinity and
      P = -P lanes among them), timed at the MSM's 16 lanes, at Horner's one
      and at 2^20, device and host time a launch; add and addsel (one add
-     over six warps) also at addsel's 4,096-lane shape; the three with their
-     ptxas registers, stack and spills (none allowed, at most 128
-     registers);
+     over six warps) also at addsel's 4,096-lane shape; the split kernels of
+     ``g1_split_kernels.cu`` (add, addsel, double and phase 10's signed and
+     mixed combiners) with their ptxas registers, stack and spills (none
+     allowed, at most 128 registers);
   4. the n=512 gates of ``bench.py``: msm_totals + horner_host and the split
      path must equal the port's msm_naive and the host engine's MSM;
   5. the main path at 2^20 points: 8,192 base points by the port's
@@ -89,10 +90,14 @@ The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
  10. the four kernels of the options (dbladd, addselneg, maddsel,
      maddselneg) against their plain PyTorch versions on the card, bit for
      bit: first on phase 3's 4,097 lanes and edge lanes (P = inf,
-     P = lift(Q), P = -lift(Q), sel and neg mixed) on BLS12-381 and BN254,
-     then at the path's shapes (the three combiners at the 262,144 lanes of
-     one 2^20, c=16 scan step, dbladd at 2^20 lanes), each timed beside its
-     plain version with its bound; and a 64-bit ladder through
+     P = lift(Q), P = -lift(Q), sel and neg mixed, a 32-lane block that adds
+     nowhere and one that adds everywhere, neg mixed in both) on BLS12-381
+     and BN254, then at the path's shapes (the three combiners, each one add
+     or mixed add over six warps, at the 262,144 lanes of one 2^20, c=16
+     scan step, dbladd at 2^20 lanes), each timed beside its plain version
+     with its bound; the combiners' ptxas registers, stack and spills (none
+     allowed, at most 128 registers: checked in phase 3); and a 64-bit
+     ladder through
      ``G1Ctx.dbl_add_select`` (its launches are dbladd's count) against
      ``scalar_mul``;
  11. the entry points at full size, one warm-up and 3 timed calls each
@@ -202,9 +207,12 @@ the ``add`` kernel's time at 2^20 lanes on BLS12-381 (12 words) beside BN254
     python3 chip_smoke.py --time-msm REPO
 
 times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
-REPO, then that checkout's add and addsel kernels at phase 3's shapes and
-its double at 16, 1 and 2^20 lanes; run for two checkouts in turns to
-compare them on one card.
+REPO, then that checkout's add and addsel kernels at phase 3's shapes, its
+double at 16, 1 and 2^20 lanes, its signed and mixed scan combiners
+(addselneg, maddsel, maddselneg) at phase 10's 262,144 lanes, phase 11
+(e)'s three 2^20 MSMs (affine, signed, both) and ``msm_host_bridge`` on
+60,000 BLS12-381 points; run for two checkouts in turns to compare them on
+one card.
 
     python3 chip_smoke.py --time-pairing REPO
 
@@ -264,9 +272,9 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "addsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
     "smul": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
     "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
-    "addselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
-    "maddsel": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
-    "maddselneg": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
+    "addselneg": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
+    "maddsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
+    "maddselneg": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
     "mont_mul": ("mathlib_tpu_torch/csrc/fp_kernels.cu", "mathlib_tpu/ops/kernels/fp_pallas.py:40"),
     "miller_lanes": (MILLER_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:1188"),
     "f12_seg_product": (FEXP_SRC, "mathlib_tpu/ops/kernels/pairing_pallas.py:1244"),
@@ -495,6 +503,35 @@ def time_g1_adds(g1_cuda, F, P, Q, sel, design: str) -> None:
             over_bound=f"{ms / bnd['bound_ms']:.2f}x")
 
 
+# the signed and mixed combiners' shape: one scan step of the 2^20, c=16 MSM
+# (W*C = 16 windows x 16,384 chunks)
+COMBINER_LANES = 1 << 18
+
+
+def time_g1_combiners(g1_cuda, F, P, Q, Qa, sel, neg, design: str) -> None:
+    """``addselneg``, ``maddsel`` and ``maddselneg`` of the imported checkout
+    (``design``: the kernels' name in the log) at COMBINER_LANES on
+    contiguous slices of P, Q, affine Qa and the masks, beside the bound; a
+    ``[time_g1_combiner]`` line each."""
+    L = F.fp.L
+    n = COMBINER_LANES
+    a, b, ba = (t[..., :n].contiguous() for t in (P, Q, Qa))
+    s, ng = sel[:n].contiguous(), neg[:n].contiguous()
+    pt, af, n_sel = 3 * L * 4, 2 * L * 4, int(s.sum())
+    runs = {  # name: (call, bytes, field products)
+        "addselneg": (lambda: g1_cuda.addselneg(F, a, b, s, ng), (3 * pt + 2) * n, 12 * n_sel),
+        "maddsel": (lambda: g1_cuda.maddsel(F, a, ba, s), (2 * pt + af + 1) * n, 11 * n_sel),
+        "maddselneg": (lambda: g1_cuda.maddselneg(F, a, ba, s, ng), (2 * pt + af + 2) * n,
+                       11 * n_sel),
+    }
+    for name, (call, nbytes, fp_muls) in runs.items():
+        bnd = bound(nbytes, wide_mads(fp_muls, L))
+        ms, _ = cuda_ms(call, reps=20)
+        log("time_g1_combiner", kernel=name, design=design, lanes=n, L=L, ms=f"{ms:.4f}",
+            bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+            over_bound=f"{ms / bnd['bound_ms']:.2f}x")
+
+
 # the doubling's shapes: one lane a window of the 2^20 MSM (hi_sum and the
 # bit Horner of the window sums, 22 launches), one lane (horner_windows, c a
 # window), and phase 3's 2^20 lanes
@@ -531,10 +568,14 @@ def time_double(g1_cuda, F, P, design: str) -> None:
             bound_by=bnd["bound_by"], over_bound=f"{ms / bnd['bound_ms']:.1f}x")
 
 
+SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_addselneg_kernel",
+                 "g1_maddsel_kernel", "g1_maddselneg_kernel")
+
+
 def split_ptxas(path: str) -> list:
-    """The build log's ptxas lines of the add, addsel and double kernels."""
-    return [e for e in ptxas_entries(path)
-            if e.startswith(("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel"))]
+    """The build log's ptxas lines of the add, addsel, double and the signed
+    and mixed combiner kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith(SPLIT_KERNELS)]
 
 
 def tree_ptxas(path: str) -> list:
@@ -593,6 +634,14 @@ def split_design(build) -> str:
     """Which add and addsel kernels the imported checkout has: "six-warp"
     (csrc/g1_split_kernels.cu) or "one-thread" (rcb_add a thread)."""
     return ("six-warp" if os.path.exists(os.path.join(build.CSRC, "g1_split_kernels.cu"))
+            else "one-thread")
+
+
+def combiner_design(build) -> str:
+    """Which signed and mixed scan combiners the imported checkout has:
+    "six-warp" (split_add and split_madd in csrc/g1_split_kernels.cu) or
+    "one-thread" (a lane a thread)."""
+    return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "g1_maddselneg_kernel")
             else "one-thread")
 
 
@@ -1294,6 +1343,10 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
 
     sel = torch.from_numpy(rng.random(N_CHECK) < 15 / 16).to(dev)
     neg = torch.from_numpy(rng.random(N_CHECK) < 0.5).to(dev)
+    # a 32-lane block of the six-warp combiners that adds nowhere (it stores
+    # Q' or lift(Q') without the formula) and one that adds everywhere, neg
+    # mixed in both
+    sel[32:64], sel[64:96] = False, True
     for curve in ("BLS12_381", "BN254"):
         sp = get_spec(curve)
         g = g1 if curve == spec.name else G1Ctx(sp, dev)
@@ -1319,7 +1372,9 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     Qab = Qa.repeat(1, 1, reps)[..., :WC].contiguous()
     selb = torch.from_numpy(rng.random(lanes_b) < 15 / 16).to(dev)
     negb = torch.from_numpy(rng.random(WC) < 0.5).to(dev)
-    Pw, Qw, sw = Pb[..., :WC], Qb[..., :WC], selb[:WC]
+    # contiguous, as the scan gives them to the combiners (a strided slice
+    # would time the wrapper's relayout copy too)
+    Pw, Qw, sw = Pb[..., :WC].contiguous(), Qb[..., :WC].contiguous(), selb[:WC]
     Pb, Qb, selb = Pb[..., :N_MAIN], Qb[..., :N_MAIN], selb[:N_MAIN]
     pt = 3 * g1.fp.L * 4  # bytes of a projective point
     af = 2 * g1.fp.L * 4
@@ -2262,8 +2317,14 @@ def time_msm(repo: str) -> int:
     warm-up and 5 host-clock runs of msm_totals + horner_host, each beside
     the device time of its msm_totals (CUDA events, gaps included); one
     ``[time_msm]`` line; then that checkout's add and addsel kernels timed
-    at phase 3's shapes (``time_g1_adds``) with their ptxas lines, and its
-    double at 16, 1 and 2^20 lanes (``time_double``).  Run it
+    at phase 3's shapes (``time_g1_adds``) with the split kernels' ptxas
+    lines, its double at 16, 1 and 2^20 lanes (``time_double``), its signed
+    and mixed combiners at phase 10's 262,144 lanes (``time_g1_combiners``),
+    phase 11 (e)'s 2^20 MSMs with affine points, signed digits and both (one
+    warm-up and 3 runs each, each equal to the first line's result;
+    ``[time_msm_option]`` lines) and ``msm_host_bridge`` on 60,000
+    BLS12-381 host points (one warm-up and 3 calls, against a host MSM of
+    the scalars folded per base point; a ``[time_bridge]`` line).  Run it
     for two checkouts in turns (A, B, B, A) in one call to compare them on
     one card."""
     import numpy as np
@@ -2320,6 +2381,63 @@ def time_msm(repo: str) -> int:
     sel = torch.from_numpy(np.random.default_rng(1).random(N_MAIN) < 15 / 16).to(points.device)
     time_g1_adds(g1_cuda, g1.F, points, Q, sel, split_design(build))
     time_double(g1_cuda, g1.F, points, double_design(build))
+    neg = torch.from_numpy(np.random.default_rng(7).random(N_MAIN) < 0.5).to(points.device)
+    time_g1_combiners(g1_cuda, g1.F, points, Q, g1.to_affine_rows(Q[..., :COMBINER_LANES]), sel,
+                      neg, combiner_design(build))
+    del Q, sel, neg
+
+    # phase 11 (e): the 2^20 MSM with affine points, signed digits and both
+    aff = g1.to_affine_rows(points)
+    for name, (pts_o, kw) in {"affine": (aff, {}), "signed": (points, {"signed": True}),
+                              "affine signed": (aff, {"signed": True})}.items():
+        walls, device_ms = [], []
+        for i in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            totals = M.msm_totals(g1, pts_o, scalars, c=C, K=K, capture="dense", **kw)
+            ev[1].record()
+            got = M.horner_host(g1, totals, C)
+            torch.cuda.synchronize()
+            if got != outs[0]:
+                raise AssertionError(f"time_msm: the {name} MSM differs from the projective one")
+            if i:  # the first run is the warm-up
+                walls.append(time.perf_counter() - t0)
+                device_ms.append(ev[0].elapsed_time(ev[1]))
+        log("time_msm_option", repo=repr(repo), run=repr(name), n=N_MAIN,
+            design=combiner_design(build), seconds=[round(x, 4) for x in walls],
+            msm_totals_device_ms=[round(x, 3) for x in device_ms],
+            points_per_s=f"{N_MAIN / min(walls):.1f}", equals_projective=True)
+    del aff
+
+    # msm_host_bridge on 60,000 host points tiling the base points, 24 None
+    from mathlib_tpu_torch.host import get_engine
+
+    base_aff = g1.decode_points(base)
+    brng = np.random.default_rng(8)
+    pts = [base_aff[i % N_BASE] for i in range(N_BRIDGE)]
+    for i in brng.choice(N_BRIDGE, 24, replace=False):
+        pts[int(i)] = None
+    ks = [int.from_bytes(brng.bytes(32), "big") % spec.r for _ in range(N_BRIDGE)]
+    folded = [0] * N_BASE
+    for i, (P, k) in enumerate(zip(pts, ks)):
+        if P is not None:
+            folded[i % N_BASE] += k
+    want = get_engine(spec).g1.msm(base_aff, [f % spec.r for f in folded])
+    walls = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = M.msm_host_bridge(spec, pts, ks)
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError("time_msm: msm_host_bridge disagrees with the folded host oracle")
+        if i:
+            walls.append(time.perf_counter() - t0)
+    log("time_bridge", repo=repr(repo), points=N_BRIDGE, design=combiner_design(build),
+        seconds=[round(x, 4) for x in walls], points_per_s=f"{N_BRIDGE / min(walls):.1f}",
+        equals_folded_host_oracle=True, card=repr(smi_line()))
     return 0
 
 
@@ -2854,7 +2972,7 @@ def main() -> int:
         if regs > 128 or not entry.endswith(
                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
             raise AssertionError(f"split G1 kernel over its register budget: {entry}")
-    if len(split_ptxas(build.BUILD_LOG)) != 6:  # add, addsel, double at 8 and 12 words
+    if len(split_ptxas(build.BUILD_LOG)) != 2 * len(SPLIT_KERNELS):  # at 8 and 12 words
         raise AssertionError("the split G1 kernels' ptxas lines are missing from the build log")
     del Pb, Qb, selb, Pw, Qw
 
@@ -2978,8 +3096,12 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
 
+    designs = {"add": split_design(build), "addsel": split_design(build),
+               "double": double_design(build), "addselneg": combiner_design(build),
+               "maddsel": combiner_design(build), "maddselneg": combiner_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         **({"design": designs[name]} if name in designs else {}),
          "launches": launches.get(name, 0), "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],

@@ -3,16 +3,14 @@
 //
 //   g1_smul_kernel    <- g1_pallas.py:_smul_kernel    (smul_pallas)
 //   g1_dbladd_kernel  <- g1_pallas.py:_dbladd_kernel  (dbladd_pallas)
-//   g1_addselneg_kernel  <- g1_pallas.py:_addselneg_kernel  (addselneg_pallas)
-//   g1_maddsel_kernel    <- g1_pallas.py:_maddsel_kernel    (maddsel_pallas)
-//   g1_maddselneg_kernel <- g1_pallas.py:_maddselneg_kernel (maddselneg_pallas)
 //   g1_smul_static_kernel <- g1_pallas.py:_smul_static_kernel (smul_static_pallas)
 //
 // The point formulas, the lane layout and the operation order that keeps
 // the relaxed limbs the reference's are in g1_rows.cuh (shared with the
-// hash-to-G1 kernel).  The add, addsel and double kernels
-// (g1_pallas.py:_add_kernel, _addsel_kernel, _double_kernel) spread one
-// formula over the warps of a block: g1_split_kernels.cu.
+// hash-to-G1 kernel).  The add, addsel, double and the MSM's signed and
+// mixed scan combiners (g1_pallas.py:_add_kernel, _addsel_kernel,
+// _double_kernel, _addselneg_kernel, _maddsel_kernel, _maddselneg_kernel)
+// spread one formula over the warps of a block: g1_split_kernels.cu.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
 // and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
@@ -20,8 +18,8 @@
 // for 288 bytes in and 144 out.  The design keeps
 // every operand in registers, with one lane per thread and no shared memory;
 // a point is 36 words, and the add holds two points plus temporaries, so
-// spills to local memory are accepted here.  Later work: the six-warp add of
-// g1_split_kernels.cu for the signed and mixed combiners and the ladders.
+// spills to local memory are accepted here.  Later work: the ladders (smul,
+// dbladd, smul_static) over the warps of a block.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -49,74 +47,6 @@ __global__ void g1_dbladd_kernel(const uint32_t* __restrict__ P, const uint32_t*
     rcb_add<NW>(a, a, b, k, b3);
   }
   store_point<NW>(out, a, n, i);
-}
-
-// out = sel ? P + Q' : Q', Q' = neg ? (X, -Y, Z) : Q -- the signed-digit
-// scan combiner
-template <int NW>
-__global__ void g1_addselneg_kernel(const uint32_t* __restrict__ P,
-                                    const uint32_t* __restrict__ Q,
-                                    const uint8_t* __restrict__ sel,
-                                    const uint8_t* __restrict__ neg, uint32_t* __restrict__ out,
-                                    int n, FieldConsts k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> b;
-  load_point<NW>(b, Q, n, i);
-  if (neg[i]) neg_y<NW>(b.y, k);
-  if (sel[i]) {
-    Point<NW> a;
-    load_point<NW>(a, P, n, i);
-    rcb_add<NW>(b, a, b, k, b3);
-  }
-  store_point<NW>(out, b, n, i);
-}
-
-// out = sel ? P + lift(Q') : lift(Q') for affine (2, L, n) Q, Q' negated
-// where NEG and neg[i] -- the body of the mixed-add scan combiners;
-// lift(Q') = (X2, Y2, R mod p)
-template <int NW, bool NEG>
-__device__ __forceinline__ void maddsel_lane(const uint32_t* __restrict__ P,
-                                             const uint32_t* __restrict__ Q,
-                                             const uint8_t* __restrict__ sel,
-                                             const uint8_t* __restrict__ neg,
-                                             uint32_t* __restrict__ out, int n,
-                                             const FieldConsts& k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Affine<NW> q;
-  load_coord<NW>(q.x, Q, 0, n, i);
-  load_coord<NW>(q.y, Q, 1, n, i);
-  if (NEG && neg[i]) neg_y<NW>(q.y, k);
-  Point<NW> o;
-  if (sel[i]) {
-    load_point<NW>(o, P, n, i);
-    rcb_madd<NW>(o, o, q, k, b3);
-  } else {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      o.x[j] = q.x[j];
-      o.y[j] = q.y[j];
-      o.z[j] = k.one[j];
-    }
-  }
-  store_point<NW>(out, o, n, i);
-}
-
-template <int NW>
-__global__ void g1_maddsel_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
-                                  const uint8_t* __restrict__ sel, uint32_t* __restrict__ out,
-                                  int n, FieldConsts k, int b3) {
-  maddsel_lane<NW, false>(P, Q, sel, nullptr, out, n, k, b3);
-}
-
-template <int NW>
-__global__ void g1_maddselneg_kernel(const uint32_t* __restrict__ P,
-                                     const uint32_t* __restrict__ Q,
-                                     const uint8_t* __restrict__ sel,
-                                     const uint8_t* __restrict__ neg, uint32_t* __restrict__ out,
-                                     int n, FieldConsts k, int b3) {
-  maddsel_lane<NW, true>(P, Q, sel, neg, out, n, k, b3);
 }
 
 // out = [k]Q per lane: MSB-first double, add, select from infinity; the
@@ -214,27 +144,6 @@ extern "C" int mlt_g1_dbladd(const uint32_t* P, const uint32_t* Q, const uint8_t
                              cudaStream_t stream) {
   MLT_DISPATCH(L, g1_dbladd_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
-}
-
-extern "C" int mlt_g1_addselneg(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                                const uint8_t* neg, uint32_t* out, int n, int L,
-                                const uint32_t* consts, int b3, cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_addselneg_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
-}
-
-extern "C" int mlt_g1_maddsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                              uint32_t* out, int n, int L, const uint32_t* consts, int b3,
-                              cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_maddsel_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, Q, sel, out, n, make_consts(consts, NW), b3))
-}
-
-extern "C" int mlt_g1_maddselneg(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                                 const uint8_t* neg, uint32_t* out, int n, int L,
-                                 const uint32_t* consts, int b3, cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_maddselneg_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
 }
 
 extern "C" int mlt_g1_smul_static(const uint32_t* Q, const uint8_t* bits, int nbits, uint32_t* out,

@@ -1,7 +1,7 @@
 // G1 point arithmetic for one thread's registers, shared by the G1 kernels
-// (g1_kernels.cu) and the hash-to-G1 kernel (hash_kernels.cu): port of
-// mathlib_tpu/ops/kernels/g1_pallas.py _rcb_add_rows, _rcb_dbl_rows and
-// _madd_rows.
+// (g1_kernels.cu, g1_split_kernels.cu) and the hash-to-G1 kernel
+// (hash_kernels.cu): port of mathlib_tpu/ops/kernels/g1_pallas.py
+// _rcb_add_rows and _rcb_dbl_rows.
 //
 // Layout: a point batch is (3, L, n) 16-bit limbs in 32-bit words, the
 // reference's lane-major structure of arrays.  One thread owns one lane:
@@ -135,48 +135,6 @@ __device__ __noinline__ void rcb_dbl(Point<NW>& O, const Point<NW>& P, const Fie
   fp_mul<NW>(O.z, t1, z3t, k);
   fp_add<NW>(O.x, xy, xy, k);
   fp_add<NW>(O.y, t2, y3t, k);
-}
-
-template <int NW>
-struct Affine {
-  uint32_t x[NW], y[NW];
-};
-
-// RCB Algorithm 7 specialised to Z2 = 1 (g1_pallas.py _madd_rows): O = P +
-// (X2 : Y2 : 1), 11 field muls.  Complete in P; Q must not be (0, 0).  O may
-// alias P.
-template <int NW>
-__device__ __noinline__ void rcb_madd(Point<NW>& O, const Point<NW>& P, const Affine<NW>& Q,
-                                      const FieldConsts& k, int b3) {
-  uint32_t t0[NW], t1[NW], s3[NW], t4[NW], ln[NW], u[NW], v[NW];
-  fp_mul<NW>(t0, P.x, Q.x, k);
-  fp_mul<NW>(t1, P.y, Q.y, k);
-  fp_add<NW>(u, P.x, P.y, k);
-  fp_add<NW>(v, Q.x, Q.y, k);
-  fp_mul<NW>(s3, u, v, k);
-  fp_mul<NW>(t4, P.z, Q.y, k);
-  fp_add<NW>(t4, t4, P.y, k);  // t4 = Z1 Y2 + Y1
-  fp_mul<NW>(ln, P.z, Q.x, k);
-  fp_add<NW>(ln, ln, P.x, k);  // ln = Z1 X2 + X1
-  fp_add<NW>(u, t0, t1, k);
-  fp_sub<NW>(s3, s3, u, k);  // s3 := t3
-  fp_add<NW>(u, t0, t0, k);
-  fp_add<NW>(t0, u, t0, k);          // t0 := t0_3
-  fp_mul_small<NW>(u, P.z, b3, k);   // u := t2b
-  fp_mul_small<NW>(ln, ln, b3, k);   // ln := lnb
-  fp_add<NW>(v, t1, u, k);           // v := z3t
-  fp_sub<NW>(u, t1, u, k);           // u := t1m
-  // xa = t3*t1m, xb = t4*lnb, ya = t1m*z3t, yb = lnb*t0_3, za = z3t*t4, zb = t0_3*t3
-  uint32_t xa[NW], xb[NW];
-  fp_mul<NW>(xa, s3, u, k);
-  fp_mul<NW>(xb, t4, ln, k);
-  fp_mul<NW>(u, u, v, k);     // u := ya
-  fp_mul<NW>(ln, ln, t0, k);  // ln := yb
-  fp_mul<NW>(v, v, t4, k);    // v := za
-  fp_mul<NW>(t0, t0, s3, k);  // t0 := zb
-  fp_sub<NW>(O.x, xa, xb, k);
-  fp_add<NW>(O.y, u, ln, k);
-  fp_add<NW>(O.z, v, t0, k);
 }
 
 // y = sub(0, y) in the relaxed domain

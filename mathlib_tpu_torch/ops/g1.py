@@ -176,24 +176,29 @@ class G1Ctx:
         """select(sel, 2P + Q, 2P) -- one scalar-mul step, one kernel."""
         return g1_cuda.dbladd(self.F, P, Q, sel)
 
-    def add_select_neg(self, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
+    def add_select_neg(self, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor,
+                       out: Optional[Tensor] = None) -> Tensor:
         """select(sel, P + Q', Q') with Q' = (neg ? -Q : Q) -- the signed-digit
-        MSM combiner, the negation inside the kernel."""
-        return g1_cuda.addselneg(self.F, P, Q, sel, neg)
+        MSM combiner, the negation inside the kernel; written into ``out``
+        if given."""
+        return g1_cuda.addselneg(self.F, P, Q, sel, neg, out)
 
     def _lift(self, Q: Tensor) -> Tensor:
         """Affine (..., 2, L, B) -> projective with Z = 1."""
         return g1_cuda.lift(self.F, Q)
 
-    def madd_select(self, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
+    def madd_select(self, P: Tensor, Q: Tensor, sel: Tensor,
+                    out: Optional[Tensor] = None) -> Tensor:
         """select(sel, P + lift(Q), lift(Q)) with Q AFFINE (..., 2, L, B): the
-        mixed-add MSM combiner (11 field muls, 2L-word rows).  Q must not be
-        infinity on a selected lane."""
-        return g1_cuda.maddsel(self.F, P, Q, sel)
+        mixed-add MSM combiner (11 field muls, 2L-word rows), written into
+        ``out`` if given.  Q must not be infinity on a selected lane."""
+        return g1_cuda.maddsel(self.F, P, Q, sel, out)
 
-    def madd_select_neg(self, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
-        """The mixed-add combiner with the negation of the signed digits."""
-        return g1_cuda.maddselneg(self.F, P, Q, sel, neg)
+    def madd_select_neg(self, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor,
+                        out: Optional[Tensor] = None) -> Tensor:
+        """The mixed-add combiner with the negation of the signed digits,
+        written into ``out`` if given."""
+        return g1_cuda.maddselneg(self.F, P, Q, sel, neg, out)
 
     def sub(self, P: Tensor, Q: Tensor) -> Tensor:
         return self.add(P, self.neg(Q))

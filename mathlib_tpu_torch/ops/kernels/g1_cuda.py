@@ -1,9 +1,10 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
 Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
-``csrc/g1_rows.cuh`` (``add``, ``addsel`` and ``double``:
-``csrc/g1_split_kernels.cu``, one add spread over six warps, one doubling
-over four), each behind a wrapper here:
+``csrc/g1_rows.cuh`` (``add``, ``addsel``, ``addselneg``, ``maddsel``,
+``maddselneg`` and ``double``: ``csrc/g1_split_kernels.cu``, one add or
+mixed add spread over six warps, one doubling over four), each behind a
+wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)
@@ -30,9 +31,10 @@ product on any device).  On a CUDA tensor it launches its kernel on the
 current stream, adds one to its ``launches`` count, and raises if the launch
 fails; it never falls back.  Leading batch dims are folded into the lane
 axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
-``add`` and ``addsel`` (and their plain versions) also write into a given
-``out``, a contiguous (3, L, n) int32 tensor of the result's shape that
-overlaps no operand (the MSM scan's capture buffer, a step at a time).
+``add`` and the four scan combiners ``addsel``, ``addselneg``, ``maddsel``,
+``maddselneg`` (and their plain versions) also write into a given ``out``, a
+contiguous (3, L, n) int32 tensor of the result's shape that overlaps no
+operand (the MSM scan's capture buffer, a step at a time).
 
 The negation of the signed combiners is ``F.sub(0, Y)``, the relaxed
 subtraction (``p2`` added back below zero), not a canonical ``p - Y``.  The
@@ -133,9 +135,9 @@ def _neg_y(F, Q: Tensor, neg: Tensor) -> Tensor:
 
 
 def addselneg_plain(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor,
-                    neg: Tensor) -> Tensor:
+                    neg: Tensor, out: Optional[Tensor] = None) -> Tensor:
     P, Q = torch.broadcast_tensors(P, Q)
-    return addsel_plain(F, P, _neg_y(F, Q, neg), sel)
+    return _into(out, addsel_plain(F, P, _neg_y(F, Q, neg), sel), P, Q)
 
 
 def madd_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor) -> Tensor:
@@ -169,14 +171,17 @@ def _affine_like(P: Tensor, Qa: Tensor) -> Tensor:
     return Qa.expand(P.shape[:-3] + (2,) + P.shape[-2:])
 
 
-def maddsel_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor) -> Tensor:
+def maddsel_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor,
+                  out: Optional[Tensor] = None) -> Tensor:
     Qa = _affine_like(P, Qa)
-    return torch.where(sel[..., None, None, :], madd_plain(F, P, Qa), lift(F, Qa))
+    return _into(out, torch.where(sel[..., None, None, :], madd_plain(F, P, Qa), lift(F, Qa)),
+                 P, Qa)
 
 
 def maddselneg_plain(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor,
-                     neg: Tensor) -> Tensor:
-    return maddsel_plain(F, P, _neg_y(F, _affine_like(P, Qa), neg), sel)
+                     neg: Tensor, out: Optional[Tensor] = None) -> Tensor:
+    Qa = _affine_like(P, Qa)
+    return _into(out, maddsel_plain(F, P, _neg_y(F, Qa, neg), sel), P, Qa)
 
 
 def _acc_shape(Q: Tensor, scalars: Tensor) -> tuple:
@@ -261,32 +266,15 @@ def _lane_mask(m: Tensor, P: Tensor, what: str) -> Tensor:
     return m
 
 
-def _launch_sel(kernel, name: str, F, P: Tensor, Q: Tensor, masks, affine: bool) -> Tensor:
-    """Launch one of the select kernels: points P (..., 3, L, B), Q projective
-    or affine, and the bool lane masks ``masks`` (sel, then neg)."""
+def _launch(kernel, name: str, F, P: Tensor, Q: Tensor, masks=(), out: Optional[Tensor] = None,
+            affine: bool = False) -> Tensor:
+    """Launch one of the two-point kernels on P (..., 3, L, B) and Q (of P's
+    shape, or affine (..., 2, L, B)) with the bool lane masks ``masks``
+    (sel, then neg), into ``out`` if given."""
     _check(F, P, *(() if affine else (Q,)), affine=Q if affine else None)
-    flat = [_lane_mask(m, P, what) for m, what in zip(masks, ("sel", "neg"))]
-    P2, restore = _to_lanes(P)
-    Q2, _ = _to_lanes(Q)
-    out = torch.empty_like(P2)
-    n = P2.shape[-1]
-    if n:
-        with torch.cuda.device(P.device):
-            build.launch(name, P2.data_ptr(), Q2.data_ptr(), *(m.data_ptr() for m in flat),
-                         out.data_ptr(), n, F.fp.L,
-                         ctypes.addressof(build.consts(F.fp.p, F.fp.L)), F.b3, build.stream(P))
-        kernel.launches += 1
-    return restore(out)
-
-
-def _launch_split(kernel, name: str, F, P: Tensor, Q: Tensor, sel: Optional[Tensor],
-                  out: Optional[Tensor]) -> Tensor:
-    """Launch the add (sel None) or addsel kernel on broadcast P and Q,
-    into ``out`` if given."""
-    _check(F, P, Q)
     if out is not None:
         _check_out(out, P.shape, P.device, P, Q)
-    masks = () if sel is None else (_lane_mask(sel, P, "sel"),)
+    masks = [_lane_mask(m, P, what) for m, what in zip(masks, ("sel", "neg"))]
     P2, restore = _to_lanes(P)
     Q2, _ = _to_lanes(Q)
     dst = torch.empty_like(P2) if out is None else out
@@ -306,7 +294,7 @@ def add(F: weier.FieldAdapter, P: Tensor, Q: Tensor, out: Optional[Tensor] = Non
     if P.device.type == "cpu":
         return add_plain(F, P, Q, out)
     _require_cuda(P)
-    return _launch_split(add, "mlt_g1_add", F, P, Q, None, out)
+    return _launch(add, "mlt_g1_add", F, P, Q, out=out)
 
 
 def double(F: weier.FieldAdapter, P: Tensor) -> Tensor:
@@ -334,7 +322,7 @@ def addsel(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor,
         return addsel_plain(F, P, Q, sel, out)
     _require_cuda(P)
     P, Q = torch.broadcast_tensors(P, Q)
-    return _launch_split(addsel, "mlt_g1_addsel", F, P, Q, sel, out)
+    return _launch(addsel, "mlt_g1_addsel", F, P, Q, (sel,), out)
 
 
 def smul(F: weier.FieldAdapter, Q: Tensor, scalars: Tensor, nbits: int) -> Tensor:
@@ -390,36 +378,41 @@ def dbladd(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
         return dbladd_plain(F, P, Q, sel)
     _require_cuda(P)
     P, Q = torch.broadcast_tensors(P, Q)
-    return _launch_sel(dbladd, "mlt_g1_dbladd", F, P, Q, (sel,), affine=False)
+    return _launch(dbladd, "mlt_g1_dbladd", F, P, Q, (sel,))
 
 
-def addselneg(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
+def addselneg(F: weier.FieldAdapter, P: Tensor, Q: Tensor, sel: Tensor, neg: Tensor,
+              out: Optional[Tensor] = None) -> Tensor:
     """select(sel, P + Q', Q') with Q' = neg ? (X, sub(0, Y), Z) : Q: the
-    signed-digit scan combiner."""
+    signed-digit scan combiner, into ``out`` if given."""
     if P.device.type == "cpu":
-        return addselneg_plain(F, P, Q, sel, neg)
+        return addselneg_plain(F, P, Q, sel, neg, out)
     _require_cuda(P)
     P, Q = torch.broadcast_tensors(P, Q)
-    return _launch_sel(addselneg, "mlt_g1_addselneg", F, P, Q, (sel, neg), affine=False)
+    return _launch(addselneg, "mlt_g1_addselneg", F, P, Q, (sel, neg), out)
 
 
-def maddsel(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor) -> Tensor:
+def maddsel(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor,
+            out: Optional[Tensor] = None) -> Tensor:
     """select(sel, P + lift(Qa), lift(Qa)) for affine Qa (..., 2, L, B): the
-    mixed-add scan combiner.  Qa must not be the (0, 0) of infinity on a
-    selected lane (the MSM zeroes the scalars of infinity inputs)."""
+    mixed-add scan combiner, into ``out`` if given.  Qa must not be the
+    (0, 0) of infinity on a selected lane (the MSM zeroes the scalars of
+    infinity inputs)."""
     if P.device.type == "cpu":
-        return maddsel_plain(F, P, Qa, sel)
+        return maddsel_plain(F, P, Qa, sel, out)
     _require_cuda(P)
-    return _launch_sel(maddsel, "mlt_g1_maddsel", F, P, _affine_like(P, Qa), (sel,), affine=True)
+    return _launch(maddsel, "mlt_g1_maddsel", F, P, _affine_like(P, Qa), (sel,), out, affine=True)
 
 
-def maddselneg(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor, neg: Tensor) -> Tensor:
-    """The mixed-add combiner with the signed combiner's negation of Y."""
+def maddselneg(F: weier.FieldAdapter, P: Tensor, Qa: Tensor, sel: Tensor, neg: Tensor,
+               out: Optional[Tensor] = None) -> Tensor:
+    """The mixed-add combiner with the signed combiner's negation of Y, into
+    ``out`` if given."""
     if P.device.type == "cpu":
-        return maddselneg_plain(F, P, Qa, sel, neg)
+        return maddselneg_plain(F, P, Qa, sel, neg, out)
     _require_cuda(P)
-    return _launch_sel(maddselneg, "mlt_g1_maddselneg", F, P, _affine_like(P, Qa), (sel, neg),
-                       affine=True)
+    return _launch(maddselneg, "mlt_g1_maddselneg", F, P, _affine_like(P, Qa), (sel, neg), out,
+                   affine=True)
 
 
 # launch counts: a plain integer on each wrapper, raised only where it launches

@@ -210,16 +210,17 @@ def _bucket_table(
     inf_row = g1.inf.reshape(R)
 
     def combine(run, gathered, sel, ng, out):
-        """One segmented-scan step on freshly gathered points, into ``out``:
-        the add_select kernel writes it in place, the signed and mixed
-        combiners' results are copied in."""
-        if not (mixed or signed):
-            g1.add_select(run, gathered, sel, out=out)
-        elif mixed:
-            out.copy_(g1.madd_select_neg(run, gathered, sel, ng) if signed
-                      else g1.madd_select(run, gathered, sel))
+        """One segmented-scan step on freshly gathered points, written by
+        the combiner's kernel straight into ``out``."""
+        if mixed:
+            if signed:
+                g1.madd_select_neg(run, gathered, sel, ng, out=out)
+            else:
+                g1.madd_select(run, gathered, sel, out=out)
+        elif signed:
+            g1.add_select_neg(run, gathered, sel, ng, out=out)
         else:
-            out.copy_(g1.add_select_neg(run, gathered, sel, ng))
+            g1.add_select(run, gathered, sel, out=out)
 
     # flat index into the (K, W*C) capture buffer of the running sum AT
     # sorted position (w, i): i = chunk*K + step

@@ -70,43 +70,60 @@ def numpy_bodies():
         fp_rows_mod.jnp, g1p_mod.jnp, g1p_mod._STACK_CHUNK = saved
 
 
+# the reference's kernel bodies that take lane masks (sel, then neg), and
+# those that take the limbs of R mod p (the mixed adds' lift)
+_MASKS = {g1p_mod._addsel_kernel: 1, g1p_mod._addselneg_kernel: 2, g1p_mod._maddsel_kernel: 1,
+          g1p_mod._maddselneg_kernel: 2}
+_LIFTS = (g1p_mod._maddsel_kernel, g1p_mod._maddselneg_kernel)
+
+
 class BodyG1:
-    """The reference G1Ctx with ``add``, ``double`` and ``add_select`` run as
-    the reference's Pallas kernel bodies (``_add_kernel``, ``_double_kernel``,
-    ``_addsel_kernel``) on numpy rows, through ``jax.pure_callback`` so that
-    they also run inside the reference's jitted scans: the RCB formulas in
-    the XLA path's operation order, so limb for limb the same points, with
-    no point arithmetic for XLA to compile.  The bodies stack each level's
-    products (``_mm_stacked``, the same values as one product at a time),
-    the faster form on numpy."""
+    """The reference G1Ctx with ``add``, ``double`` and the scan combiners
+    ``add_select``, ``add_select_neg``, ``madd_select`` and
+    ``madd_select_neg`` run as the reference's Pallas kernel bodies
+    (``_add_kernel``, ``_double_kernel``, ``_addsel_kernel``,
+    ``_addselneg_kernel``, ``_maddsel_kernel``, ``_maddselneg_kernel``) on
+    numpy rows, through ``jax.pure_callback`` so that they also run inside
+    the reference's jitted scans: the RCB formulas in the XLA path's
+    operation order (the mixed add: ``_madd_rows``, the kernels' own), so
+    limb for limb the kernels' points, with no point arithmetic for XLA to
+    compile.  The bodies stack each level's products (``_mm_stacked``, the
+    same values as one product at a time), the faster form on numpy."""
 
     def __init__(self, g1):
         self._g1 = g1
         self._rows = RowCtx(g1.spec.p, g1.fp.L)
+        R = 1 << (16 * g1.fp.L)
+        self._one = tuple(((R % g1.spec.p) >> (16 * k)) & 0xFFFF for k in range(g1.fp.L))
 
     def __getattr__(self, name):
         return getattr(self._g1, name)
 
     def host(self, kernel, *arrs):
-        """kernel on numpy (..., 3, L, B) points (and a (..., B) mask last),
-        eagerly: a numpy array out."""
+        """kernel on numpy (..., 3, L, B) points P, Q (Q affine (..., 2, L, B)
+        for the mixed adds; of P's lanes) and its (..., B) masks last,
+        eagerly: a numpy array of P's shape out."""
         arrs = [np.asarray(a) for a in arrs]
         shape = arrs[0].shape
-        masked = int(kernel is g1p_mod._addsel_kernel)
-        flat = [np.moveaxis(a, (-3, -2), (0, 1)).reshape(3, shape[-2], 1, -1)
-                for a in arrs[: len(arrs) - masked]]
-        flat += [a.reshape(1, 1, -1).astype(np.uint32) for a in arrs[len(flat) :]]
+        pts = arrs[: len(arrs) - _MASKS.get(kernel, 0)]
+        flat = [np.moveaxis(a, (-3, -2), (0, 1)).reshape(a.shape[-3], shape[-2], 1, -1)
+                for a in pts]
+        flat += [a.reshape(1, 1, -1).astype(np.uint32) for a in arrs[len(pts) :]]
         out = Ref(np.zeros_like(flat[0]))
+        lift = (self._one,) if kernel in _LIFTS else ()
         with numpy_bodies():
-            kernel(self._rows, self._g1.F.b3, *[Ref(f) for f in flat], out,
+            kernel(self._rows, self._g1.F.b3, *lift, *[Ref(f) for f in flat], out,
                    mm=g1p_mod._mm_stacked)
         out = out.arr.reshape(shape[-3:-1] + shape[:-3] + shape[-1:])
         return np.moveaxis(out, (0, 1), (-3, -2))
 
     def _run(self, kernel, *arrays):
-        """kernel on (..., 3, L, B) points (and a (..., B) mask last)."""
+        """kernel on (..., 3, L, B) points (and its (..., B) masks last)."""
         return jax.pure_callback(lambda *a: self.host(kernel, *a),
                                  jax.ShapeDtypeStruct(arrays[0].shape, jnp.uint32), *arrays)
+
+    def _masks(self, P, *masks):
+        return [jnp.broadcast_to(m, P.shape[:-3] + P.shape[-1:]) for m in masks]
 
     def add(self, P, Q):
         return self._run(g1p_mod._add_kernel, *jnp.broadcast_arrays(P, Q))
@@ -116,5 +133,18 @@ class BodyG1:
 
     def add_select(self, P, Q, sel):
         P, Q = jnp.broadcast_arrays(P, Q)
-        return self._run(g1p_mod._addsel_kernel, P, Q,
-                         jnp.broadcast_to(sel, P.shape[:-3] + P.shape[-1:]))
+        return self._run(g1p_mod._addsel_kernel, P, Q, *self._masks(P, sel))
+
+    def add_select_neg(self, P, Q, sel, neg):
+        P, Q = jnp.broadcast_arrays(P, Q)
+        return self._run(g1p_mod._addselneg_kernel, P, Q, *self._masks(P, sel, neg))
+
+    def _affine(self, P, Q):
+        return jnp.broadcast_to(Q, P.shape[:-3] + (2,) + P.shape[-2:])
+
+    def madd_select(self, P, Q, sel):
+        return self._run(g1p_mod._maddsel_kernel, P, self._affine(P, Q), *self._masks(P, sel))
+
+    def madd_select_neg(self, P, Q, sel, neg):
+        return self._run(g1p_mod._maddselneg_kernel, P, self._affine(P, Q),
+                         *self._masks(P, sel, neg))

@@ -62,6 +62,12 @@ def _edge_points(eng, g1, n, seed):
     """P, Q on n lanes: random multiples of the generator, with P = Q on every
     7th lane (the complete add doubles), P = -Q on every 17th, P at infinity
     on every 11th, Q on every 13th and both on every 19th."""
+    A, B = _edge_hosts(eng, n, seed)
+    return g1.encode_points(A), g1.encode_points(B)
+
+
+def _edge_hosts(eng, n, seed):
+    """The host points of ``_edge_points``."""
     rng = np.random.default_rng(seed)
     pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 31)]
     A = [pool[i] for i in rng.integers(0, len(pool), n)]
@@ -75,7 +81,7 @@ def _edge_points(eng, g1, n, seed):
             A[i] = None
         if i % 13 == 6 or i % 19 == 4:
             B[i] = None
-    return g1.encode_points(A), g1.encode_points(B)
+    return A, B
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 191, 4097])
@@ -97,6 +103,109 @@ def test_six_warp_add_kernels_equal_plain_versions(ctx, n):
             sel = sel.to(P.device)
             assert torch.equal(g1_cuda.addsel(F, a, b, sel), g1_cuda.addsel_plain(F, a, b, sel))
     assert {k: v for k, v in g1_cuda.launches().items() if v} == {"add": 3, "addsel": 9}
+
+
+def _combiner_masks(n, seed):
+    """sel all 0, all 1 and random (with a 32-lane block that adds nowhere
+    and one that adds everywhere), and a random neg: every case mixes neg
+    inside a block, so the blocks that add nowhere store Q' (or lift(Q'))."""
+    rng = np.random.default_rng(seed)
+    sel = torch.from_numpy(rng.random(n) < 0.5)
+    sel[32:64], sel[64:96] = False, True
+    neg = torch.from_numpy(rng.random(n) < 0.5)
+    return [torch.zeros(n, dtype=torch.bool), torch.ones(n, dtype=torch.bool), sel], neg
+
+
+def _combiner_operands(eng, g1, n, seed):
+    """Relaxed P (sums with P = Q and P = -Q lanes), projective Q and affine
+    Qa of the same host points; Qa is (0, 0) where Q is infinity, as it is
+    on no selected lane of an MSM, and the kernels compute there what the
+    plain versions compute."""
+    A, B = _edge_hosts(eng, n, seed)
+    P = g1_cuda.add_plain(g1.F, g1.encode_points(A), g1.encode_points(B))
+    return P, g1.encode_points(B), g1.encode_points_affine(B)
+
+
+_COMBINERS = ("addselneg", "maddsel", "maddselneg")
+
+
+def _combiner_call(F, name, P, Q, Qa, sel, neg, out=None, plain=False):
+    fn = getattr(g1_cuda, name + ("_plain" if plain else ""))
+    masks = (sel, neg) if name.endswith("neg") else (sel,)
+    return fn(F, P, Qa if name.startswith("m") else Q, *masks, out=out)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4097])
+def test_six_warp_combiners_equal_plain_versions(ctx, n):
+    """addselneg, maddsel and maddselneg (32 lanes a block: ragged last
+    blocks) against their plain versions, bit for bit, on relaxed P and on
+    canonical P, with sel all 0, all 1 and random, neg mixed in every
+    block."""
+    eng, g1 = ctx
+    F = g1.F
+    P, Q, Qa = _combiner_operands(eng, g1, n, n + 5)
+    sels, neg = _combiner_masks(n, n)
+    neg = neg.to(P.device)
+    g1_cuda.reset_launches()
+    for a in (P, Q):
+        for sel in sels:
+            sel = sel.to(P.device)
+            for name in _COMBINERS:
+                assert torch.equal(_combiner_call(F, name, a, Q, Qa, sel, neg),
+                                   _combiner_call(F, name, a, Q, Qa, sel, neg, plain=True)), name
+    assert {k: v for k, v in g1_cuda.launches().items() if v} == {k: 6 for k in _COMBINERS}
+
+
+def test_six_warp_combiners_write_into_a_capture_buffer(ctx):
+    """out= a step ys[s] of a (K, 3, L, n) buffer: each combiner writes that
+    step in place and leaves the others alone; G1Ctx passes out= through."""
+    eng, g1 = ctx
+    F = g1.F
+    n = 191
+    P, Q, Qa = _combiner_operands(eng, g1, n, 6)
+    sels, neg = _combiner_masks(n, 6)
+    sel, neg = sels[2].to(P.device), neg.to(P.device)
+    for name, method in zip(_COMBINERS, ("add_select_neg", "madd_select", "madd_select_neg")):
+        ys = torch.full((3,) + P.shape, -1, dtype=torch.int32, device=P.device)
+        want = _combiner_call(F, name, P, Q, Qa, sel, neg, plain=True)
+        got = _combiner_call(F, name, P, Q, Qa, sel, neg, out=ys[1])
+        assert got.data_ptr() == ys[1].data_ptr()
+        assert torch.equal(ys[1], want), name
+        masks = (sel, neg) if name.endswith("neg") else (sel,)
+        getattr(g1, method)(P, Qa if name.startswith("m") else Q, *masks, out=ys[2])
+        assert torch.equal(ys[2], want), name
+        assert bool((ys[0] == -1).all())
+
+
+def test_six_warp_combiner_wrappers_refuse_a_bad_out(ctx):
+    eng, g1 = ctx
+    F = g1.F
+    n = 64
+    P0, Q0, Qa0 = _combiner_operands(eng, g1, n, 7)
+    dev, size = P0.device, P0.numel()
+
+    def in_storage(t):  # t at the start of a storage twice P's size, and a view beside it
+        flat = torch.zeros(t.numel() + size, dtype=torch.int32, device=dev)
+        head = t.numel() // 2
+        return flat[: t.numel()].view(t.shape).copy_(t), flat[head : head + size].view(P0.shape)
+
+    (P, over_P), (Q, over_Q), (Qa, over_Qa) = in_storage(P0), in_storage(Q0), in_storage(Qa0)
+    sel = torch.ones(n, dtype=torch.bool, device=dev)
+    neg = sel.clone()
+    bad = [
+        (torch.empty(P0.shape[:-1] + (2 * n,), dtype=torch.int32, device=dev)[..., ::2],
+         ValueError),  # not contiguous
+        (torch.empty(P0.shape[:-1] + (n + 1,), dtype=torch.int32, device=dev), ValueError),
+        (torch.empty(P0.shape, dtype=torch.int64, device=dev), TypeError),
+        (torch.empty(P0.shape, dtype=torch.int32), ValueError),  # on the CPU
+    ]
+    g1_cuda.reset_launches()
+    for name in _COMBINERS:  # out overlapping P, or Q (affine for the mixed adds)
+        for out, err in bad + [(over_P, ValueError),
+                               (over_Qa if name.startswith("m") else over_Q, ValueError)]:
+            with pytest.raises(err):
+                _combiner_call(F, name, P, Q, Qa, sel, neg, out=out)
+    assert not any(g1_cuda.launches()[k] for k in _COMBINERS)
 
 
 @pytest.mark.parametrize("n", [1, 16, 33, 4097])

@@ -202,6 +202,81 @@ def test_add_wrappers_refuse_a_bad_out(ctx):
     assert torch.equal(g1_cuda.add(port.F, P, Q, out=ok), g1_cuda.add_plain(port.F, P, Q))
 
 
+# the signed and mixed scan combiners: plain version, G1Ctx method, the
+# reference's kernel body, whether Q is affine, whether it takes neg
+_COMBINERS = {
+    "addselneg": (g1_cuda.addselneg_plain, "add_select_neg", g1p_mod._addselneg_kernel, False,
+                  True),
+    "maddsel": (g1_cuda.maddsel_plain, "madd_select", g1p_mod._maddsel_kernel, True, False),
+    "maddselneg": (g1_cuda.maddselneg_plain, "madd_select_neg", g1p_mod._maddselneg_kernel, True,
+                   True),
+}
+_SEL = np.array([1, 1, 0, 1, 0, 1, 1, 0], dtype=bool)
+_NEG = np.array([1, 0, 1, 1, 0, 0, 1, 1], dtype=bool)
+
+
+def _combiner_operands(eng, ref, port, combiner):
+    """The relaxed sums s, Q (affine for the mixed adds) and the masks of a
+    combiner, numpy."""
+    _, right, _, b, s = _relaxed_inputs(eng, ref, port)
+    _, _, _, affine, signed = _COMBINERS[combiner]
+    q = np.asarray(ref.encode_points_affine(right)) if affine else b
+    return s, q, (_SEL, _NEG) if signed else (_SEL,)
+
+
+@pytest.mark.parametrize("combiner", list(_COMBINERS))
+def test_signed_and_mixed_combiners_write_into_out(ctx, combiner):
+    """addselneg_plain, maddsel_plain and maddselneg_plain (which the CPU
+    wrappers run) with out= a step of a (K, 3, L, n) capture buffer: they
+    return that tensor, holding the values of the reference's kernel body,
+    and leave the other steps alone; G1Ctx passes out= through."""
+    eng, ref, port = ctx
+    plain, method, body, _, _ = _COMBINERS[combiner]
+    s, q, masks = _combiner_operands(eng, ref, port, combiner)
+    S, Q = to_torch(s, "cpu"), to_torch(q, "cpu")
+    mt = [torch.from_numpy(m) for m in masks]
+    ys = torch.full((3,) + S.shape, -1, dtype=torch.int32)
+    got = plain(port.F, S, Q, *mt, out=ys[1])
+    assert got.data_ptr() == ys[1].data_ptr()
+    np.testing.assert_array_equal(to_numpy(got), BodyG1(ref._g1).host(body, s, q, *masks))
+    assert torch.equal(got, plain(port.F, S, Q, *mt))
+    assert getattr(port, method)(S, Q, *mt, out=ys[2]).data_ptr() == ys[2].data_ptr()
+    assert torch.equal(ys[2], ys[1])
+    assert bool((ys[0] == -1).all())
+
+
+@pytest.mark.parametrize("combiner", list(_COMBINERS))
+def test_signed_and_mixed_combiners_refuse_a_bad_out(ctx, combiner):
+    """The combiners' wrappers and plain versions refuse an out that is not
+    a contiguous (3, L, n) int32 tensor of the result's shape, or that
+    overlaps P or Q."""
+    eng, ref, port = ctx
+    plain = _COMBINERS[combiner][0]
+    s, q, masks = _combiner_operands(eng, ref, port, combiner)
+    shape, n = s.shape, s.shape[-1]
+    flat = torch.zeros(2 * s.size, dtype=torch.int32)
+    P = flat[: s.size].view(shape).copy_(to_torch(s, "cpu"))
+    qflat = torch.zeros(q.size + s.size, dtype=torch.int32)
+    Q = qflat[: q.size].view(q.shape).copy_(to_torch(q, "cpu"))
+    mt = [torch.from_numpy(m) for m in masks]
+    bad = {
+        "overlaps P": flat[s.size // 2 : s.size // 2 + s.size].view(shape),
+        "overlaps Q": qflat[q.size // 2 : q.size // 2 + s.size].view(shape),
+        "not contiguous": torch.empty(shape[:-1] + (2 * n,), dtype=torch.int32)[..., ::2],
+        "wrong shape": torch.empty(shape[:-1] + (n + 1,), dtype=torch.int32),
+        "batched": torch.empty((1,) + shape, dtype=torch.int32),
+        "wrong dtype": torch.empty(shape, dtype=torch.int64),
+    }
+    for why, out in bad.items():
+        for call in (getattr(g1_cuda, combiner), plain):
+            with pytest.raises(TypeError if why == "wrong dtype" else ValueError):
+                call(port.F, P, Q, *mt, out=out)
+    # a buffer beside P in the same storage is fine
+    ok = flat[s.size :].view(shape)
+    assert torch.equal(getattr(g1_cuda, combiner)(port.F, P, Q, *mt, out=ok),
+                       plain(port.F, P, Q, *mt))
+
+
 def _split_dbl_model(P, p, L, b3):
     """``split_dbl`` (csrc/g1_split_kernels.cu) on one lane's Python ints,
     warp by warp: the first layer's four products, each warp's middle values

@@ -2,24 +2,35 @@
 add, the GLV split), the host bridge and ``BatchEngine``'s G1 entry points,
 against the port's host engine (exact).
 
-The reference's ``msm``, ``bucket_table`` and ``msm_host_bridge`` are not
-jitted here for these options: one such compile costs more than this whole
-file.  Instead the bucket tables are held, bucket by bucket, to host sums
-of the points each bucket must hold (canonical values), the window totals
-to the host's weighted sums, and each MSM to the host engine's.  The
-combiners underneath are held to the reference limb for limb in
-``test_torch_g1_options.py``.  c = 4, K = 4 at n = 16 with colliding digits
-(long segments and cross-chunk carries) and an infinity input.
+The reference's ``msm`` and ``msm_host_bridge`` are not jitted here for
+these options: one such compile costs more than this whole file.  Instead
+the bucket tables are held, bucket by bucket, to host sums of the points
+each bucket must hold (canonical values), the window totals to the host's
+weighted sums, and each MSM to the host engine's.  The combiners underneath
+are held to the reference limb for limb in ``test_torch_g1_options.py``,
+and the signed and mixed scans' tables to the reference's ``bucket_table``
+limb for limb, its combiners run as the reference's kernel bodies on numpy
+rows (``BodyG1`` of ``tests/_torch_ref_bodies.py``: XLA compiles only the
+sorts, gathers and scans), beside the scan's in-place capture.  c = 4,
+K = 4 at n = 16 with colliding digits (long segments and cross-chunk
+carries) and an infinity input.
 """
 
 import random
 
+import jax
+import numpy as np
 import pytest
 import torch
 
+from _torch_ref_bodies import BodyG1
+from mathlib_tpu.curves.params import get_spec as ref_get_spec
+from mathlib_tpu.ops import msm as ref_msm
+from mathlib_tpu.ops.g1 import get_g1_ctx as ref_get_g1_ctx
 from mathlib_tpu_torch import get_spec
 from mathlib_tpu_torch.batch import BatchEngine, get_batch_engine
 from mathlib_tpu_torch.curves.params import CurveID
+from mathlib_tpu_torch.convert import to_numpy
 from mathlib_tpu_torch.host import get_engine
 from mathlib_tpu_torch.ops import msm
 from mathlib_tpu_torch.ops.g1 import G1Ctx
@@ -76,9 +87,20 @@ def _host_buckets(eng, pts, ks, nwin, signed):
     return out
 
 
-@pytest.mark.parametrize("signed,affine", [(True, False), (False, True), (True, True)],
+# the signed and mixed scans' combiners, by (signed, affine)
+_SCAN_COMBINERS = {(True, False): "add_select_neg", (False, True): "madd_select",
+                   (True, True): "madd_select_neg"}
+
+
+@pytest.mark.parametrize("signed,affine", list(_SCAN_COMBINERS),
                          ids=["signed", "mixed", "signed-mixed"])
-def test_bucket_tables_and_msm_equal_the_host(env, signed, affine):
+def test_bucket_tables_and_msm_equal_the_host(env, signed, affine, monkeypatch):
+    """The scan hands its combiner (add_select_neg, madd_select,
+    madd_select_neg) each step of the (K, 3, L, W*C) capture buffer as out=
+    (K consecutive steps, none copied), as the unsigned scan hands
+    add_select (``test_torch_msm.py``); the bucket table equals the
+    reference's limb for limb and the host's sums bucket by bucket, the
+    window totals and the MSM the host's."""
     eng, g1 = env
     pts, ks = _inputs(eng, N, seed=1)
     P = g1.encode_points_affine(pts) if affine else g1.encode_points(pts)
@@ -86,7 +108,26 @@ def test_bucket_tables_and_msm_equal_the_host(env, signed, affine):
     ks_in = [0 if Q is None else k for Q, k in zip(pts, ks)] if affine else ks
     S = g1.encode_scalars(ks_in)
     nwin = msm.n_windows(g1, C)
+    name = _SCAN_COMBINERS[(signed, affine)]
+    outs = []
+    combiner = getattr(g1, name)
+
+    def recording(*args, out=None):
+        outs.append(out)
+        got = combiner(*args, out=out)
+        assert got is out
+        return got
+
+    monkeypatch.setattr(g1, name, recording)
     table = msm.bucket_table(g1, P, S, C, signed=signed, K=K)
+    monkeypatch.undo()
+    assert len(outs) == K and all(o is not None for o in outs)
+    stride = outs[0].numel() * outs[0].element_size()
+    assert [o.data_ptr() - outs[0].data_ptr() for o in outs] == [s * stride for s in range(K)]
+    body = BodyG1(ref_get_g1_ctx(ref_get_spec("BLS12_381")))
+    want = jax.jit(lambda p, s: ref_msm.bucket_table(body, p, s, C, signed=signed, K=K))(
+        to_numpy(P), to_numpy(S))
+    np.testing.assert_array_equal(to_numpy(table), np.asarray(want))
     W = msm.n_windows(g1, C, signed=signed, nbits=g1.nbits)  # r < 2^255: no carry window
     want = _host_buckets(eng, pts, ks_in, nwin, signed)
     assert all(x is None for row in want[W:] for x in row)
