@@ -17,10 +17,12 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      doubling over four warps) on 1, 16, 33 and 4,097 lanes (infinity and
      P = -P lanes among them), timed at the MSM's 16 lanes, at Horner's one
      and at 2^20, device and host time a launch; add and addsel (one add
-     over six warps) also at addsel's 4,096-lane shape; the split kernels of
-     ``g1_split_kernels.cu`` (add, addsel, double and phase 10's signed and
-     mixed combiners) with their ptxas registers, stack and spills (none
-     allowed, at most 128 registers);
+     over six warps) also at addsel's 4,096-lane shape; smul (the ladder
+     over six warps) also at 4,096, 2,048 and 1,024 lanes, each against the
+     plain version's first lanes; the split kernels of
+     ``g1_split_kernels.cu`` (add, addsel, double, phase 10's signed and
+     mixed combiners and the ladder) with their ptxas registers, stack and
+     spills (none allowed, at most 128 registers), and mont_mul's lines;
   4. the n=512 gates of ``bench.py``: msm_totals + horner_host and the split
      path must equal the port's msm_naive and the host engine's MSM;
   5. the main path at 2^20 points: 8,192 base points by the port's
@@ -44,7 +46,8 @@ The second main path, the pairing-product check a BLS verifier pays for
      miller_lanes at both, each in the block size the launcher picks there),
      checked against the plain version and timed beside it with its
      launches a call, and the tree's time of one level, of a 4-level launch
-     and its depth floor;
+     and its depth floor; mont_mul's two bodies, each forced, from 1,024
+     to 2^21 elements (to_affine_rows' (2, 24, 2^20) on the 2^20 MSM);
   7. the product check at full width on BLS12-381 through ``BatchEngine``
      on the card: (a) 4,096 pairs (a_i g1, b_i g2) beside (-a_i b_i g1, g2)
      must check True and their twin with one scalar changed False; (b) 1,024
@@ -210,9 +213,11 @@ times phase 5's MSM alone with the ``mathlib_tpu_torch`` of the checkout at
 REPO, then that checkout's add and addsel kernels at phase 3's shapes, its
 double at 16, 1 and 2^20 lanes, its signed and mixed scan combiners
 (addselneg, maddsel, maddselneg) at phase 10's 262,144 lanes, phase 11
-(e)'s three 2^20 MSMs (affine, signed, both) and ``msm_host_bridge`` on
-60,000 BLS12-381 points; run for two checkouts in turns to compare them on
-one card.
+(e)'s three 2^20 MSMs (affine, signed, both), ``msm_host_bridge`` on
+60,000 BLS12-381 points, its smul at 8,192, 4,096, 2,048 and 1,024 lanes,
+``BatchEngine.g1_scalar_mul`` on 8,192 points and mont_mul at (6, 24,
+4,096) and (2, 24, 2^20) (each body where the checkout has two); run for
+two checkouts in turns to compare them on one card.
 
     python3 chip_smoke.py --time-pairing REPO
 
@@ -270,7 +275,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "add": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:174"),
     "double": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
     "addsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
-    "smul": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
+    "smul": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
     "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
     "addselneg": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
     "maddsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
@@ -569,13 +574,99 @@ def time_double(g1_cuda, F, P, design: str) -> None:
 
 
 SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_addselneg_kernel",
-                 "g1_maddsel_kernel", "g1_maddselneg_kernel")
+                 "g1_maddsel_kernel", "g1_maddselneg_kernel", "g1_smul_ladder_kernel")
 
 
 def split_ptxas(path: str) -> list:
-    """The build log's ptxas lines of the add, addsel, double and the signed
-    and mixed combiner kernels."""
+    """The build log's ptxas lines of the add, addsel, double, the signed
+    and mixed combiner kernels and the ladder."""
     return [e for e in ptxas_entries(path) if e.startswith(SPLIT_KERNELS)]
+
+
+def mont_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the two mont_mul kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith("mont_mul")]
+
+
+# the ladder's lane counts: phase 5's base points (8,192), bls_sign_batch's
+# 4,096, and two smaller calls, where one 32-lane block a bit sets the time
+SMUL_LANES = (N_BASE, 4096, 2048, 1024)
+
+
+def time_smul(g1_cuda, F, Q, K, design: str, nbits: int, lanes=SMUL_LANES, want=None) -> None:
+    """``smul`` of the imported checkout (``design``: its name in the log) on
+    the first ``lanes`` lanes of Q and the scalar limbs K, beside the bound
+    (8 products a bit, 12 at each one-bit of these scalars) and, if
+    ``want`` (the plain version's output on all of Q) is given, checked
+    against it; a ``[time_smul]`` line each."""
+    import torch
+
+    L, S = F.fp.L, K.shape[-2]
+    bits = (K.to(torch.int64) & 0xFFFF).cpu()
+    for m in lanes:
+        q, k = Q[..., :m].contiguous(), K[..., :m].contiguous()
+        ones = sum(bin(int(v)).count("1") for v in bits[:, :m].reshape(-1))
+        b = bound((2 * 3 * L * 4 + 4 * S) * m, wide_mads(8 * nbits * m + 12 * ones, L))
+        ms, got = cuda_ms(lambda: g1_cuda.smul(F, q, k, nbits), reps=5)
+        if want is not None and not torch.equal(got, want[..., :m]):
+            raise AssertionError(f"smul at {m} lanes disagrees with its plain version")
+        log("time_smul", design=design, lanes=m, L=L, nbits=nbits, ms=f"{ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+            over_bound=f"{ms / b['bound_ms']:.2f}x", equal=want is not None)
+
+
+# mont_mul's shapes (rows, L, n, b an (L, 1) constant): the pairing check's
+# Montgomery entry (6 rows of 4,096 pairs, times R^2) and to_affine_rows'
+# products on the 2^20 MSM's points; the sweep between them (phase 7) finds
+# where the launcher's two bodies cross
+MONT_SHAPES = ((6, 24, N_PAIRS, True), (2, 24, N_MAIN, False))
+MONT_SWEEP = ((1, 24, 1024, False), (1, 24, 4096, False), (2, 24, 4096, False), MONT_SHAPES[0],
+              (6, 24, 1 << 14, False), (2, 24, 1 << 16, False), (2, 24, 1 << 18, False),
+              MONT_SHAPES[1])
+
+
+def time_mont_mul(fp_cuda, fp, design: str, shapes=MONT_SHAPES) -> None:
+    """``mont_mul`` of the imported checkout on BLS12-381's p at ``shapes``,
+    on seeded relaxed limbs (below p), beside the bound; where the checkout
+    picks its body by size (``fp_cuda.mont_group``), each body forced in
+    turn as well ("default": the checkout's own choice).  A
+    ``[time_mont_mul]`` line each."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    top = int(fp.p >> (16 * (fp.L - 1)))  # top limb below p's: values below p
+    for rows, L, n, const in shapes:
+        def limbs(*shape):
+            t = torch.randint(0, 1 << 16, shape, generator=gen, device="cuda", dtype=torch.int32)
+            t[..., L - 1, :] %= top
+            return t
+
+        a = limbs(rows, L, n)
+        b = limbs(L, 1) if const else limbs(rows, L, n)
+        # the plain product in slices: its partial products are L^2 a lane
+        want = (fp_cuda.mont_mul_plain(fp, a, b) if const or n <= PLAIN_CHUNK
+                else chunked(lambda x, y: fp_cuda.mont_mul_plain(fp, x, y), n, a, b))
+        nbytes = (2 + (not const)) * rows * L * 4 * n
+        bnd = bound(nbytes, wide_mads(rows * n, L))
+        bodies = {"default": None}
+        if hasattr(fp_cuda, "mont_group"):
+            bodies.update(one_thread=1, grouped=4)
+        for body, group in bodies.items():
+            pick = getattr(fp_cuda, "mont_group", None)
+            if group is not None:
+                fp_cuda.mont_group = lambda elements, g=group: g
+            try:
+                ms, got = cuda_ms(lambda: fp_cuda.mont_mul(fp, a, b),
+                                  reps=200 if rows * n <= 1 << 16 else 20)
+            finally:
+                if pick is not None:
+                    fp_cuda.mont_group = pick
+            if not torch.equal(got, want):
+                raise AssertionError(f"mont_mul ({body}) at {(rows, L, n)} disagrees with plain")
+            log("time_mont_mul", design=design, body=body, shape=repr((rows, L, n)),
+                b="(L, 1)" if const else "elementwise", ms=f"{ms:.5f}",
+                bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+                over_bound=f"{ms / bnd['bound_ms']:.2f}x", equal=True)
 
 
 def tree_ptxas(path: str) -> list:
@@ -642,6 +733,20 @@ def combiner_design(build) -> str:
     "six-warp" (split_add and split_madd in csrc/g1_split_kernels.cu) or
     "one-thread" (a lane a thread)."""
     return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "g1_maddselneg_kernel")
+            else "one-thread")
+
+
+def smul_design(build) -> str:
+    """Which smul kernel the imported checkout has: "six-warp" (the ladder
+    over a block's six warps, csrc/g1_split_kernels.cu) or "one-thread"."""
+    return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "g1_smul_ladder_kernel")
+            else "one-thread")
+
+
+def mont_design(build) -> str:
+    """Which mont_mul the imported checkout has: "grouped" (four threads an
+    element below a size, csrc/fp_kernels.cu) or "one-thread"."""
+    return ("grouped" if _source_has(build, "fp_kernels.cu", "mont_mul_group_kernel")
             else "one-thread")
 
 
@@ -858,8 +963,9 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
     }
     for name, (what, kern, plain, nbytes, fp_muls) in shapes.items():
         pc.reset_launches()
-        ms, got = cuda_ms(kern, reps=3)
-        calls = 4  # cuda_ms's warm-up and 3 runs
+        reps = 200 if name == "mont_mul" else 3  # a few microseconds a mont_mul launch
+        ms, got = cuda_ms(kern, reps=reps)
+        calls = reps + 1  # cuda_ms's warm-up and its runs
         per_call = {k: v // calls for k, v in pc.launches().items() if v}
         plain_ms, want = cuda_ms(plain, reps=1)
         check(name.replace("_seg2", ""), got, want)
@@ -872,6 +978,8 @@ def pairing_phases(dev, smi: str, results: dict, profile: bool):
             bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], launches_a_call=per_call)
     time_tree_levels(pc, cfg, f, smi)
     del f, f_b, t, xP, yP, Qx, Qy
+    # mont_mul's two bodies from 1,024 elements to the 2^20 MSM's to_affine
+    time_mont_mul(fp_cuda, be.fp, mont_design(build), MONT_SWEEP)
 
     # ---- 7. the product check at full width through BatchEngine
     # (c) per-lane Miller values, reduced on the host, against the host pairing
@@ -2438,6 +2546,35 @@ def time_msm(repo: str) -> int:
     log("time_bridge", repo=repr(repo), points=N_BRIDGE, design=combiner_design(build),
         seconds=[round(x, 4) for x in walls], points_per_s=f"{N_BRIDGE / min(walls):.1f}",
         equals_folded_host_oracle=True, card=repr(smi_line()))
+
+    # the ladder at 8,192 lanes and below, BatchEngine.g1_scalar_mul on the
+    # 8,192 base points (one warm-up and 3 calls, against the host engine),
+    # and mont_mul at its two shapes
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.ops.kernels import fp_cuda
+
+    krng = np.random.default_rng(9)
+    k_ints = [int.from_bytes(krng.bytes(32), "big") % spec.r for _ in range(N_BASE)]
+    design = smul_design(build)
+    time_smul(g1_cuda, g1.F, base, g1.encode_scalars(k_ints), design, g1.nbits)
+    be, host = BatchEngine(spec), get_engine(spec)
+    want = [host.g1.mul(P, k) for P, k in zip(base_aff, k_ints)]
+    walls = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = be.g1_scalar_mul(base_aff, k_ints)
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError("time_msm: g1_scalar_mul disagrees with the host engine")
+        if i:
+            walls.append(time.perf_counter() - t0)
+    log("time_g1_scalar_mul", repo=repr(repo), points=N_BASE, design=design,
+        seconds=[round(x, 4) for x in walls], points_per_s=f"{N_BASE / min(walls):.1f}",
+        equals_host=True, card=repr(smi_line()))
+    time_mont_mul(fp_cuda, g1.fp, mont_design(build))
+    for entry in split_ptxas(build.BUILD_LOG) + mont_ptxas(build.BUILD_LOG):
+        log("ptxas_ladder_mont", repo=repr(repo), entry=repr(entry))
     return 0
 
 
@@ -2952,6 +3089,8 @@ def main() -> int:
         plain_ms, want = cuda_ms(plain, reps=1)
         kernel = name.split("_16")[0]
         check(kernel, got, want)
+        if kernel == "smul":
+            smul_want = want
         del got, want
         nbytes, fp_muls = work[name]
         b = bound(nbytes, wide_mads(fp_muls, g1.fp.L))
@@ -2960,7 +3099,11 @@ def main() -> int:
         log("time", kernel=kernel, lanes=lanes, equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
             bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
-    # the doubling at its shapes, device and host time a launch
+    # the ladder at bls_sign_batch's 4,096 lanes and below, each against the
+    # plain version's first lanes; the doubling at its shapes
+    time_smul(g1_cuda, F, Pb[..., :N_BASE], Kb, smul_design(build), g1.nbits,
+              lanes=SMUL_LANES[1:], want=smul_want)
+    del smul_want
     time_double(g1_cuda, F, Pb, double_design(build))
     # the six-warp add kernels at their three shapes, and their ptxas lines:
     # no stack, no spill, at most 128 registers a thread
@@ -2974,6 +3117,8 @@ def main() -> int:
             raise AssertionError(f"split G1 kernel over its register budget: {entry}")
     if len(split_ptxas(build.BUILD_LOG)) != 2 * len(SPLIT_KERNELS):  # at 8 and 12 words
         raise AssertionError("the split G1 kernels' ptxas lines are missing from the build log")
+    for entry in mont_ptxas(build.BUILD_LOG):
+        log("ptxas_mont_mul", entry=repr(entry))
     del Pb, Qb, selb, Pw, Qw
 
     log("phase3", seconds=f"{time.perf_counter() - t_phase:.1f}")
@@ -3098,7 +3243,8 @@ def main() -> int:
 
     designs = {"add": split_design(build), "addsel": split_design(build),
                "double": double_design(build), "addselneg": combiner_design(build),
-               "maddsel": combiner_design(build), "maddselneg": combiner_design(build)}
+               "maddsel": combiner_design(build), "maddselneg": combiner_design(build),
+               "smul": smul_design(build), "mont_mul": mont_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

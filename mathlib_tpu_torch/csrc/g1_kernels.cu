@@ -1,16 +1,16 @@
-// G1 group-law kernels for Hopper (sm_90a): port of
-// mathlib_tpu/ops/kernels/g1_pallas.py.
+// G1 group-law kernels for Hopper (sm_90a) that run one lane a thread: port
+// of mathlib_tpu/ops/kernels/g1_pallas.py.
 //
-//   g1_smul_kernel    <- g1_pallas.py:_smul_kernel    (smul_pallas)
 //   g1_dbladd_kernel  <- g1_pallas.py:_dbladd_kernel  (dbladd_pallas)
 //   g1_smul_static_kernel <- g1_pallas.py:_smul_static_kernel (smul_static_pallas)
 //
 // The point formulas, the lane layout and the operation order that keeps
 // the relaxed limbs the reference's are in g1_rows.cuh (shared with the
-// hash-to-G1 kernel).  The add, addsel, double and the MSM's signed and
-// mixed scan combiners (g1_pallas.py:_add_kernel, _addsel_kernel,
-// _double_kernel, _addselneg_kernel, _maddsel_kernel, _maddselneg_kernel)
-// spread one formula over the warps of a block: g1_split_kernels.cu.
+// hash-to-G1 kernel).  The add, addsel, double, the MSM's signed and mixed
+// scan combiners and the per-lane ladder smul (g1_pallas.py:_add_kernel,
+// _addsel_kernel, _double_kernel, _addselneg_kernel, _maddsel_kernel,
+// _maddselneg_kernel, _smul_kernel) spread one formula over the warps of a
+// block: g1_split_kernels.cu.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
 // and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
@@ -18,8 +18,8 @@
 // for 288 bytes in and 144 out.  The design keeps
 // every operand in registers, with one lane per thread and no shared memory;
 // a point is 36 words, and the add holds two points plus temporaries, so
-// spills to local memory are accepted here.  Later work: the ladders (smul,
-// dbladd, smul_static) over the warps of a block.
+// spills to local memory are accepted here.  The ladder steps here (dbladd,
+// smul_static) can run on the layers of g1_split_kernels.cu, as smul does.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -47,31 +47,6 @@ __global__ void g1_dbladd_kernel(const uint32_t* __restrict__ P, const uint32_t*
     rcb_add<NW>(a, a, b, k, b3);
   }
   store_point<NW>(out, a, n, i);
-}
-
-// out = [k]Q per lane: MSB-first double, add, select from infinity; the
-// accumulator stays in registers across all nbits steps
-template <int NW>
-__global__ void g1_smul_kernel(const uint32_t* __restrict__ Q, const uint32_t* __restrict__ s,
-                               uint32_t* __restrict__ out, int n, int nbits, FieldConsts k,
-                               int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> q, acc, A;
-  load_point<NW>(q, Q, n, i);
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    acc.x[j] = 0;
-    acc.y[j] = k.one[j];
-    acc.z[j] = 0;
-  }
-  for (int b = nbits - 1; b >= 0; --b) {
-    rcb_dbl<NW>(acc, acc, k, b3);
-    rcb_add<NW>(A, acc, q, k, b3);
-    const bool bit = (s[(int64_t)(b >> 4) * n + i] >> (b & 15)) & 1u;
-    select_point<NW>(acc, bit, A, acc);
-  }
-  store_point<NW>(out, acc, n, i);
 }
 
 // out = [k]Q for ONE scalar shared by every lane, its MSB-first bits in a
@@ -130,14 +105,6 @@ using namespace mlt;
       return -1;                         \
   }                                      \
   return (int)cudaGetLastError();
-
-extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,
-                           int S, int nbits, const uint32_t* consts, int b3,
-                           cudaStream_t stream) {
-  if (nbits > 16 * S) return -1;
-  MLT_DISPATCH(L, g1_smul_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
-                      Q, s, out, n, nbits, make_consts(consts, NW), b3))
-}
 
 extern "C" int mlt_g1_dbladd(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
                              uint32_t* out, int n, int L, const uint32_t* consts, int b3,

@@ -65,9 +65,10 @@ __device__ __forceinline__ void store_point(uint32_t* dst, const Point<NW>& P, i
 }
 
 // The two point formulas are real calls (__noinline__), each with its 12 or
-// 8 field muls inlined and fully unrolled.  Inlining them too, into the smul
-// ladder, makes nvcc 12.9 crash (segfault); as calls they pass their points
-// through the thread's stack (L1), ~100 words against ~3,600 products.
+// 8 field muls inlined and fully unrolled.  Inlining them too, into the
+// one-thread ladders, makes nvcc 12.9 crash (segfault); as calls they pass
+// their points through the thread's stack (L1), ~100 words against ~3,600
+// products.
 
 // RCB Algorithm 7 (a = 0): O = P + Q, complete.  O may alias P or Q.
 template <int NW>
@@ -144,17 +145,6 @@ __device__ __forceinline__ void neg_y(uint32_t* y, const FieldConsts& k) {
 #pragma unroll
   for (int j = 0; j < NW; ++j) zero[j] = 0;
   fp_sub<NW>(y, zero, y, k);
-}
-
-template <int NW>
-__device__ __forceinline__ void select_point(Point<NW>& O, bool sel, const Point<NW>& A,
-                                             const Point<NW>& B) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    O.x[j] = sel ? A.x[j] : B.x[j];
-    O.y[j] = sel ? A.y[j] : B.y[j];
-    O.z[j] = sel ? A.z[j] : B.z[j];
-  }
 }
 
 }  // namespace mlt

@@ -7,12 +7,14 @@
 //   g1_maddsel_kernel    <- g1_pallas.py:_maddsel_kernel    (maddsel_pallas)
 //   g1_maddselneg_kernel <- g1_pallas.py:_maddselneg_kernel (maddselneg_pallas)
 //   g1_double_kernel     <- g1_pallas.py:_double_kernel     (double_pallas)
+//   g1_smul_ladder_kernel <- g1_pallas.py:_smul_kernel      (smul_pallas)
 //
 // out = P + Q, out = sel ? P + Q : Q (the MSM scan's combiner), its signed
 // form out = sel ? P + Q' : Q' with Q' = neg ? (X, -Y, Z) : Q, the mixed
-// forms out = sel ? P + lift(Q') : lift(Q') for affine (2, L, n) Q, and
-// out = 2P, on (3, L, n) int32 words holding 16-bit limbs, Montgomery form,
-// relaxed to [0, 2p), as the other G1 kernels (g1_rows.cuh has the layout).
+// forms out = sel ? P + lift(Q') : lift(Q') for affine (2, L, n) Q,
+// out = 2P, and out = [k]Q per lane (the ladder), on (3, L, n) int32 words
+// holding 16-bit limbs, Montgomery form, relaxed to [0, 2p), as the other
+// G1 kernels (g1_rows.cuh has the layout).
 //
 // What bounds them on an H100 is the integer multiply rate: an add is 12
 // field products (7,056 32-bit multiply-adds at NW = 12) for 288 bytes in and
@@ -49,13 +51,27 @@
 // window) and Horner at one, so what it pays there is the latency of a
 // lane, two products instead of eight.
 //
+// The ladder (smul: RCB Alg 9 then Alg 7 at every bit, MSB first, acc =
+// bit ? 2 acc + Q : 2 acc from infinity) runs the doubling's two layers on
+// warps 0-3 and the add's two layers on all six a bit, with Q, acc and the
+// products in shared memory for all nbits steps: four layers and four
+// barriers a bit (two where no lane of the block has the bit), and nothing
+// in global memory between bits.  Its layers are the add's and the
+// doubling's functions (add_layer1/2, dbl_layer1/2 on slots, a point read
+// through a source), on fp_mul: at 8,192 lanes and below a lane's chain of
+// four layers a bit sets the time, not the instruction rate, and fp_mul's
+// carries wait less than fp_mul_ptx's.  The one-thread ladder it replaced
+// held 255 registers, a 704-byte stack and spills, and waited for 20
+// dependent products a bit.
+//
 // A thread holds two operands and one product: no stack, no spill (ptxas'
 // report is on chip_smoke.py's build lines), and a lane waits for two
 // products, not twelve or eight.  A block none of whose lanes adds stores
 // Q' (or lift(Q')) without the formula.  Shared memory: 12 slots of NW x 32
-// words (18 KB at NW = 12) for the adds, 7 for the doubling.  The field
-// product is fp_mul_ptx (PTX carry chains): 1-2 % faster than fp_mul in
-// these kernels on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+// words (18 KB at NW = 12) for the adds, 7 for the doubling, 19 and the
+// scalar limbs for the ladder.  The MSM kernels' field product is
+// fp_mul_ptx (PTX carry chains): 1-2 % faster than fp_mul in these kernels
+// on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
 //
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return cudaGetLastError() (or -1 for an unsupported L).
@@ -71,6 +87,10 @@ constexpr int kSplitLanes = 32;
 constexpr int kSplitThreads = 6 * kSplitLanes;
 // blocks an SM must hold: caps the registers at 65,536 / (3 x 192) = 112
 constexpr int kSplitMinBlocks = 3;
+
+// one slot: NW words for each of the block's 32 lanes
+template <int NW>
+using Slot = uint32_t[NW][kSplitLanes];
 
 // slots: 0-5 P's X, Y, Z and Q's X, Y, Z, then (once the first layer has
 // read them) the second layer's xa, xb, ya, yb, za, zb; 6-11 the first
@@ -130,43 +150,44 @@ __device__ __forceinline__ void store_lift(uint32_t* out, const uint32_t* Q,
 // the middle values of RCB Alg 7, each from the first layer's products
 enum Mid { kT3, kT4, kLnb, kT0x3, kZ3t, kT1m };
 
-// r = one middle value, by rcb_add's operations in rcb_add's order
+// r = one middle value, by rcb_add's operations in rcb_add's order, from
+// the first layer's slots F: t0, t1, t2, s3, s4, s5
 template <int NW>
-__device__ __forceinline__ void rcb_mid(uint32_t* r, int id, const Slots<NW>& S, int t,
+__device__ __forceinline__ void rcb_mid(uint32_t* r, int id, const Slot<NW>* F, int t,
                                         const FieldConsts& k, int b3) {
   uint32_t u[NW], v[NW];
   switch (id) {
     case kT3:  // s3 - (t0 + t1)
-      slot_get<NW>(u, S[6], t);
-      slot_get<NW>(v, S[7], t);
+      slot_get<NW>(u, F[0], t);
+      slot_get<NW>(v, F[1], t);
       fp_add<NW>(u, u, v, k);
-      slot_get<NW>(v, S[9], t);
+      slot_get<NW>(v, F[3], t);
       fp_sub<NW>(r, v, u, k);
       break;
     case kT4:  // s4 - (t1 + t2)
-      slot_get<NW>(u, S[7], t);
-      slot_get<NW>(v, S[8], t);
+      slot_get<NW>(u, F[1], t);
+      slot_get<NW>(v, F[2], t);
       fp_add<NW>(u, u, v, k);
-      slot_get<NW>(v, S[10], t);
+      slot_get<NW>(v, F[4], t);
       fp_sub<NW>(r, v, u, k);
       break;
     case kLnb:  // b3 (s5 - (t0 + t2))
-      slot_get<NW>(u, S[6], t);
-      slot_get<NW>(v, S[8], t);
+      slot_get<NW>(u, F[0], t);
+      slot_get<NW>(v, F[2], t);
       fp_add<NW>(u, u, v, k);
-      slot_get<NW>(v, S[11], t);
+      slot_get<NW>(v, F[5], t);
       fp_sub<NW>(u, v, u, k);
       fp_mul_small<NW>(r, u, b3, k);
       break;
     case kT0x3:  // (t0 + t0) + t0
-      slot_get<NW>(v, S[6], t);
+      slot_get<NW>(v, F[0], t);
       fp_add<NW>(u, v, v, k);
       fp_add<NW>(r, u, v, k);
       break;
     default:  // kZ3t: t1 + b3 t2; kT1m: t1 - b3 t2
-      slot_get<NW>(u, S[8], t);
+      slot_get<NW>(u, F[2], t);
       fp_mul_small<NW>(u, u, b3, k);
-      slot_get<NW>(v, S[7], t);
+      slot_get<NW>(v, F[1], t);
       if (id == kZ3t) {
         fp_add<NW>(r, v, u, k);
       } else {
@@ -180,19 +201,88 @@ __device__ __forceinline__ void rcb_mid(uint32_t* r, int id, const Slots<NW>& S,
 __constant__ int kMidA[6] = {kT3, kT4, kT1m, kLnb, kZ3t, kT0x3};
 __constant__ int kMidB[6] = {kT1m, kLnb, kZ3t, kT0x3, kT4, kT3};
 
-// step 4 for warp w < 3 on a lane that adds: X3 = xa - xb, Y3 = ya + yb,
-// Z3 = za + zb from the second layer's slots 0-5
+// the layers' field product: fp_mul_ptx (PTX carry chains: fewer
+// instructions, for the MSM kernels, whose many lanes make the instruction
+// rate the limit) or fp_mul (64-bit carries the compiler schedules: a
+// shorter wait, for the ladder, whose lanes wait on one chain of products)
+template <int NW, bool PTX>
+__device__ __forceinline__ void layer_mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                                          const FieldConsts& k) {
+  if constexpr (PTX) {
+    fp_mul_ptx<NW>(r, a, b, k);
+  } else {
+    fp_mul<NW>(r, a, b, k);
+  }
+}
+
+// The layers below work on slots alone; the kernels stage from and store to
+// global memory around them.  A point operand is read through a source with
+// get(r, c, t, k), coordinate c of lane t: SlotPoint reads three slots, the
+// ladder's LadderPoint forms its accumulator from the products in its slots.
 template <int NW>
-__device__ __forceinline__ void store_sum(uint32_t* out, const Slots<NW>& S, int w, int t,
-                                          int64_t n, int64_t i, const FieldConsts& k) {
-  uint32_t a[NW], b[NW];
-  slot_get<NW>(a, S[2 * w], t);
-  slot_get<NW>(b, S[2 * w + 1], t);
-  if (w == 0) {
+struct SlotPoint {
+  const Slot<NW>* s;
+  __device__ __forceinline__ void get(uint32_t* r, int c, int t, const FieldConsts&) const {
+    slot_get<NW>(r, s[c], t);
+  }
+};
+
+// a = product w of the add's first layer: t0 = X1 X2, t1 = Y1 Y2,
+// t2 = Z1 Z2, s3 = (X1 + Y1)(X2 + Y2), s4 = (Y1 + Z1)(Y2 + Z2),
+// s5 = (X1 + Z1)(X2 + Z2)
+template <int NW, bool PTX = true, class P1, class P2>
+__device__ __forceinline__ void add_layer1(uint32_t* a, int w, const P1& P, const P2& Q, int t,
+                                           const FieldConsts& k) {
+  uint32_t b[NW];
+  if (w < 3) {
+    P.get(a, w, t, k);
+    Q.get(b, w, t, k);
+  } else {  // s3: (X, Y), s4: (Y, Z), s5: (X, Z)
+    const int c0 = w == 4 ? 1 : 0, c1 = w == 3 ? 1 : 2;
+    uint32_t u[NW];
+    P.get(a, c0, t, k);
+    P.get(u, c1, t, k);
+    fp_add<NW>(a, a, u, k);
+    Q.get(b, c0, t, k);
+    Q.get(u, c1, t, k);
+    fp_add<NW>(b, b, u, k);
+  }
+  layer_mul<NW, PTX>(a, a, b, k);
+}
+
+// a = product w of the add's second layer (xa, xb, ya, yb, za, zb) from
+// the first layer's slots F
+template <int NW, bool PTX = true>
+__device__ __forceinline__ void add_layer2(uint32_t* a, int w, const Slot<NW>* F, int t,
+                                           const FieldConsts& k, int b3) {
+  uint32_t b[NW];
+  rcb_mid<NW>(a, kMidA[w], F, t, k, b3);
+  rcb_mid<NW>(b, kMidB[w], F, t, k, b3);
+  layer_mul<NW, PTX>(a, a, b, k);
+}
+
+// a = coordinate c of the sum: X3 = xa - xb, Y3 = ya + yb, Z3 = za + zb
+// from the second layer's slots G
+template <int NW>
+__device__ __forceinline__ void add_sum(uint32_t* a, int c, const Slot<NW>* G, int t,
+                                        const FieldConsts& k) {
+  uint32_t b[NW];
+  slot_get<NW>(a, G[2 * c], t);
+  slot_get<NW>(b, G[2 * c + 1], t);
+  if (c == 0) {
     fp_sub<NW>(a, a, b, k);
   } else {
     fp_add<NW>(a, a, b, k);
   }
+}
+
+// step 4 for warp w < 3 on a lane that adds: coordinate w of the sum from
+// the second layer's slots 0-5
+template <int NW>
+__device__ __forceinline__ void store_sum(uint32_t* out, const Slots<NW>& S, int w, int t,
+                                          int64_t n, int64_t i, const FieldConsts& k) {
+  uint32_t a[NW];
+  add_sum<NW>(a, w, S, t, k);
   store_coord<NW>(out, a, w, n, i);
 }
 
@@ -225,29 +315,14 @@ __device__ __forceinline__ void split_add(const uint32_t* __restrict__ P,
   }
   __syncthreads();
   {  // 2. t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2; s3, s4, s5 from sums of two coordinates
-    uint32_t a[NW], b[NW];
-    if (w < 3) {
-      slot_get<NW>(a, S[w], t);
-      slot_get<NW>(b, S[w + 3], t);
-    } else {  // s3: (X, Y), s4: (Y, Z), s5: (X, Z)
-      const int c0 = w == 4 ? 1 : 0, c1 = w == 3 ? 1 : 2;
-      uint32_t u[NW];
-      slot_get<NW>(a, S[c0], t);
-      slot_get<NW>(u, S[c1], t);
-      fp_add<NW>(a, a, u, k);
-      slot_get<NW>(b, S[c0 + 3], t);
-      slot_get<NW>(u, S[c1 + 3], t);
-      fp_add<NW>(b, b, u, k);
-    }
-    fp_mul_ptx<NW>(a, a, b, k);
+    uint32_t a[NW];
+    add_layer1<NW>(a, w, SlotPoint<NW>{S}, SlotPoint<NW>{S + 3}, t, k);
     slot_put<NW>(S[6 + w], a, t);
   }
   __syncthreads();
   {  // 3. the second layer; slots 0-5 are free since the last barrier
-    uint32_t a[NW], b[NW];
-    rcb_mid<NW>(a, kMidA[w], S, t, k, b3);
-    rcb_mid<NW>(b, kMidB[w], S, t, k, b3);
-    fp_mul_ptx<NW>(a, a, b, k);
+    uint32_t a[NW];
+    add_layer2<NW>(a, w, S + 6, t, k, b3);
     slot_put<NW>(S[w], a, t);
   }
   __syncthreads();
@@ -427,32 +502,53 @@ using DblSlots = uint32_t[7][NW][kSplitLanes];
 // warp w's operands of the second layer: dxa = t0m xy, dya = t2 z3t,
 // dyb = t0m y3t, dz = t1 z3t, each middle value by rcb_dbl's operations in
 // rcb_dbl's order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
-// t0m = t0 - ((t2 + t2) + t2))
+// t0m = t0 - ((t2 + t2) + t2)) from the first layer's slots T: t0, t1, zz, xy
 template <int NW>
-__device__ __forceinline__ void dbl_mid(uint32_t* a, uint32_t* b, int w, const DblSlots<NW>& S,
+__device__ __forceinline__ void dbl_mid(uint32_t* a, uint32_t* b, int w, const Slot<NW>* T,
                                         int t, const FieldConsts& k, int b3) {
   uint32_t t0[NW], u[NW];
-  slot_get<NW>(t0, S[3], t);
+  slot_get<NW>(t0, T[0], t);
   if (w == 1 || w == 3) {
     fp_mul_small<NW>(b, t0, 8, k);  // z3t
     if (w == 1) {
-      slot_get<NW>(u, S[5], t);
+      slot_get<NW>(u, T[2], t);
       fp_mul_small<NW>(a, u, b3, k);  // t2
     } else {
-      slot_get<NW>(a, S[4], t);  // t1
+      slot_get<NW>(a, T[1], t);  // t1
     }
     return;
   }
-  slot_get<NW>(u, S[5], t);
+  slot_get<NW>(u, T[2], t);
   fp_mul_small<NW>(u, u, b3, k);  // t2
   if (w == 2) {
     fp_add<NW>(b, t0, u, k);  // y3t
   } else {
-    slot_get<NW>(b, S[6], t);  // xy
+    slot_get<NW>(b, T[3], t);  // xy
   }
   fp_add<NW>(a, u, u, k);
   fp_add<NW>(a, a, u, k);  // t2_3
   fp_sub<NW>(a, t0, a, k);  // t0m
+}
+
+// a = product w of the doubling's first layer: t0 = Y Y, t1 = Y Z,
+// zz = Z Z, xy = X Y
+template <int NW, bool PTX = true, class Pt>
+__device__ __forceinline__ void dbl_layer1(uint32_t* a, int w, const Pt& P, int t,
+                                           const FieldConsts& k) {
+  uint32_t b[NW];
+  P.get(a, w == 2 ? 2 : w == 3 ? 0 : 1, t, k);
+  P.get(b, w == 0 || w == 3 ? 1 : 2, t, k);
+  layer_mul<NW, PTX>(a, a, b, k);
+}
+
+// a = product w of the doubling's second layer (dxa, dya, dyb, dz) from the
+// first layer's slots T
+template <int NW, bool PTX = true>
+__device__ __forceinline__ void dbl_layer2(uint32_t* a, int w, const Slot<NW>* T, int t,
+                                           const FieldConsts& k, int b3) {
+  uint32_t b[NW];
+  dbl_mid<NW>(a, b, w, T, t, k, b3);
+  layer_mul<NW, PTX>(a, a, b, k);
 }
 
 // out = 2P for the 32 lanes of this block
@@ -472,16 +568,13 @@ __device__ __forceinline__ void split_dbl(const uint32_t* __restrict__ P,
   }
   __syncthreads();
   {  // 2. t0 = Y Y, t1 = Y Z, zz = Z Z, xy = X Y
-    uint32_t a[NW], b[NW];
-    slot_get<NW>(a, S[w == 2 ? 2 : w == 3 ? 0 : 1], t);
-    slot_get<NW>(b, S[w == 0 || w == 3 ? 1 : 2], t);
-    fp_mul_ptx<NW>(a, a, b, k);
+    uint32_t a[NW];
+    dbl_layer1<NW>(a, w, SlotPoint<NW>{S}, t, k);
     slot_put<NW>(S[3 + w], a, t);
   }
   __syncthreads();
   uint32_t a[NW], b[NW];  // 3. the middle values, then the second layer
-  dbl_mid<NW>(a, b, w, S, t, k, b3);
-  fp_mul_ptx<NW>(a, a, b, k);
+  dbl_layer2<NW>(a, w, S + 3, t, k, b3);
   slot_put<NW>(S[w == 3 ? 4 : w], a, t);
   __syncthreads();
   if (w < 3 && live) {  // 4. X3 = dxa + dxa, Y3 = dya + dyb, Z3 = dz
@@ -501,6 +594,111 @@ __global__ void __launch_bounds__(kDblThreads, kDblMinBlocks)
     g1_double_kernel(const uint32_t* __restrict__ P, uint32_t* __restrict__ out, int n,
                      FieldConsts k, int b3) {
   split_dbl<NW>(P, out, n, k, b3);
+}
+
+// The ladder's accumulator and its doubling D, read from the ladder's slots:
+// D = (dxa + dxa, dya + dyb, dz) from the doubling's second layer d (dxa,
+// dya, dz, dyb), and A = D + Q from the add's second layer g (add_sum),
+// taken where `sum` is set (the step's bit): acc = bit ? A : D.
+template <int NW>
+struct LadderPoint {
+  const Slot<NW>* d;
+  const Slot<NW>* g;
+  bool sum;
+  __device__ __forceinline__ void get(uint32_t* r, int c, int t, const FieldConsts& k) const {
+    if (sum) {
+      add_sum<NW>(r, c, g, t, k);
+      return;
+    }
+    slot_get<NW>(r, d[c], t);
+    if (c == 0) {
+      fp_add<NW>(r, r, r, k);
+    } else if (c == 1) {
+      uint32_t u[NW];
+      slot_get<NW>(u, d[3], t);
+      fp_add<NW>(r, r, u, k);
+    }
+  }
+};
+
+// the ladder's slots: Q (staged once), the doubling's second layer d (dxa,
+// dya, dz, dyb), and f: the add's second layer in 0-5 and each first layer's
+// products in 6-11 (the doubling's in 6-9)
+template <int NW>
+struct LadderSlots {
+  Slot<NW> q[3];
+  Slot<NW> d[4];
+  Slot<NW> f[12];
+};
+
+// out = [k]Q for the 32 lanes of this block: MSB first, D = 2 acc (the
+// doubling's two layers on warps 0-3), A = D + Q (the add's two layers on
+// the six warps), acc = bit ? A : D, from acc = infinity; every value stays
+// in shared memory across the nbits steps.  The select costs no step of its
+// own: the next doubling's first layer and the final store read acc through
+// LadderPoint, from the slots of D and A.  A block none of whose lanes has
+// the step's bit skips the add (acc = D either way).  The block's scalar
+// limbs sit in dynamic shared memory, [limb][lane].
+template <int NW>
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
+    g1_smul_ladder_kernel(const uint32_t* __restrict__ Q, const uint32_t* __restrict__ s,
+                          uint32_t* __restrict__ out, int n, int nbits, FieldConsts k, int b3) {
+  __shared__ LadderSlots<NW> S;
+  extern __shared__ uint32_t limbs[];
+  const int t = threadIdx.x & (kSplitLanes - 1);
+  const int w = threadIdx.x / kSplitLanes;
+  const int i = blockIdx.x * kSplitLanes + t;
+  const bool live = i < n;
+  for (int l = w; l < (nbits + 15) / 16; l += 6) {
+    limbs[l * kSplitLanes + t] = live ? s[(int64_t)l * n + i] : 0u;
+  }
+  {  // Q's coordinate w on warps 0-2; acc = infinity (0 : R mod p : 0) as the
+     // D of dxa = 0, dya = R mod p, dz = dyb = 0 on warps 3-5
+    uint32_t v[NW] = {};
+    if (w < 3) {
+      if (live) load_coord<NW>(v, Q, w, n, i);
+      slot_put<NW>(S.q[w], v, t);
+    } else if (w == 4) {
+      slot_put<NW>(S.d[1], k.one, t);
+    } else {
+      slot_put<NW>(S.d[w == 3 ? 0 : 2], v, t);
+      if (w == 3) slot_put<NW>(S.d[3], v, t);
+    }
+  }
+  __syncthreads();
+  bool bit = false;  // the last step's bit of this lane: acc is A, else D
+  for (int b = nbits - 1; b >= 0; --b) {
+    if (w < 4) {  // 1. the doubling's first layer, from acc
+      uint32_t a[NW];
+      dbl_layer1<NW, false>(a, w, LadderPoint<NW>{S.d, S.f, bit}, t, k);
+      slot_put<NW>(S.f[6 + w], a, t);
+    }
+    __syncthreads();
+    if (w < 4) {  // 2. its second layer: dxa, dya, dyb, dz into d 0, 1, 3, 2
+      uint32_t a[NW];
+      dbl_layer2<NW, false>(a, w, S.f + 6, t, k, b3);
+      slot_put<NW>(S.d[w == 2 ? 3 : w == 3 ? 2 : w], a, t);
+    }
+    bit = (limbs[(b >> 4) * kSplitLanes + t] >> (b & 15)) & 1u;
+    if (!__syncthreads_or(bit)) continue;  // no lane of the block adds: acc = D
+    {  // 3. the add's first layer, D + Q
+      uint32_t a[NW];
+      add_layer1<NW, false>(a, w, LadderPoint<NW>{S.d, S.f, false}, SlotPoint<NW>{S.q}, t, k);
+      slot_put<NW>(S.f[6 + w], a, t);
+    }
+    __syncthreads();
+    {  // 4. its second layer; f 0-5 were last read by step 1
+      uint32_t a[NW];
+      add_layer2<NW, false>(a, w, S.f + 6, t, k, b3);
+      slot_put<NW>(S.f[w], a, t);
+    }
+    __syncthreads();
+  }
+  if (w < 3 && live) {
+    uint32_t a[NW];
+    LadderPoint<NW>{S.d, S.f, bit}.get(a, w, t, k);
+    store_coord<NW>(out, a, w, n, i);
+  }
 }
 
 inline dim3 split_grid(int n) { return dim3((unsigned)((n + kSplitLanes - 1) / kSplitLanes)); }
@@ -559,6 +757,15 @@ extern "C" int mlt_g1_maddselneg(const uint32_t* P, const uint32_t* Q, const uin
                                  const uint32_t* consts, int b3, cudaStream_t stream) {
   MLT_DISPATCH(L, g1_maddselneg_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
+}
+
+extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,
+                           int S, int nbits, const uint32_t* consts, int b3,
+                           cudaStream_t stream) {
+  if (nbits < 0 || nbits > 16 * S) return -1;
+  const size_t limb_bytes = (size_t)((nbits + 15) / 16) * kSplitLanes * sizeof(uint32_t);
+  MLT_DISPATCH(L, g1_smul_ladder_kernel<NW><<<split_grid(n), kSplitThreads, limb_bytes, stream>>>(
+                      Q, s, out, n, nbits, make_consts(consts, NW), b3))
 }
 
 extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,

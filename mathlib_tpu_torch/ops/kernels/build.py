@@ -58,9 +58,10 @@ SIGNATURES = {
     "mlt_g1_double": [_P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # Q, bits, nbits, out, n, L, consts, b3, stream
+    # (csrc/g1_kernels.cu) Q, bits, nbits, out, n, L, consts, b3, stream
     "mlt_g1_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _P],
-    # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel)
+    # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel;
+    # dbladd in csrc/g1_kernels.cu, the others in csrc/g1_split_kernels.cu)
     "mlt_g1_dbladd": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # P, Q, sel, neg, out, n, L, consts, b3, stream
@@ -101,8 +102,9 @@ SIGNATURES = {
     # L, consts, tower ints, tail words, stream
     "mlt_pairing_check": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                           _I, _I, _I, _P, _P, _P, _P],
-    # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, stream
-    "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
+    # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, threads an
+    # element, stream
+    "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P],
     # a, bits, nbits, out, rows, n, L, consts, stream
     "mlt_fp_pow": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
     # (csrc/hash_kernels.cu) u0, u1, inverse bits, n, sqrt bits, n, h bits, n, h < 0,

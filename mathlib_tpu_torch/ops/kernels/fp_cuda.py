@@ -8,7 +8,9 @@ Two kernels, CUDA C++ in ``csrc/fp_kernels.cu``:
   ``FpCtx.mont_mul``, ``sqr``, ``from_mont`` and ``to_mont`` reach it on a
   card.  On the pairing paths it is the Montgomery entry of the encoded
   pairs; on the G1 paths the products of ``G1Ctx.eq``/``to_affine`` and
-  the GLV endomorphism.
+  the GLV endomorphism.  Below ``MONT_GROUP_BELOW`` elements a call runs
+  ``mont_mul_group_kernel`` (four threads share an element's product), from
+  there ``mont_mul_kernel`` (one element a thread): ``mont_group``.
 * ``fp_pow`` replaces ``pairing_pallas._fp_pow_kernel`` / ``fp_pow_pallas``,
   behind ``FpCtx.pow_bits`` (``inv``, ``batch_inv``, ``sqrt``); on the BN254
   pairing it is the base-field inverse of the final exponentiation's easy
@@ -33,6 +35,19 @@ Tensor = torch.Tensor
 
 def mont_mul_plain(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
     return fp.mont_mul_plain(a, b)
+
+
+# elements of a call from which mont_mul runs one element a thread: below,
+# a group of four threads shares each element's product, whose chain is
+# then what the call waits for (PERF.md section 6)
+MONT_GROUP_BELOW = 1 << 14
+
+
+def mont_group(elements: int) -> int:
+    """Threads an element of the ``mont_mul`` kernel for a call of
+    ``elements``: 4 (``mont_mul_group_kernel``) below ``MONT_GROUP_BELOW``,
+    else 1 (``mont_mul_kernel``)."""
+    return 4 if elements < MONT_GROUP_BELOW else 1
 
 
 def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
@@ -67,7 +82,7 @@ def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
         with torch.cuda.device(a.device):
             build.launch("mlt_fp_mont_mul", a3.data_ptr(), b3.data_ptr(), 0 if const else 1,
                          out.data_ptr(), rows, n, L, ctypes.addressof(build.consts(fp.p, L)),
-                         build.stream(a))
+                         mont_group(rows * n), build.stream(a))
         mont_mul.launches += 1
     return out.reshape(a.shape)
 

@@ -2,9 +2,10 @@
 
 Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
 ``csrc/g1_rows.cuh`` (``add``, ``addsel``, ``addselneg``, ``maddsel``,
-``maddselneg`` and ``double``: ``csrc/g1_split_kernels.cu``, one add or
-mixed add spread over six warps, one doubling over four), each behind a
-wrapper here:
+``maddselneg``, ``double`` and ``smul``: ``csrc/g1_split_kernels.cu``, one
+add or mixed add spread over six warps, one doubling over four, the ladder
+a bit's doubling and add over six warps with its state in shared memory),
+each behind a wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)

@@ -222,6 +222,71 @@ def test_four_warp_double_equals_the_plain_version(ctx, n):
     assert {k: v for k, v in g1_cuda.launches().items() if v} == {"double": 3}
 
 
+@pytest.mark.parametrize("curve", ["BLS12_381", "BLS12_377", "BN254"])
+def test_six_warp_ladder_equals_the_plain_version(curve):
+    """smul (the ladder over six warps of 32-lane blocks) on 1, 31, 33 and
+    4,097 lanes against smul_plain's 4,097: relaxed Q with infinity lanes,
+    k = 0, 1, r - 1 and random, a block whose scalars are all 0 (it skips
+    every add) beside blocks that add; at the full nbits and at 100 bits.
+    One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec(curve)
+    eng, g1 = get_engine(spec), G1Ctx(spec, torch.device("cuda"))
+    F, n = g1.F, 4097
+    P, Q = _edge_points(eng, g1, n, 14)
+    S = g1_cuda.add_plain(F, P, Q)  # relaxed, with infinity lanes
+    rng = np.random.default_rng(14)
+    ks = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(n)]
+    ks[:3] = [0, 1, spec.r - 1]
+    ks[64:96] = [0] * 32  # a block that skips every add
+    K = g1.encode_scalars(ks)
+    for nbits in (g1.nbits, 100):
+        want = g1_cuda.smul_plain(F, S, K, nbits)
+        for m in (1, 31, 33, n):
+            g1_cuda.reset_launches()
+            got = g1_cuda.smul(F, S[..., :m], K[..., :m], nbits)
+            assert torch.equal(got, want[..., :m]), (nbits, m)
+            assert {k: v for k, v in g1_cuda.launches().items() if v} == {"smul": 1}
+    assert g1.decode_points(want[..., 64:96]) == [None] * 32
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_mont_mul_kernel_equals_the_plain_version(monkeypatch, group):
+    """mont_mul with each body (one element a thread, or the group of four
+    threads, forced through fp_cuda.mont_group) at (6, L, 4,096), (1, L, 1)
+    and a ragged (2, L, 4,097), L = 24 and 16, elementwise and with one
+    (L, 1) constant operand, on relaxed limbs with the edge values 0, 1,
+    p - 1, p, 2p - 1.  One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.field import FpCtx
+
+    monkeypatch.setattr(fp_cuda, "mont_group", lambda elements: group)
+    for curve in ("BLS12_381", "BN254"):
+        p = get_spec(curve).p
+        fp = FpCtx(p, torch.device("cuda"))
+        L = fp.L
+        rng = np.random.default_rng(L)
+
+        def rows(shape):
+            vals = [int.from_bytes(rng.bytes(L * 2), "little") % (2 * p)
+                    for _ in range(shape[0] * shape[2])]
+            vals[:5] = [0, 1, p - 1, p, 2 * p - 1][: len(vals)]
+            limbs = [[(v >> (16 * k)) & 0xFFFF for k in range(L)] for v in vals]
+            arr = np.array(limbs, dtype=np.int32).reshape(shape[0], shape[2], L)
+            return torch.from_numpy(arr.transpose(0, 2, 1).copy()).cuda()
+
+        c = rows((1, L, 1))[0]
+        for shape in ((6, L, 4096), (1, L, 1), (2, L, 4097)):
+            a, b = rows(shape), rows(shape).flip(-1)
+            for other in (b, c):
+                fp_cuda.reset_launches()
+                got = fp_cuda.mont_mul(fp, a, other)
+                assert fp_cuda.launches()["mont_mul"] == 1
+                assert torch.equal(got, fp_cuda.mont_mul_plain(fp, a, other)), (curve, shape)
+
+
 def test_six_warp_add_kernels_write_into_a_capture_buffer(ctx):
     """out= a step ys[s] of a (K, 3, L, n) buffer: the kernels write that step
     in place and leave the others alone."""

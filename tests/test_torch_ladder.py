@@ -1,0 +1,152 @@
+"""The six-warp ladder behind ``g1_cuda.smul`` (``g1_smul_ladder_kernel`` in
+``csrc/g1_split_kernels.cu``), modelled on Python integers in the kernel's
+order of operations, against ``smul_plain``.
+
+The CUDA kernel runs only on a card (``tests/test_torch_cuda.py`` holds it to
+``smul_plain`` there).  Here its schedule is checked without one: per bit the
+doubling's two layers of products (warps 0-3), the block's shortcut where no
+lane has the bit, the add's two layers (warps 0-5), and the select that the
+next step's first layer and the final store make by reading the accumulator
+from the doubling's or the add's slots.  Every field operation is the
+kernel's relaxed [0, 2p) one; ``smul_plain`` is held to the reference's
+ladder in ``tests/test_torch_g1.py``.  Tolerance: exact limb equality.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from mathlib_tpu_torch import get_spec
+from mathlib_tpu_torch.host import get_engine
+from mathlib_tpu_torch.ops.g1 import G1Ctx
+from mathlib_tpu_torch.ops.kernels import g1_cuda
+
+torch.set_num_threads(1)
+
+
+def _field(p, L):
+    """The kernels' relaxed field operations on Python ints: the CIOS
+    product's REDC output, add and sub kept in [0, 2p), and fp_mul_small's
+    add chain."""
+    R = 1 << (16 * L)
+    npf = (-pow(p, -1, R)) % R
+
+    def mul(a, b):
+        t = a * b
+        return (t + (t * npf % R) * p) // R
+
+    def add(a, b):
+        return a + b - 2 * p if a + b >= 2 * p else a + b
+
+    def sub(a, b):
+        return a - b + 2 * p if a < b else a - b
+
+    def small(a, m):
+        acc = a
+        for bit in bin(m)[3:]:
+            acc = add(acc, acc)
+            if bit == "1":
+                acc = add(acc, a)
+        return acc
+
+    return mul, add, sub, small
+
+
+def _ladder_model(Q, ks, nbits, p, L, b3, block=32):
+    """``g1_smul_ladder_kernel`` on lanes of Python ints: Q a list of (X, Y,
+    Z), ks the scalars, ``block`` lanes a block.  Each lane keeps the
+    doubling's second layer d = (dxa, dya, dz, dyb), the add's second layer
+    g = (xa, xb, ya, yb, za, zb) and its last bit, and reads acc from them as
+    the kernel's LadderPoint does.  Returns the points and how many
+    (block, bit) steps skipped the add and ran it."""
+    mul, add, sub, small = _field(p, L)
+    one = (1 << (16 * L)) % p
+    n = len(Q)
+    d = [[0, one, 0, 0] for _ in range(n)]  # acc = infinity, as a D
+    g = [[0] * 6 for _ in range(n)]
+    bit = [False] * n
+
+    def point(i, use_sum):  # LadderPoint.get for c = 0, 1, 2
+        if use_sum:
+            G = g[i]
+            return sub(G[0], G[1]), add(G[2], G[3]), add(G[4], G[5])
+        D = d[i]
+        return add(D[0], D[0]), add(D[1], D[3]), D[2]
+
+    skipped = added = 0
+    for b in range(nbits - 1, -1, -1):
+        for i in range(n):
+            X, Y, Z = point(i, bit[i])
+            # the doubling: first layer (warps 0-3), middle values, second layer
+            t0, t1, zz, xy = mul(Y, Y), mul(Y, Z), mul(Z, Z), mul(X, Y)
+            z3t = small(t0, 8)
+            t2 = small(zz, b3)
+            t0m = sub(t0, add(add(t2, t2), t2))
+            y3t = add(t0, small(zz, b3))
+            d[i] = [mul(t0m, xy), mul(small(zz, b3), z3t), mul(t1, z3t), mul(t0m, y3t)]
+        for lo in range(0, n, block):
+            lanes = range(lo, min(lo + block, n))
+            bits = {i: (ks[i] >> b) & 1 == 1 for i in lanes}
+            for i in lanes:
+                bit[i] = bits[i]
+            if not any(bits.values()):  # no lane of the block adds: acc = D
+                skipped += 1
+                continue
+            added += 1
+            for i in lanes:
+                (X1, Y1, Z1), (X2, Y2, Z2) = point(i, False), Q[i]
+                # the add's first layer (warps 0-5): t0, t1, t2, s3, s4, s5
+                t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
+                s3 = mul(add(X1, Y1), add(X2, Y2))
+                s4 = mul(add(Y1, Z1), add(Y2, Z2))
+                s5 = mul(add(X1, Z1), add(X2, Z2))
+                # rcb_mid, then the second layer
+                t3 = sub(s3, add(t0, t1))
+                t4 = sub(s4, add(t1, t2))
+                lnb = small(sub(s5, add(t0, t2)), b3)
+                t0_3 = add(add(t0, t0), t0)
+                z3t = add(t1, small(t2, b3))
+                t1m = sub(t1, small(t2, b3))
+                g[i] = [mul(t3, t1m), mul(t4, lnb), mul(t1m, z3t), mul(lnb, t0_3),
+                        mul(z3t, t4), mul(t0_3, t3)]
+    return [point(i, bit[i]) for i in range(n)], skipped, added
+
+
+def _ints(t, L):
+    """(3, L, B) limbs -> [(X, Y, Z)] Python ints per lane."""
+    w = np.array([1 << (16 * k) for k in range(L)], dtype=object)
+    v = (t.to(torch.int64).numpy().astype(object) * w[None, :, None]).sum(axis=1)
+    return [tuple(v[:, i]) for i in range(v.shape[1])]
+
+
+@pytest.fixture(params=["BLS12_381", "BN254"], scope="module")
+def ladder_case(request):
+    """Eight lanes of one curve: relaxed [p, 2p) limbs (sums of two encoded
+    points), Q at infinity on one lane, scalars 0, 1, r - 1 and random; and
+    smul_plain's output over the full nbits."""
+    spec = get_spec(request.param)
+    eng, g1 = get_engine(spec), G1Ctx(spec, "cpu")
+    rng = random.Random(14)
+    pts = [eng.g1.mul(eng.gen_g1, rng.randrange(1, spec.r)) for _ in range(16)]
+    Q = g1_cuda.add_plain(g1.F, g1.encode_points(pts[:8]), g1.encode_points(pts[8:]))
+    Q[..., 3] = g1.inf[..., 0]
+    ks = [0, 1, spec.r - 1] + [rng.randrange(spec.r) for _ in range(5)]
+    want = g1_cuda.smul_plain(g1.F, Q, g1.encode_scalars(ks), g1.nbits)
+    return g1, Q, ks, want
+
+
+@pytest.mark.parametrize("block", [32, 2])
+def test_ladder_model_equals_smul_plain(ladder_case, block):
+    """The ladder's schedule on Python ints equals smul_plain limb for limb,
+    at the kernel's 32-lane blocks (one block here) and at 2-lane blocks,
+    where the block of scalars 0 and 1 takes the shortcut at every bit but
+    the last: both paths are taken in each case."""
+    g1, Q, ks, want = ladder_case
+    L, p = g1.fp.L, g1.fp.p
+    got, skipped, added = _ladder_model(_ints(Q, L), ks, g1.nbits, p, L, g1.F.b3, block)
+    assert got == _ints(want, L)
+    assert skipped > 0 and added > 0
+    assert any(v[0] != 0 and v[0] < p for v in _ints(Q, L)) and any(
+        c >= p for v in _ints(Q, L) for c in v)  # canonical and relaxed limbs both occur
