@@ -149,8 +149,10 @@ G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
      g2_smul_static) against their plain PyTorch versions on the card, bit
      for bit: the point kernels on 4,097 lanes with P = Q, P = -Q and
      infinity on either side and a 15/16 selection, the ladders on 256
-     lanes (k = 0, 1, r - 1; infinity among them; the two cofactor
-     scalars); then each timed at the path's 4,096 lanes beside its plain
+     lanes (k = 0, 1, r - 1, lanes 32-63 with k = 0; infinity among them;
+     the two cofactor scalars) and on their first 250 (a partial block),
+     in the launcher's blocks and in 32-lane blocks, with the ladders'
+     ptxas lines (no stack, no spill allowed); then each timed at the path's 4,096 lanes beside its plain
      version, with its bound; then g2_addsel and g2_dblsel on their paths,
      ``G2Ctx.add_select`` and a 64-bit ``G2Ctx.dbl_add_select`` ladder held
      to ``G2Ctx.scalar_mul`` (their launch counts come from there);
@@ -231,6 +233,15 @@ product check
 (pairs/s and device ms), the 1,024 grouped checks under
 ``MATHLIB_GROUP_FEXP=device``, and ``pairing_batch`` at 4,096 BLS12-381 and
 1,024 BN254 pairs.
+
+    python3 chip_smoke.py --time-g2 REPO
+
+times, with the checkout at REPO, ``g2_smul`` at 4,096, 2,048 and 1,024
+lanes and at 16 lanes an SM and one more (the last count of the launcher's
+16-lane blocks and the first of its 32-lane ones), each cofactor ladder at
+4,096 lanes, beside their bounds, with the G2 ladders' ptxas lines, and
+``BatchEngine.g2_scalar_mul`` on 4,096 points with its ``g2_smul_stages``
+line; run for two checkouts in turns.
 
     python3 chip_smoke.py --time-batch REPO
 
@@ -332,6 +343,7 @@ N_G2 = 4096  # phase 14: timed lanes; phase 15: messages and points of one call
 N_G2_BN = 1024  # phase 15 (e): BN254 lanes of g2_scalar_mul
 N_G2_SAMPLED = 64  # phase 15: lanes of each call held to the host
 N_G2_LADDER_BITS = 64  # phase 14: bits of the G2Ctx.dbl_add_select ladder
+G2_RAGGED = 250  # phase 14: a ladder lane count that leaves a partial block
 HASH_G2_DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 BLS_SK = 0x2B1E5F0D3C7A9B4E6D8F1A3C5E7B9D2F4A6C8E1B3D5F7A9C2E4B6D8F1A3C5E7B
 
@@ -575,6 +587,11 @@ def time_double(g1_cuda, F, P, design: str) -> None:
 
 SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_addselneg_kernel",
                  "g1_maddsel_kernel", "g1_maddselneg_kernel", "g1_smul_ladder_kernel")
+
+
+def g2_ladder_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the G2 ladder kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith(("g2_ladder_kernel", "g2_smul"))]
 
 
 def split_ptxas(path: str) -> list:
@@ -1963,6 +1980,20 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     return new_launches
 
 
+def g2_smul_work(pt: int, s_limbs: int, nbits: int, m: int) -> tuple:
+    """Bytes and field products of ``g2_smul`` on m lanes of pt-byte points:
+    each point read and written once, the scalars' s_limbs 32-bit words a
+    lane read once; 60 field products a bit (a doubling's 24, an add's 36)."""
+    return (2 * pt + 4 * s_limbs) * m, 60 * nbits * m
+
+
+def g2_static_work(pt: int, bits: list, m: int) -> tuple:
+    """Bytes and field products of ``g2_smul_static`` on m lanes: each point
+    read and written once; a doubling's 24 products every bit, an add's 36
+    at each one-bit."""
+    return 2 * pt * m, (24 * len(bits) + 36 * sum(bits)) * m
+
+
 def g2_phases(dev, smi: str, results: dict) -> dict:
     """Phases 14 and 15; fills ``results`` for the six G2 kernels and returns
     their launch counts: g2_add's, g2_double's and g2_smul_static's summed
@@ -1993,10 +2024,14 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     def rand_k():
         return int.from_bytes(rng.bytes(32), "big") % r
 
-    # ---- 14. the six kernels against their plain versions (exact)
+    # ---- 14. the six kernels against their plain versions (exact); the
+    # ladders' ptxas lines: no stack, no spill
     for entry in ptxas_entries(build.BUILD_LOG):
         if entry.startswith("g2_"):
             log("ptxas", entry=repr(entry))
+    for entry in g2_ladder_ptxas(build.BUILD_LOG):
+        if not entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            raise AssertionError(f"G2 ladder kernel with a stack or a spill: {entry}")
     pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
     n = N_CHECK
     A = [pool[i] for i in rng.integers(0, len(pool), n)]
@@ -2017,15 +2052,29 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     check("g2_double", g2_cuda.double(F, S), g2_cuda.double_plain(F, S))
     check("g2_addsel", g2_cuda.addsel(F, S, Q, sel), g2_cuda.addsel_plain(F, S, Q, sel))
     check("g2_dblsel", g2_cuda.dblsel(F, S, Q, sel), g2_cuda.dblsel_plain(F, S, Q, sel))
-    ks = [0, 1, r - 1] + [rand_k() for _ in range(N_SMUL - 3)]
+    # the ladders against the plain version's lanes on 256 lanes and on the
+    # first G2_RAGGED of them (a partial block), both in the launcher's
+    # 16-lane blocks, and on 88 lanes past 16 an SM (32-lane blocks, a
+    # partial last one); lanes 32-63 have k = 0 (a 32-lane block, or two
+    # 16-lane ones, that never adds)
+    m_big = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 88
+    ks = [0, 1, r - 1] + [rand_k() for _ in range(m_big - 3)]
+    ks[32:64] = [0] * 32
     Ks = g2.encode_scalars(ks)
-    S256 = S[..., :N_SMUL].clone()
-    S256[..., 3] = g2.inf[..., 0]
-    check("g2_smul", g2_cuda.smul(F, S256, Ks, g2.nbits), g2_cuda.smul_plain(F, S256, Ks, g2.nbits))
-    for bits in (ctx.x_bits_1, ctx.x_bits_2):
-        check("g2_smul_static", g2_cuda.smul_static(F, S256, bits),
-              g2_cuda.smul_static_plain(F, S256, bits))
-    log("g2_kernels_vs_plain", lanes=n, ladder_lanes=N_SMUL, equal=True,
+    Sl = S[..., :m_big].clone()
+    Sl[..., 3] = g2.inf[..., 0]
+    wants = {"g2_smul": g2_cuda.smul_plain(F, Sl, Ks, g2.nbits)}
+    for j, bits in enumerate((ctx.x_bits_1, ctx.x_bits_2)):
+        wants[f"g2_smul_static{j}"] = g2_cuda.smul_static_plain(F, Sl, bits)
+    for m in (N_SMUL, G2_RAGGED, m_big):
+        check("g2_smul", g2_cuda.smul(F, Sl[..., :m], Ks[..., :m], g2.nbits),
+              wants["g2_smul"][..., :m])
+        for j, bits in enumerate((ctx.x_bits_1, ctx.x_bits_2)):
+            check("g2_smul_static", g2_cuda.smul_static(F, Sl[..., :m], bits),
+                  wants[f"g2_smul_static{j}"][..., :m])
+    del wants
+    log("g2_kernels_vs_plain", lanes=n, ladder_lanes=[N_SMUL, G2_RAGGED, m_big],
+        ladder_blocks=[16, 16, 32], zero_block="32-63", equal=True,
         max_abs_err={k: v["max_abs_err"] for k, v in results.items() if k.startswith("g2_")})
 
     # at the path's shapes (4,096 lanes: one hash or g2_scalar_mul call),
@@ -2041,7 +2090,8 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     pt = 3 * 2 * L * 4  # bytes of a projective G2 point
     n_sel = int(selt.sum())
     b1, b2 = ([int(b) for b in bits] for bits in (ctx.x_bits_1, ctx.x_bits_2))
-    static_muls = sum(24 * len(b) + 36 * sum(b) for b in (b1, b2))
+    static_work = [x + y for x, y in zip(g2_static_work(pt, b1, N_G2),
+                                         g2_static_work(pt, b2, N_G2))]
     shapes = {  # name: (kernel, plain, bytes, field products)
         "g2_add": (lambda: g2_cuda.add(F, Pt, Qt), lambda: g2_cuda.add_plain(F, Pt, Qt),
                    3 * pt * N_G2, 36 * N_G2),
@@ -2055,13 +2105,13 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
                       (3 * pt + 1) * N_G2, 24 * N_G2 + 36 * n_sel),
         "g2_smul": (lambda: g2_cuda.smul(F, Pt, Kt, g2.nbits),
                     lambda: g2_cuda.smul_plain(F, Pt, Kt, g2.nbits),
-                    (2 * pt + 4 * Kt.shape[-2]) * N_G2, 60 * g2.nbits * N_G2),
+                    *g2_smul_work(pt, Kt.shape[-2], g2.nbits, N_G2)),
         # both cofactor ladders of one clear_cofactor, |x^2 - x - 1| and |x - 1|
         "g2_smul_static": (lambda: torch.cat([g2_cuda.smul_static(F, Pt, b1),
                                               g2_cuda.smul_static(F, Pt, b2)], dim=-1),
                            lambda: torch.cat([g2_cuda.smul_static_plain(F, Pt, b1),
                                               g2_cuda.smul_static_plain(F, Pt, b2)], dim=-1),
-                           2 * 2 * pt * N_G2, static_muls * N_G2),
+                           *static_work),
     }
     for name, (kern, plain, nbytes, fp_muls) in shapes.items():
         ms, got = cuda_ms(kern, reps=3)
@@ -2941,6 +2991,136 @@ def time_batch(repo: str) -> int:
     return 0
 
 
+# --time-g2: the lane counts of g2_smul (g2_scalar_mul's 4,096 and two
+# smaller calls)
+
+
+def time_g2(repo: str) -> int:
+    """The G2 ladders alone, with the ``mathlib_tpu_torch`` of the checkout at
+    ``repo`` (built there at first use): its G2 ladder kernels' ptxas lines;
+    ``g2_smul`` (255 bits) at 4,096, 2,048 and 1,024 lanes and at 16 lanes
+    an SM and one more (where the block ladder turns from 16- to 32-lane
+    blocks) and each cofactor ladder (``g2_smul_static``) at 4,096 lanes,
+    CUDA events, mean of 5 after a warm-up, beside their bounds
+    (``[time_g2]`` lines; every output equal to the plain version's on the
+    same lanes); then ``BatchEngine.g2_scalar_mul`` on 4,096
+    points (a warm-up and 3 host-clock calls, 64 sampled lanes and the k = 0
+    and infinity lanes against the host engine) and one call split into
+    stages (``g2_smul_stages``: host encode, device ms, host decode).  Run it
+    for two checkouts in turns (A, B, B, A) in one call."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    repo = os.path.abspath(repo)
+    sys.path.insert(0, repo)
+    import mathlib_tpu_torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.ops.hash import get_hash_g2_ctx
+    from mathlib_tpu_torch.ops.kernels import build, g2_cuda
+
+    if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
+        raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    lib = build.load()
+    smi = smi_line()
+    design = ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_ladder_kernel")
+              else "one-thread")
+    for entry in g2_ladder_ptxas(build.BUILD_LOG):
+        log("ptxas_g2_ladder", repo=repr(repo), design=design, entry=repr(entry))
+    dev = mathlib_tpu_torch.device("cuda")
+    spec = get_spec("BLS12_381")
+    eng = get_engine(spec)
+    ctx = get_hash_g2_ctx(spec, dev)
+    g2, L = ctx.g2, ctx.fp.L
+    F = g2.rows
+    rng = np.random.default_rng(9)
+
+    def rand_k():
+        return int.from_bytes(rng.bytes(32), "big") % spec.r
+
+    pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)]
+    pts = [pool[i % 256] for i in range(N_G2)]
+    pts[3] = None
+    base = g2.encode_points(pts)
+    Q = g2_cuda.add_plain(F, base, base.roll(1, -1)).contiguous()  # relaxed limbs
+    ks = [rand_k() for _ in range(N_G2)]
+    ks[5] = 0
+    K = g2.encode_scalars(ks)
+    want = g2_cuda.smul_plain(F, Q, K, g2.nbits)
+    pt = 3 * 2 * L * 4
+    S = K.shape[-2]
+
+    def smul_at(m):
+        q, k = Q[..., :m].contiguous(), K[..., :m].contiguous()
+        nbytes, fp_muls = g2_smul_work(pt, S, g2.nbits, m)
+        b = bound(nbytes, wide_mads(fp_muls, L))
+        ms, got = cuda_ms(lambda: g2_cuda.smul(F, q, k, g2.nbits), reps=5)
+        if not torch.equal(got, want[..., :m]):
+            raise AssertionError(f"time_g2: g2_smul at {m} lanes disagrees with its plain version")
+        return ms, b
+
+    edge = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (N_G2, edge + 1, edge, 2048, 1024):
+        ms, b = smul_at(m)
+        log("time_g2", repo=repr(repo), design=design, kernel="g2_smul", lanes=m,
+            block_lanes=(16 if m <= edge else 32) if design == "block" else None,
+            nbits=g2.nbits, ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+            bound_by=b["bound_by"], over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True,
+            card=repr(smi))
+    for bits, what in ((ctx.x_bits_1, "|x^2-x-1|"), (ctx.x_bits_2, "|x-1|")):
+        b_ = [int(x) for x in bits]
+        nbytes, fp_muls = g2_static_work(pt, b_, N_G2)
+        b = bound(nbytes, wide_mads(fp_muls, L))
+        ms, got = cuda_ms(lambda: g2_cuda.smul_static(F, Q, b_), reps=5)
+        if not torch.equal(got, g2_cuda.smul_static_plain(F, Q, b_)):
+            raise AssertionError(f"time_g2: g2_smul_static {what} disagrees with its plain version")
+        log("time_g2", repo=repr(repo), design=design, kernel="g2_smul_static", scalar=what,
+            bits=len(b_), ones=sum(b_), lanes=N_G2, ms=f"{ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+            over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+
+    be = BatchEngine(spec, dev)
+    check_lanes = sorted(set(int(i) for i in rng.choice(N_G2, N_G2_SAMPLED, replace=False))
+                         | {3, 5})
+    first = be.g2_scalar_mul(pts, ks)
+    if [first[i] for i in check_lanes] != [eng.g2.mul_any(pts[i], ks[i]) for i in check_lanes]:
+        raise AssertionError("time_g2: g2_scalar_mul differs from the host engine")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = be.g2_scalar_mul(pts, ks)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if out != first:
+            raise AssertionError("time_g2: calls of g2_scalar_mul disagree")
+    log("time_g2_scalar_mul", repo=repr(repo), design=design, points=N_G2,
+        seconds=[round(x, 4) for x in secs], points_per_s=f"{N_G2 / min(secs):.1f}",
+        equals_host=True, card=repr(smi))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Pd, Sd = g2.encode_points(pts), g2.encode_scalars(ks)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    Od = g2.scalar_mul(Pd, Sd)
+    ev[1].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if g2.decode_points(Od) != first:
+        raise AssertionError("time_g2: the stage run of g2_scalar_mul differs")
+    t3 = time.perf_counter()
+    log("g2_smul_stages", repo=repr(repo), design=design, n=N_G2,
+        encode_host_s=f"{t1 - t0:.4f}", g2_smul_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+        decode_host_s=f"{t3 - t2:.4f}", card=repr(smi))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-msm", metavar="REPO",
@@ -2951,6 +3131,8 @@ def main() -> int:
     ap.add_argument("--time-batch", metavar="REPO",
                     help="only time BLS12-381 pairing_batch and its stages with the checkout "
                          "at REPO")
+    ap.add_argument("--time-g2", metavar="REPO",
+                    help="only time the G2 ladders and g2_scalar_mul with the checkout at REPO")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2^20 MSM and time add on BLS12-381 vs BN254")
     args = ap.parse_args()
@@ -2960,6 +3142,8 @@ def main() -> int:
         return time_pairing(args.time_pairing)
     if args.time_batch:
         return time_batch(args.time_batch)
+    if args.time_g2:
+        return time_g2(args.time_g2)
     t_start = time.perf_counter()
 
     import numpy as np

@@ -7,8 +7,8 @@
 //   g2_dblsel_kernel  <- g2_pallas.py:_dblsel_kernel  (dblsel_pallas)
 //
 // The point formulas, the lane layout and the operation order that keeps
-// the relaxed limbs the reference's are in g2_rows.cuh (shared with the G2
-// ladders of g2_smul_kernels.cu).
+// the relaxed limbs the reference's are in g2_rows.cuh (the G2 ladders of
+// g2_smul_kernels.cu split the same formulas over a block's warps).
 //
 // Bound on this card: integer multiply issue rate, then registers and the
 // stack.  An RCB add over Fp2 is 12 Fp2 products, 36 field muls (21,168

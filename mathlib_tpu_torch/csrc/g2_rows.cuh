@@ -1,5 +1,6 @@
-// G2 point arithmetic for one thread's registers, shared by the G2 point
-// kernels (g2_kernels.cu) and the G2 ladders (g2_smul_kernels.cu): port of
+// G2 point arithmetic for one thread's registers, for the G2 point kernels
+// (g2_kernels.cu; the ladders of g2_smul_kernels.cu take B3, f2_mul_b3's
+// branches and the layout from here): port of
 // mathlib_tpu/ops/kernels/g2_pallas.py Row2Ctx, _rcb_add and _rcb_double.
 //
 // Layout: a point batch is (3, 2, L, n) 16-bit limbs in 32-bit words, the
@@ -129,32 +130,6 @@ __device__ __noinline__ void rcb_dbl2(G2Proj<NW>& O, const G2Proj<NW>& P, const 
   f2_mul<NW>(O.z, t1, z3t, k, tc);
   f2_add<NW>(O.x, xy, xy, k);
   f2_add<NW>(O.y, t2, y3t, k);
-}
-
-template <int NW>
-__device__ __forceinline__ void select_point2(G2Proj<NW>& O, bool sel, const G2Proj<NW>& A,
-                                              const G2Proj<NW>& B) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      O.x.c[c][j] = sel ? A.x.c[c][j] : B.x.c[c][j];
-      O.y.c[c][j] = sel ? A.y.c[c][j] : B.y.c[c][j];
-      O.z.c[c][j] = sel ? A.z.c[c][j] : B.z.c[c][j];
-    }
-  }
-}
-
-// infinity ((0, 0) : (1, 0) : (0, 0)), 1 in Montgomery form
-template <int NW>
-__device__ __forceinline__ void set_inf2(G2Proj<NW>& O, const FieldConsts& k) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    O.x.c[0][j] = O.x.c[1][j] = 0;
-    O.y.c[0][j] = k.one[j];
-    O.y.c[1][j] = 0;
-    O.z.c[0][j] = O.z.c[1][j] = 0;
-  }
 }
 
 // The launchers' shared parts: Fp2 with u^2 = -1 (tc.n = 1; the rest of the

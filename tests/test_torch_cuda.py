@@ -848,6 +848,33 @@ def test_g2_kernels_equal_plain_versions(g2_ctx):
         g2_cuda.double(F, P.to(torch.int64))
 
 
+@pytest.mark.parametrize("blocks", [16, 32])
+def test_g2_ladders_on_a_ragged_batch_and_a_block_that_never_adds(g2_ctx, blocks):
+    """The two ladders against their plain versions on a ragged count of
+    relaxed lanes (a partial last block), lanes 32-63 with k = 0 (a 32-lane
+    block, or two 16-lane ones, that skips the add at every bit) and k = 0, 1
+    and 2^64 - 1 (every bit set) among the rest, over 64 bits.  The launcher takes 16-lane blocks up to 16
+    lanes an SM and 32-lane ones above, so 100 lanes reach the first and 88
+    lanes past that count the second."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    eng, g2 = g2_ctx
+    F = g2.rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, nbits = (100 if blocks == 16 else 16 * sms + 88), 64
+    rng = np.random.default_rng(14)
+    pool = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, 15)] + [None]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    Q = g2_cuda.add_plain(F, g2.encode_points(A), g2.encode_points(A[::-1]))
+    ks = [int(k) for k in rng.integers(1, 1 << 62, n)]
+    ks[:3] = [0, 1, (1 << nbits) - 1]
+    ks[32:64] = [0] * 32
+    K = g2.encode_scalars(ks)
+    bits = [int(b) for b in bin(0xD201000000010000)[2:]]
+    assert torch.equal(g2_cuda.smul(F, Q, K, nbits), g2_cuda.smul_plain(F, Q, K, nbits))
+    assert torch.equal(g2_cuda.smul_static(F, Q, bits), g2_cuda.smul_static_plain(F, Q, bits))
+
+
 def test_g2_entry_points_on_the_card(g2_ctx):
     """hash_to_g2_batch (word path) and g2_scalar_mul against the host, on the
     kernels; BN254's g2_scalar_mul on the weier fallback over mont_mul."""
