@@ -112,7 +112,9 @@ The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
      BLS12-381 projective points (GLV, c=8), (d) ``g1_scalar_mul`` on 8,192
      lanes against the host engine's ``mul``, then fp_pow on the values
      its batch inversion gives it there (BLS12-381, (24, 2,048)) against
-     its plain version, timed beside it with its bound, (e) phase 5's 2^20 MSM again
+     its plain version, each body (the grouped one and one element a
+     thread) forced in turn and the wrapper's own pick, timed beside it
+     with its bound, (e) phase 5's 2^20 MSM again
      with affine points, with signed digits, and with both, each equal to
      phase 5's result and timed beside it.  The counts are set to 0 just
      before each entry point and read just after: every kernel of its path
@@ -121,12 +123,13 @@ The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
 Hash-to-G1 and ``BatchEngine``'s BLS sign and verify:
 
  12. the two kernels of the hash path against their plain PyTorch versions
-     on the card, bit for bit: ``hash_g1`` on 1,024 lanes under both signs
-     (the first lanes u = 0, 1, p - 1 and a pair with t2 = 0; eight edge
-     lanes also against the host map), then timed at 4,096 lanes with its
-     bound; ``smul_static`` on 4,097 lanes (infinity among them) with
-     h_eff's bits and a 255-bit static scalar, then timed at 4,096 lanes;
-     their ptxas lines;
+     on the card, bit for bit: ``hash_g1`` on 1,001 lanes (a partial
+     16-lane block) and 1,024 lanes under both signs (the first lanes u = 0,
+     1, p - 1 and a pair with t2 = 0; eight edge lanes also against the host
+     map), then timed at 4,096 lanes with its bound; ``smul_static`` on
+     4,097 lanes (infinity among them) with h_eff's bits and a 255-bit
+     static scalar, then timed at 4,096 lanes; their ptxas lines (hash_g1:
+     no stack, no spill and at most 128 registers allowed);
  13. the entry points at full width on BLS12-381, 4,096 messages, DST
      ``BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_``: ``hash_to_g1_batch``
      on (a) 32-byte messages (the word path), (b) 30-byte messages (the
@@ -162,7 +165,12 @@ G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
      32-byte (the word path), (b) 30-byte (the block path), (c)
      ``b"msg-%d"`` of mixed lengths (the host path), 64 sampled lanes of
      each against the port's host hasher, with a ``g2_hash_stages`` line
-     (XMD, the maps, the cofactor ladders, host decode); (d)
+     (XMD, the maps, the cofactor ladders, host decode), then fp_pow on the
+     four calls of one more (a) call's first map (the Fp2 inverse at 4,096
+     elements, the Fp2 square root's three chains at 8,192, 32,768 and
+     8,192) against its
+     plain version, each body and the wrapper's pick, timed beside the
+     bound; (d)
      ``BatchEngine.g2_scalar_mul`` on 4,096 lanes against the host engine's
      ``mul`` on 64 sampled lanes and the k = 0 and infinity lanes, with a
      ``g2_smul_stages`` line; (e) BN254 ``g2_scalar_mul`` on 1,024 lanes
@@ -242,6 +250,17 @@ lanes and at 16 lanes an SM and one more (the last count of the launcher's
 4,096 lanes, beside their bounds, with the G2 ladders' ptxas lines, and
 ``BatchEngine.g2_scalar_mul`` on 4,096 points with its ``g2_smul_stages``
 line; run for two checkouts in turns.
+
+    python3 chip_smoke.py --time-hash REPO
+
+times, with the checkout at REPO, ``hash_g1`` at 4,096 and 1,024 lanes
+beside its bound, fp_pow on ``g1_scalar_mul``'s batch inversion (24, 2,048)
+and on the G2 map's four chains (each body where the checkout has two),
+beside its bound, mont_mul at (6, 24, 4,096), the three kernels' ptxas
+lines, ``hash_to_g1_batch`` (word path) and ``hash_to_g2_batch`` on 4,096
+messages with their ``hash_stages`` and ``g2_hash_stages`` lines, and
+``BatchEngine.g1_scalar_mul`` on 8,192 points; run for two checkouts in
+turns.
 
     python3 chip_smoke.py --time-batch REPO
 
@@ -336,6 +355,7 @@ MAIN_G1 = ("add", "double", "addsel", "smul", "gather_rows_t")  # the kernels of
 NO_PATH = ("f12_pow",)
 N_HASH = 4096  # phase 13: messages of one BLS12-381 call; phase 12: timed lanes
 N_HASH_CHECK = 1024  # phase 12: lanes of hash_g1 against its plain version
+N_HASH_RAGGED = 1001  # phase 12: and on their first 1,001 (a partial block)
 N_HASH_BN = 1024  # phase 13 (g): BN254 messages
 N_HASH_SAMPLED = 64  # phase 13: lanes of each call held to the host hasher
 HASH_DST = b"BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_"
@@ -686,6 +706,78 @@ def time_mont_mul(fp_cuda, fp, design: str, shapes=MONT_SHAPES) -> None:
                 over_bound=f"{ms / bnd['bound_ms']:.2f}x", equal=True)
 
 
+def chain_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the hash_g1 and fp_pow kernels."""
+    return [e for e in ptxas_entries(path) if e.startswith(("hash_g1", "fp_pow"))]
+
+
+def record_pow_calls(run):
+    """run() with every fp_pow call it makes recorded (through
+    ``FpCtx.pow_bits``, fp_pow's one caller): returns run()'s output and a
+    list of (FpCtx, a copy of the operand, the MSB-first bits)."""
+    import numpy as np
+    from mathlib_tpu_torch.ops.field import FpCtx
+
+    seen, pow_bits = [], FpCtx.pow_bits
+
+    def recorded(fp_ctx, z, le_bits):
+        seen.append((fp_ctx, z.clone(), np.ascontiguousarray(np.asarray(le_bits)[::-1])))
+        return pow_bits(fp_ctx, z, le_bits)
+
+    FpCtx.pow_bits = recorded
+    try:
+        out = run()
+    finally:
+        FpCtx.pow_bits = pow_bits
+    return out, seen
+
+
+def time_fp_pow(fp_cuda, fp, z, bits, what: str, design: str, smi: str) -> dict:
+    """``fp_pow`` of the imported checkout on z (a call an entry point made)
+    against one run of its plain version and beside the bound (one square a
+    bit and one product a one-bit an element); where the checkout picks its
+    body by size (``fp_cuda.pow_group``), each body forced in turn as well
+    ("default": the checkout's own choice).  A ``[time_fp_pow]`` line each;
+    returns the default body's ms, the plain ms and the bound."""
+    import torch
+    from mathlib_tpu_torch.ops.kernels.tower_rows import pow_mults
+
+    plain_ms, want = cuda_ms(lambda: fp_cuda.fp_pow_plain(fp, z, bits), reps=1)
+    elements = z.numel() // fp.L
+    bnd = bound(2 * z.numel() * 4, wide_mads(elements * pow_mults(bits), fp.L))
+    pick = getattr(fp_cuda, "pow_group", None)
+    bodies = {"default": None, **({"one_thread": 1, "grouped": 4} if pick else {})}
+    out = {}
+    for body, group in bodies.items():
+        if group is not None:
+            fp_cuda.pow_group = lambda e, g=group: g
+        try:
+            ms, got = cuda_ms(lambda: fp_cuda.fp_pow(fp, z, bits), reps=3)
+        finally:
+            if pick is not None:
+                fp_cuda.pow_group = pick
+        if not torch.equal(got, want):
+            raise AssertionError(f"fp_pow ({body}) on {what} disagrees with its plain version")
+        out[body] = ms
+        log("time_fp_pow", design=design, body=body, what=repr(what), shape=repr(tuple(z.shape)),
+            elements=elements, bits=len(bits), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+            bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+            over_bound=f"{ms / bnd['bound_ms']:.2f}x", equal=True, card=repr(smi))
+    return {"ms": out["default"], "plain_ms": plain_ms, **bnd}
+
+
+def time_g2_map_pows(fp_cuda, calls, design: str, smi: str) -> None:
+    """fp_pow on the calls one G2 map makes (the first half of a
+    ``hash_to_g2_batch`` call's eight: the Fp2 inverse, then the Fp2 square
+    root's three chains, two square roots and an inverse), each against its
+    plain version and timed by ``time_fp_pow``."""
+    names = ("f2_inv", "sqrt chain 1", "sqrt chain 2 (stacked)", "sqrt chain 3 (inverse)")
+    if len(calls) != 8:
+        raise AssertionError(f"hash_to_g2_batch ran fp_pow {len(calls)} times, not 8")
+    for what, (fp, z, bits) in zip(names, calls[:4]):
+        time_fp_pow(fp_cuda, fp, z, bits, f"G2 map, {what}", design, smi)
+
+
 def tree_ptxas(path: str) -> list:
     """The build log's ptxas lines of the product tree's kernel."""
     return [e for e in ptxas_entries(path) if e.startswith(("f12_tree", "f12_pair_mul"))]
@@ -765,6 +857,19 @@ def mont_design(build) -> str:
     element below a size, csrc/fp_kernels.cu) or "one-thread"."""
     return ("grouped" if _source_has(build, "fp_kernels.cu", "mont_mul_group_kernel")
             else "one-thread")
+
+
+def pow_design(build) -> str:
+    """Which fp_pow the imported checkout has: "grouped" (four threads an
+    element below a size, csrc/fp_kernels.cu) or "one-thread"."""
+    return ("grouped" if _source_has(build, "fp_kernels.cu", "fp_pow_group_kernel")
+            else "one-thread")
+
+
+def hash_design(build) -> str:
+    """Which hash_g1 kernel the imported checkout has: "grouped" (a lane over
+    four groups of threads, csrc/hash_kernels.cu) or "one-thread"."""
+    return "grouped" if _source_has(build, "hash_kernels.cu", "fp_mul_group") else "one-thread"
 
 
 def _source_has(build, source: str, word: str) -> bool:
@@ -1430,10 +1535,8 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     from mathlib_tpu_torch.batch import BatchEngine
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.ops import msm as M
-    from mathlib_tpu_torch.ops.field import FpCtx
     from mathlib_tpu_torch.ops.g1 import G1Ctx, get_g1_ctx
-    from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, gather_cuda, pairing_cuda
-    from mathlib_tpu_torch.ops.kernels.tower_rows import pow_mults
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, gather_cuda, pairing_cuda
 
     rng = np.random.default_rng(2)
     g1, eng, spec = main["g1"], main["eng"], main["spec"]
@@ -1636,32 +1739,15 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
     entry("BatchEngine.g1_scalar_mul BLS12_381", lambda: be.g1_scalar_mul(base_aff, ks_d),
           want_d, N_BASE, ("smul", "mont_mul", "fp_pow"))
     # fp_pow at the shape and on the values batch_inv gives it there: one
-    # more call with FpCtx.pow_bits' arguments recorded (it is fp_pow's one
-    # caller), then the kernel against its plain version on them
-    seen, pow_bits = [], FpCtx.pow_bits
-
-    def recorded(fp_ctx, z, le_bits):
-        seen.append((fp_ctx, z.clone(), np.ascontiguousarray(np.asarray(le_bits)[::-1])))
-        return pow_bits(fp_ctx, z, le_bits)
-
-    FpCtx.pow_bits = recorded
-    try:
-        be.g1_scalar_mul(base_aff, ks_d)
-    finally:
-        FpCtx.pow_bits = pow_bits
+    # more call with fp_pow's calls recorded, then the kernel (each body)
+    # against its plain version on them
+    _, seen = record_pow_calls(lambda: be.g1_scalar_mul(base_aff, ks_d))
     if len(seen) != 1:
         raise AssertionError(f"g1_scalar_mul ran fp_pow {len(seen)} times, not once")
     fp_ctx, z, inv_bits = seen[0]
-    ms, got_z = cuda_ms(lambda: fp_cuda.fp_pow(fp_ctx, z, inv_bits), reps=3)
-    plain_ms, want_z = cuda_ms(lambda: fp_cuda.fp_pow_plain(fp_ctx, z, inv_bits), reps=1)
-    check("fp_pow", got_z, want_z)
-    bnd = bound(2 * z.numel() * 4, wide_mads(z.shape[-1] * pow_mults(inv_bits), fp_ctx.L))
-    results["fp_pow"].update(ms=ms, plain_ms=plain_ms, **bnd)
-    log("time", kernel="fp_pow", shape=repr(f"{tuple(z.shape)} BLS12-381, batch_inv"),
-        equal=True, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
-        speedup=f"{plain_ms / ms:.1f}x", bound_ms=f"{bnd['bound_ms']:.4f}",
-        bound_by=bnd["bound_by"], bits=len(inv_bits))
-    del seen, z, got_z, want_z
+    results["fp_pow"].update(time_fp_pow(fp_cuda, fp_ctx, z, inv_bits, "BLS12-381, batch_inv",
+                                         pow_design(build), smi))
+    del seen, z
 
     # (e) phase 5's 2^20 MSM with the options, each equal to phase 5's result
     points, scalars = main["points"], main["scalars"]
@@ -1720,6 +1806,86 @@ class _OpCount:
         self._mode.__exit__(*exc)
 
 
+def hash_g1_stages(ctx, msgs, dev, counts=None):
+    """One ``hash_to_g1_batch`` word-path call (32-byte messages, HASH_DST)
+    in stages: host pack (host clock), the XMD and field embedding on the
+    device and the hash_g1 kernel (CUDA events), host decode of every lane,
+    then the XMD's aten operators counted in one more run.  Returns the
+    ``hash_stages`` line's fields (with ``counts()``' launches, read after
+    the decode, if given), the decoded points and the (u0, u1) batches."""
+    import torch
+    from mathlib_tpu_torch.ops import xmd
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = xmd.to_device_words(xmd.pack_msg_words(msgs, 32), dev)
+    tmpl = xmd.b0_template(32, HASH_DST, 128)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    uu = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
+    ev[1].record()
+    out = ctx.hash_to_g1(*uu)
+    ev[2].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pts = ctx.g1.decode_points(out)
+    t3 = time.perf_counter()
+    launched = counts() if counts else {}
+    with _OpCount() as ops:
+        xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
+    fields = dict(n=len(msgs), pack_host_s=f"{t1 - t0:.4f}",
+                  xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+                  hash_g1_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}",
+                  device_wall_s=f"{t2 - t1:.4f}", decode_host_s=f"{t3 - t2:.4f}",
+                  xmd_aten_ops=ops.n, **launched)
+    return fields, pts, uu
+
+
+def hash_g2_stages(ctx, msgs, dev, counts=None):
+    """One ``hash_to_g2_batch`` word-path call (32-byte messages,
+    HASH_G2_DST) in stages: host pack, XMD and embedding on the card, the two
+    maps (tower ops on mont_mul and fp_pow, the isogenies, g2_add; their
+    aten operators counted), the cofactor clearing (the two static ladders,
+    psi, g2_add x2, g2_double), host decode of every lane.  Returns the
+    ``g2_hash_stages`` line's fields (with ``counts()``' launches, if given)
+    and the decoded points."""
+    import torch
+    from mathlib_tpu_torch.ops import xmd
+
+    g2 = ctx.g2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = xmd.to_device_words(xmd.pack_msg_words(msgs, 32), dev)
+    tmpl = xmd.b0_template(32, HASH_G2_DST, 256)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    es = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_G2_DST,
+                                  4, 64)
+    ev[1].record()
+    with _OpCount() as map_ops:
+        x0, y0 = ctx.sswu(torch.stack(es[:2]))
+        x1, y1 = ctx.sswu(torch.stack(es[2:]))
+        Pm = g2.add(ctx.iso_project(x0, y0), ctx.iso_project(x1, y1))
+    ev[2].record()
+    out = ctx.clear_cofactor(Pm)
+    ev[3].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pts = g2.decode_points(out)
+    t3 = time.perf_counter()
+    fields = dict(n=len(msgs), pack_host_s=f"{t1 - t0:.4f}",
+                  xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
+                  map_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}", map_aten_ops=map_ops.n,
+                  cofactor_device_ms=f"{ev[2].elapsed_time(ev[3]):.4f}",
+                  device_wall_s=f"{t2 - t1:.4f}", decode_host_s=f"{t3 - t2:.4f}",
+                  **(counts() if counts else {}))
+    return fields, pts
+
+
 def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     """Phases 12 and 13; fills ``results`` for hash_g1 and smul_static and
     returns their launch counts: hash_g1's summed over phase 13's entry
@@ -1731,7 +1897,6 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     from mathlib_tpu_torch.curves import isogeny_data
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.host.hash_to_curve import get_hasher
-    from mathlib_tpu_torch.ops import xmd
     from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx
     from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, hash_cuda, pairing_cuda
 
@@ -1748,10 +1913,15 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     def rand_fp(n):
         return [int.from_bytes(rng.bytes(64), "big") % p for _ in range(n)]
 
-    # ---- 12. hash_g1 and smul_static against their plain versions (exact)
+    # ---- 12. hash_g1 and smul_static against their plain versions (exact);
+    # hash_g1's ptxas line: no stack, no spill, at most 128 registers
     for entry in ptxas_entries(build.BUILD_LOG):
         if entry.startswith(("hash_g1", "g1_smul_static")):
             log("ptxas", entry=repr(entry))
+        if entry.startswith("hash_g1") and hash_design(build) == "grouped" and (
+                int(entry.split(": ")[1].split()[0]) > 128 or not entry.endswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
+            raise AssertionError(f"hash_g1 over its register budget: {entry}")
     a = (-pow(isogeny_data.G1[spec.name]["Z"], -1, p)) % p  # t2 = 0 <=> u^2 = -1/Z
     r = pow(a, (p + 1) // 4, p)
     if r * r % p != a:
@@ -1760,6 +1930,10 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     us1 = [1, 0, 7, p - r] + rand_fp(N_HASH_CHECK - 4)
     u0, u1 = ctx.fp.encode(us0), ctx.fp.encode(us1)
     for sign in hash_cuda.SIGNS:
+        # a ragged count first (a partial 16-lane block), then all 1,024
+        r0, r1 = u0[..., :N_HASH_RAGGED].contiguous(), u1[..., :N_HASH_RAGGED].contiguous()
+        got = hash_cuda.hash_g1(ctx, r0, r1, sign)
+        check("hash_g1", got, hash_cuda.hash_g1_plain(ctx, r0, r1, sign))
         got = hash_cuda.hash_g1(ctx, u0, u1, sign)
         check("hash_g1", got, hash_cuda.hash_g1_plain(ctx, u0, u1, sign))
     # the edge lanes, canonically, against the host map ("be": the hasher's
@@ -1780,8 +1954,8 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
             for x, y in zip(us0[:8], us1[:8])]
     if host != want:
         raise AssertionError("hash_g1 (be) disagrees with the host map on the edge lanes")
-    log("hash_g1_vs_plain", lanes=N_HASH_CHECK, signs=list(hash_cuda.SIGNS), equal=True,
-        edge_lanes_equal_host=len(host))
+    log("hash_g1_vs_plain", lanes=[N_HASH_RAGGED, N_HASH_CHECK], signs=list(hash_cuda.SIGNS),
+        equal=True, edge_lanes_equal_host=len(host))
 
     # at the path's 4,096 lanes, timed beside the plain version
     U0, U1 = ctx.fp.encode(rand_fp(N_HASH)), ctx.fp.encode(rand_fp(N_HASH))
@@ -1894,32 +2068,11 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
     # stages of one more (a) call: host pack, XMD on the device (PyTorch ops
     # and the embedding's mont_mul), the kernel, host decode of every lane
     ms_a = msgs["a"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    words = xmd.to_device_words(xmd.pack_msg_words(ms_a, 32), dev)
-    tmpl = xmd.b0_template(32, HASH_DST, 128)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     reset()
-    ev[0].record()
-    uu = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
-    ev[1].record()
-    out = ctx.hash_to_g1(*uu)
-    ev[2].record()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    pts = g1.decode_points(out)
-    t3 = time.perf_counter()
+    stages, pts, uu = hash_g1_stages(ctx, ms_a, dev, counts)
     if [pts[i] for i in sample] != host_a:
         raise AssertionError("the stage run of (a) differs from the host hasher")
-    stage_counts = counts()
-    with _OpCount() as ops:
-        xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_DST, 2, 64)
-    log("hash_stages", n=N_HASH, pack_host_s=f"{t1 - t0:.4f}",
-        xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
-        hash_g1_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}", device_wall_s=f"{t2 - t1:.4f}",
-        decode_host_s=f"{t3 - t2:.4f}", xmd_aten_ops=ops.n, **stage_counts)
+    log("hash_stages", **stages)
 
     # (e) bls_sign_batch, (f) bls_verify_batch, on (a)'s messages
     sigs = timed("(e) bls_sign_batch", lambda: be.bls_sign_batch(BLS_SK, ms_a, HASH_DST),
@@ -2005,7 +2158,6 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     from mathlib_tpu_torch.batch import BatchEngine
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.host.hash_to_curve import get_hasher
-    from mathlib_tpu_torch.ops import xmd
     from mathlib_tpu_torch.ops.hash import get_hash_g2_ctx, hash_to_g2_batch
     from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g2_cuda
 
@@ -2208,41 +2360,17 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
         host_a = want if key == "a" else host_a
     log("g2_hash_sampled", entries="a-c", lanes=N_G2_SAMPLED, equal_host_hasher=True)
 
-    # stages of one more (a) call: host pack, XMD and embedding on the card,
-    # the two maps (tower ops on mont_mul and fp_pow, the isogenies, g2_add),
-    # the cofactor clearing (the two static ladders, psi, g2_add x2,
-    # g2_double), host decode of every lane
+    # stages of one more (a) call (hash_g2_stages), then fp_pow on the calls
+    # of one more: each body against its plain version at the G2 map's shapes
     ms_a = msgs["a"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    words = xmd.to_device_words(xmd.pack_msg_words(ms_a, 32), dev)
-    tmpl = xmd.b0_template(32, HASH_G2_DST, 256)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     reset()
-    ev[0].record()
-    es = xmd.hash_to_field_device(ctx.fp, xmd.b0_blocks_device(words, tmpl, 32), HASH_G2_DST,
-                                  4, 64)
-    ev[1].record()
-    with _OpCount() as map_ops:
-        x0, y0 = ctx.sswu(torch.stack(es[:2]))
-        x1, y1 = ctx.sswu(torch.stack(es[2:]))
-        Pm = g2.add(ctx.iso_project(x0, y0), ctx.iso_project(x1, y1))
-    ev[2].record()
-    out = ctx.clear_cofactor(Pm)
-    ev[3].record()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    pts = g2.decode_points(out)
-    t3 = time.perf_counter()
+    stages, pts = hash_g2_stages(ctx, ms_a, dev, counts)
     if [pts[i] for i in sample] != host_a:
         raise AssertionError("the stage run of (a) differs from the host hasher")
-    log("g2_hash_stages", n=N_G2, pack_host_s=f"{t1 - t0:.4f}",
-        xmd_embed_device_ms=f"{ev[0].elapsed_time(ev[1]):.4f}",
-        map_device_ms=f"{ev[1].elapsed_time(ev[2]):.4f}", map_aten_ops=map_ops.n,
-        cofactor_device_ms=f"{ev[2].elapsed_time(ev[3]):.4f}", device_wall_s=f"{t2 - t1:.4f}",
-        decode_host_s=f"{t3 - t2:.4f}", **counts())
+    log("g2_hash_stages", **stages)
+    _, calls = record_pow_calls(lambda: hash_to_g2_batch(spec, ms_a, HASH_G2_DST, device=dev))
+    time_g2_map_pows(fp_cuda, calls, pow_design(build), smi)
+    del calls
 
     # (d) BatchEngine.g2_scalar_mul on 4,096 BLS12-381 lanes: 256 host points
     # tiled, infinity and k = 0 among them
@@ -3121,6 +3249,129 @@ def time_g2(repo: str) -> int:
     return 0
 
 
+def time_hash(repo: str) -> int:
+    """The chain kernels on their paths, with the ``mathlib_tpu_torch`` of the
+    checkout at ``repo`` (built there at first use): the hash_g1, fp_pow and
+    mont_mul kernels' ptxas lines; ``hash_g1`` (parity sign) at 4,096 and
+    1,024 lanes beside its bound (``[time_hash_g1]``, each output equal to
+    the plain version's); ``BatchEngine.g1_scalar_mul`` on 8,192 points (a
+    warm-up and 3 host-clock calls, against the host engine) and fp_pow on
+    the values its batch inversion gives it (``time_fp_pow``: each body
+    where the checkout has two); ``hash_to_g1_batch`` on 4,096 32-byte
+    messages (word path; a warm-up and 3 calls, 64 sampled lanes against the
+    host hasher) with its ``hash_stages`` line; ``hash_to_g2_batch`` on 4,096
+    32-byte messages, the same way, with its ``g2_hash_stages`` line and
+    fp_pow on its first map's four calls; mont_mul at (6, 24, 4,096).  Every
+    line carries the card's name and power limit.  Run it for two checkouts
+    in turns (A, B, B, A) in one call."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    repo = os.path.abspath(repo)
+    sys.path.insert(0, repo)
+    import mathlib_tpu_torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+    from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx, get_hash_g2_ctx, hash_to_g2_batch
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, hash_cuda
+
+    if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
+        raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    build.load()
+    smi = smi_line()
+    hdesign, pdesign = hash_design(build), pow_design(build)
+    for entry in chain_ptxas(build.BUILD_LOG) + mont_ptxas(build.BUILD_LOG):
+        log("ptxas_chain", repo=repr(repo), entry=repr(entry))
+    dev = mathlib_tpu_torch.device("cuda")
+    spec = get_spec("BLS12_381")
+    p, eng, hasher = spec.p, get_engine(spec), get_hasher(spec)
+    ctx = get_hash_g1_ctx(spec, dev)
+    g1, L = ctx.g1, ctx.fp.L
+    rng = np.random.default_rng(3)
+
+    def rand_fp(n):
+        return [int.from_bytes(rng.bytes(64), "big") % p for _ in range(n)]
+
+    U0, U1 = ctx.fp.encode(rand_fp(N_HASH)), ctx.fp.encode(rand_fp(N_HASH))
+    want = hash_cuda.hash_g1_plain(ctx, U0, U1, "parity")
+    for m in (N_HASH, N_HASH_CHECK):
+        u0, u1 = U0[..., :m].contiguous(), U1[..., :m].contiguous()
+        ms, got = cuda_ms(lambda: hash_cuda.hash_g1(ctx, u0, u1, "parity"), reps=5)
+        if not torch.equal(got, want[..., :m]):
+            raise AssertionError(f"time_hash: hash_g1 at {m} lanes disagrees with its plain version")
+        fp_muls = hash_g1_fp_muls(ctx, m)
+        b = bound(5 * L * 4 * m, wide_mads(fp_muls, L))
+        log("time_hash_g1", repo=repr(repo), design=hdesign, lanes=m, ms=f"{ms:.4f}",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+            over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+    del U0, U1, want
+
+    def calls(name, run, same, n, unit):
+        """A warm-up (its fp_pow calls recorded) and 3 host-clock calls of
+        run(), their outputs equal; returns the first output and the calls."""
+        first, pows = record_pow_calls(run)
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not same(out, first):
+                raise AssertionError(f"time_hash: calls of {name} disagree")
+        log("time_hash_entry", repo=repr(repo), name=name, n=n,
+            seconds=[round(x, 4) for x in secs], **{f"{unit}_per_s": f"{n / min(secs):.1f}"},
+            card=repr(smi))
+        return first, pows
+
+    be = BatchEngine(spec, dev)
+    base = g1.scalar_mul(g1.gen, g1.encode_scalars(
+        [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(N_BASE)]))
+    base_aff = g1.decode_points(base)
+    ks = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(N_BASE)]
+    got, pows = calls("BatchEngine.g1_scalar_mul", lambda: be.g1_scalar_mul(base_aff, ks),
+                      lambda x, y: x == y, N_BASE, "points")
+    if got != [eng.g1.mul(P, k) for P, k in zip(base_aff, ks)]:
+        raise AssertionError("time_hash: g1_scalar_mul disagrees with the host engine")
+    if len(pows) != 1:
+        raise AssertionError(f"g1_scalar_mul ran fp_pow {len(pows)} times, not once")
+    time_fp_pow(fp_cuda, *pows[0], "BLS12-381, batch_inv", pdesign, smi)
+    del pows
+
+    sample = sorted(int(i) for i in rng.choice(N_HASH, N_HASH_SAMPLED, replace=False))
+    msgs = [rng.bytes(32) for _ in range(N_HASH)]
+    out, _ = calls("hash_to_g1_batch (word path)", lambda: be.hash_to_g1_batch(msgs, HASH_DST),
+                   torch.equal, N_HASH, "hashes")
+    host = [hasher.hash_to_g1(msgs[i], HASH_DST) for i in sample]
+    if g1.decode_points(out[..., sample]) != host:
+        raise AssertionError("time_hash: hash_to_g1_batch differs from the host hasher")
+    stages, pts, _ = hash_g1_stages(ctx, msgs, dev)
+    if [pts[i] for i in sample] != host:
+        raise AssertionError("time_hash: the stage run of hash_to_g1_batch differs")
+    log("hash_stages", repo=repr(repo), design=hdesign, **stages, card=repr(smi))
+
+    ctx2 = get_hash_g2_ctx(spec, dev)
+    out, pows = calls("hash_to_g2_batch (word path)",
+                      lambda: hash_to_g2_batch(spec, msgs, HASH_G2_DST, device=dev), torch.equal,
+                      N_HASH, "hashes")
+    host = [hasher.hash_to_g2(msgs[i], HASH_G2_DST) for i in sample]
+    if ctx2.g2.decode_points(out[..., sample]) != host:
+        raise AssertionError("time_hash: hash_to_g2_batch differs from the host hasher")
+    time_g2_map_pows(fp_cuda, pows, pdesign, smi)
+    del pows
+    stages, pts = hash_g2_stages(ctx2, msgs, dev)
+    if [pts[i] for i in sample] != host:
+        raise AssertionError("time_hash: the stage run of hash_to_g2_batch differs")
+    log("g2_hash_stages", repo=repr(repo), design=pdesign, **stages, card=repr(smi))
+    time_mont_mul(fp_cuda, ctx.fp, mont_design(build), shapes=MONT_SHAPES[:1])
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-msm", metavar="REPO",
@@ -3133,6 +3384,9 @@ def main() -> int:
                          "at REPO")
     ap.add_argument("--time-g2", metavar="REPO",
                     help="only time the G2 ladders and g2_scalar_mul with the checkout at REPO")
+    ap.add_argument("--time-hash", metavar="REPO",
+                    help="only time hash_g1, fp_pow, mont_mul and the hash and G1 entry points "
+                         "with the checkout at REPO")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one 2^20 MSM and time add on BLS12-381 vs BN254")
     args = ap.parse_args()
@@ -3144,6 +3398,8 @@ def main() -> int:
         return time_batch(args.time_batch)
     if args.time_g2:
         return time_g2(args.time_g2)
+    if args.time_hash:
+        return time_hash(args.time_hash)
     t_start = time.perf_counter()
 
     import numpy as np
@@ -3428,7 +3684,8 @@ def main() -> int:
     designs = {"add": split_design(build), "addsel": split_design(build),
                "double": double_design(build), "addselneg": combiner_design(build),
                "maddsel": combiner_design(build), "maddselneg": combiner_design(build),
-               "smul": smul_design(build), "mont_mul": mont_design(build)}
+               "smul": smul_design(build), "mont_mul": mont_design(build),
+               "hash_g1": hash_design(build), "fp_pow": pow_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

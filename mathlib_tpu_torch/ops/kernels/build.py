@@ -105,8 +105,8 @@ SIGNATURES = {
     # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, threads an
     # element, stream
     "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P],
-    # a, bits, nbits, out, rows, n, L, consts, stream
-    "mlt_fp_pow": [_P, _P, _I, _P, _I, _I, _I, _P, _P],
+    # a, bits, nbits, out, rows, n, L, consts, threads an element, stream
+    "mlt_fp_pow": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P],
     # (csrc/hash_kernels.cu) u0, u1, inverse bits, n, sqrt bits, n, h bits, n, h < 0,
     # curve constants, sign mode, out, n, L, consts, b3, stream
     "mlt_hash_g1": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P],

@@ -12,9 +12,12 @@ Two kernels, CUDA C++ in ``csrc/fp_kernels.cu``:
   ``mont_mul_group_kernel`` (four threads share an element's product), from
   there ``mont_mul_kernel`` (one element a thread): ``mont_group``.
 * ``fp_pow`` replaces ``pairing_pallas._fp_pow_kernel`` / ``fp_pow_pallas``,
-  behind ``FpCtx.pow_bits`` (``inv``, ``batch_inv``, ``sqrt``); on the BN254
-  pairing it is the base-field inverse of the final exponentiation's easy
-  part.
+  behind ``FpCtx.pow_bits`` (``inv``, ``batch_inv``, ``sqrt``): the one
+  chain of ``batch_inv`` in ``g1_scalar_mul``, sign and verify, and the G2
+  map's inverses and square roots in ``hash_to_g2_batch``.  Below
+  ``POW_GROUP_BELOW`` elements a call runs ``fp_pow_group_kernel`` (four
+  threads share each product of an element's chain), from there
+  ``fp_pow_kernel`` (one element a thread): ``pow_group``.
 
 On a CPU tensor each wrapper returns its plain version.  On a CUDA tensor it
 launches the kernel on the current stream, adds one to its ``launches``
@@ -103,6 +106,23 @@ def fp_pow_plain(fp: FpCtx, a: Tensor, bits) -> Tensor:
     return acc.to(torch.int32)
 
 
+# elements of a call from which fp_pow runs one element a thread: below, a
+# group of four threads shares each product of an element's chain, which
+# the call then waits for.  A BLS12-381 chain of p - 2, grouped against one
+# element a thread (ms; NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+# --time-hash and a timing at 16,384; PERF.md section 6): 2,048 elements
+# 0.436 against 0.928, 4,096 0.437 against 0.945, 8,192 0.556 against
+# 0.948, 16,384 0.939 against 0.944, 32,768 1.770 against 1.365
+POW_GROUP_BELOW = 1 << 14
+
+
+def pow_group(elements: int) -> int:
+    """Threads an element of the ``fp_pow`` kernel for a call of
+    ``elements``: 4 (``fp_pow_group_kernel``) below ``POW_GROUP_BELOW``,
+    else 1 (``fp_pow_kernel``)."""
+    return 4 if elements < POW_GROUP_BELOW else 1
+
+
 def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
     """a**e for (..., L, B) limb tensors, e's MSB-first bits (copied to the
     card once per pattern, so one build serves every exponent).  The result
@@ -129,7 +149,7 @@ def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
         with torch.cuda.device(a.device):
             build.launch("mlt_fp_pow", a3.data_ptr(), dev_bits.data_ptr(), dev_bits.numel(),
                          out.data_ptr(), rows, n, L, ctypes.addressof(build.consts(fp.p, L)),
-                         build.stream(a))
+                         pow_group(rows * n), build.stream(a))
         fp_pow.launches += 1
     return out.reshape(a.shape)
 

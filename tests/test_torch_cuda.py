@@ -773,6 +773,109 @@ def test_hash_kernels_equal_plain_versions(hash_ctx):
         hash_cuda.hash_g1(ctx, u0[:-2], u1[:-2])
 
 
+def _hash_edge_lanes(ctx, n, seed):
+    """(u0, u1) Montgomery batches of n lanes: chip_smoke.py phase 12's edge
+    lanes first (u0 = 0, 1, p - 1 and a nonzero u with t2 = 0, beside u1 =
+    1, 0, 7 and its negation), then random field elements."""
+    p = ctx.spec.p
+    rng = np.random.default_rng(seed)
+    t2_zero = pow(-pow(11, -1, p) % p, (p + 1) // 4, p)
+    rand = [int.from_bytes(rng.bytes(48), "big") % p for _ in range(2 * n)]
+    us0 = ([0, 1, p - 1, t2_zero] + rand[:n])[:n]
+    us1 = ([1, 0, 7, p - t2_zero] + rand[n:])[:n]
+    return ctx.fp.encode(us0), ctx.fp.encode(us1)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 4097])
+def test_hash_g1_kernel_on_ragged_lanes(hash_ctx, n):
+    """hash_g1 (a lane over four groups of two threads, 16 lanes a block)
+    against its plain version under both signs on 1, 7, 1,000 and 4,097
+    lanes: a partial block, a half-filled warp, the edge lanes first.  One
+    launch a call."""
+    ctx = hash_ctx
+    u0, u1 = _hash_edge_lanes(ctx, n, n)
+    for sign in ("parity", "be"):
+        hash_cuda.reset_launches()
+        got = hash_cuda.hash_g1(ctx, u0, u1, sign)
+        assert hash_cuda.launches() == {"hash_g1": 1}
+        assert torch.equal(got, hash_cuda.hash_g1_plain(ctx, u0, u1, sign)), (n, sign)
+
+
+def test_hash_g1_compiles_without_stack_or_spill():
+    """ptxas' report for hash_g1_kernel: no stack, no spill, at most 128
+    registers (the kernel's launch bounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import ptxas_entries
+    from mathlib_tpu_torch.ops.kernels import build
+
+    build.load()
+    entries = [e for e in ptxas_entries(build.BUILD_LOG) if e.startswith("hash_g1_kernel")]
+    assert entries, "no ptxas line for hash_g1_kernel in the build log"
+    for entry in entries:
+        assert int(entry.split(": ")[1].split()[0]) <= 128, entry
+        assert entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"), entry
+
+
+def _pow_rows(fp, shape, rng):
+    """Relaxed limbs of ``shape`` (rows, L, n), the edge values 0, 1, p - 1,
+    p, 2p - 1 first."""
+    p, L = fp.p, fp.L
+    vals = [int.from_bytes(rng.bytes(L * 2), "little") % (2 * p)
+            for _ in range(shape[0] * shape[2])]
+    vals[:5] = [0, 1, p - 1, p, 2 * p - 1][: len(vals)]
+    limbs = [[(v >> (16 * k)) & 0xFFFF for k in range(L)] for v in vals]
+    arr = np.array(limbs, dtype=np.int32).reshape(shape[0], shape[2], L)
+    return torch.from_numpy(arr.transpose(0, 2, 1).copy()).cuda()
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_fp_pow_kernel_bodies_equal_the_plain_version(monkeypatch, group):
+    """fp_pow with each body (one element a thread, or a group of four
+    threads an element, forced through fp_cuda.pow_group) at (L, 2,048),
+    (1, L, 1), a ragged (2, L, 4,097) and zeros, L = 24 and 16, for p - 2
+    and (p + 1)/4, on relaxed limbs with the edge values.  One launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.field import FpCtx
+
+    monkeypatch.setattr(fp_cuda, "pow_group", lambda elements: group)
+    for curve in ("BLS12_381", "BN254"):
+        p = get_spec(curve).p
+        fp = FpCtx(p, torch.device("cuda"))
+        rng = np.random.default_rng(fp.L + group)
+        tensors = [_pow_rows(fp, (1, fp.L, 2048), rng)[0], _pow_rows(fp, (1, fp.L, 1), rng),
+                   _pow_rows(fp, (2, fp.L, 4097), rng),
+                   torch.zeros((3, fp.L, 33), dtype=torch.int32, device="cuda")]
+        for e in (p - 2, (p + 1) // 4):
+            bits = [int(b) for b in bin(e)[2:]]
+            for a in tensors:
+                fp_cuda.reset_launches()
+                got = fp_cuda.fp_pow(fp, a, bits)
+                assert fp_cuda.launches()["fp_pow"] == 1
+                assert torch.equal(got, fp_cuda.fp_pow_plain(fp, a, bits)), (curve, a.shape)
+
+
+def test_fp_pow_on_both_sides_of_its_switch():
+    """fp_pow as the wrapper picks its body, one element below
+    fp_cuda.POW_GROUP_BELOW (the group body) and at it (one element a
+    thread), on BLS12-381's p - 2 with the edge values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.field import FpCtx
+
+    p = get_spec("BLS12_381").p
+    fp = FpCtx(p, torch.device("cuda"))
+    bits = [int(b) for b in bin(p - 2)[2:]]
+    rng = np.random.default_rng(16)
+    edge = fp_cuda.POW_GROUP_BELOW
+    assert fp_cuda.pow_group(edge - 1) == 4 and fp_cuda.pow_group(edge) == 1
+    for n in (edge - 1, edge):
+        a = _pow_rows(fp, (1, fp.L, n), rng)
+        assert torch.equal(fp_cuda.fp_pow(fp, a, bits), fp_cuda.fp_pow_plain(fp, a, bits)), n
+
+
 def test_bls_sign_and_verify_on_the_card(hash_ctx):
     """bls_sign_batch and bls_verify_batch on 8 messages through the card's
     kernels, against the host hasher."""
