@@ -129,7 +129,8 @@ Hash-to-G1 and ``BatchEngine``'s BLS sign and verify:
      map), then timed at 4,096 lanes with its bound; ``smul_static`` on
      4,097 lanes (infinity among them) with h_eff's bits and a 255-bit
      static scalar, then timed at 4,096 lanes; their ptxas lines (hash_g1:
-     no stack, no spill and at most 128 registers allowed);
+     no stack, no spill and at most 128 registers allowed; the static
+     ladder is held to phase 3's budget there);
  13. the entry points at full width on BLS12-381, 4,096 messages, DST
      ``BLS_SIG_BLS12381G1_XMD:SHA-256_SSWU_RO_NUL_``: ``hash_to_g1_batch``
      on (a) 32-byte messages (the word path), (b) 30-byte messages (the
@@ -187,8 +188,10 @@ The row gathers and the one-launch pairing check:
      its plain version and the library call with its bytes bound;
      gather_rows then driven once at the last shape; (b) pairing_check
      against its plain version on 64 lanes with n = 61 (3 pad lanes holding
-     points) on BLS12-381 and BLS12-377, a True and a False set: verdicts
-     equal and products bit for bit; (c) phase 7's 4,096-pair check and its
+     points) on BLS12-381 and BLS12-377, a True and a False set, and on 1, 2
+     and 257 lanes (n = 256) on BLS12-381: verdicts equal and products bit
+     for bit; its ptxas lines (no stack, no spill) and its block at each
+     lane count (G x K, and the final exp's 8 x 64); (c) phase 7's 4,096-pair check and its
      twin through ``BatchEngine.pairing_product_is_one`` under
      ``MATHLIB_PAIR_FUSED=check``, verdicts equal the default's and
      ``split``'s, exactly one pairing_check launch a call and no other
@@ -292,6 +295,9 @@ PLAIN_CHUNK = 1 << 16  # lanes per plain-version call when timing big shapes
 N_PAIRS = 4096  # phase 7 (a): pairs in one product check
 N_CHECKS = 1024  # phase 7 (b): two-pair checks in one grouped call
 N_LANES_CHECK, N_VALID_CHECK = 64, 61  # phase 6: lanes, real lanes (3 pad)
+# phase 16 (b): pairing_check's further (lanes, real lanes) on BLS12-381: one
+# lane, bls_verify_batch's two, and a tree of 16 blocks of 8 with a pad lane
+CHECK_LANES = ((1, 1), (2, 2), (257, 256))
 TREE_LANES = (1, 2, 64, 4096)  # phase 6: lanes of the product tree against its plain version
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
@@ -321,7 +327,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                "mathlib_tpu/ops/kernels/pairing_pallas.py:1291"),
     "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
                 "mathlib_tpu/ops/kernels/hash_pallas.py:258"),
-    "smul_static": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
+    "smul_static": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
     "g2_add": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
     "g2_double": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
     "g2_addsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
@@ -850,6 +856,37 @@ def smul_design(build) -> str:
     over a block's six warps, csrc/g1_split_kernels.cu) or "one-thread"."""
     return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "g1_smul_ladder_kernel")
             else "one-thread")
+
+
+def static_design(build) -> str:
+    """Which smul_static kernel the imported checkout has: "six-warp" (the
+    ladder with one bit string, csrc/g1_split_kernels.cu) or "one-thread"."""
+    return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "mlt_g1_smul_static")
+            else "one-thread")
+
+
+def check_design(build) -> str:
+    """Which pairing_check kernel the imported checkout has: "split" (the
+    split kernels' programs in one launch, csrc/check_kernels.cu) or
+    "one-thread" (a lane a thread, one thread's final exp)."""
+    return "split" if _source_has(build, "check_kernels.cu", "check_rows") else "one-thread"
+
+
+def check_ptxas(path: str) -> list:
+    """The build log's ptxas lines of the one-launch check kernel."""
+    return [e for e in ptxas_entries(path) if e.startswith("pairing_check")]
+
+
+def static_ptxas(path: str) -> list:
+    """The build log's ptxas lines of smul_static's kernel: the ladder with
+    STATIC set, or the one-thread kernel."""
+    return [e for e in ptxas_entries(path)
+            if e.startswith("g1_smul_static") or
+            (e.startswith("g1_smul_ladder_kernel") and e.split(":")[0].endswith(",1>"))]
+
+
+def no_stack_or_spill(entry: str) -> bool:
+    return entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
 
 
 def mont_design(build) -> str:
@@ -1915,8 +1952,10 @@ def hash_phases(dev, smi: str, results: dict, main: dict) -> dict:
 
     # ---- 12. hash_g1 and smul_static against their plain versions (exact);
     # hash_g1's ptxas line: no stack, no spill, at most 128 registers
+    for entry in static_ptxas(build.BUILD_LOG):
+        log("ptxas", kernel="smul_static", design=static_design(build), entry=repr(entry))
     for entry in ptxas_entries(build.BUILD_LOG):
-        if entry.startswith(("hash_g1", "g1_smul_static")):
+        if entry.startswith("hash_g1"):
             log("ptxas", entry=repr(entry))
         if entry.startswith("hash_g1") and hash_design(build) == "grouped" and (
                 int(entry.split(": ")[1].split()[0]) > 128 or not entry.endswith(
@@ -2435,7 +2474,7 @@ def gather_check_phase(dev, smi: str, results: dict, main: dict, checks: dict) -
     from mathlib_tpu_torch import get_spec
     from mathlib_tpu_torch.batch import BatchEngine
     from mathlib_tpu_torch.host import get_engine
-    from mathlib_tpu_torch.ops.kernels import fp_cuda, gather_cuda as gc, pairing_cuda as pc
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, gather_cuda as gc, pairing_cuda as pc
 
     rng = np.random.default_rng(5)
     t_phase = time.perf_counter()
@@ -2516,7 +2555,44 @@ def gather_check_phase(dev, smi: str, results: dict, main: dict, checks: dict) -
                                      f"plain {bool(ok_p)}, want {want_ok}")
             check("pairing_check", prod, prod_p)  # bit for bit: the plain version's tree
         log("pair_check_vs_plain", curve=curve, lanes=N_LANES_CHECK, n=N_VALID_CHECK,
-            verdicts_equal=True, products_equal=True)
+            verdicts_equal=True, products_equal=True,
+            block=pc.check_shape(be.pair.cfg, N_LANES_CHECK),
+            fexp_block=(pc.check_prog.FEXP_GROUP, pc.check_prog.FEXP_WORKERS))
+    # 1, 2 and 257 lanes on BLS12-381: (P_i, Q_i) beside (-P_i, Q_i), a
+    # random pair on an odd lane (False where it is real), its block and
+    # its tree's shape
+    spec = get_spec("BLS12_381")
+    eng, be = get_engine(spec), BatchEngine(spec, dev)
+    cfg = be.pair.cfg
+    for lanes, n in CHECK_LANES:
+        g1s, g2s = [], []
+        for _ in range(lanes // 2):
+            P, Q = eng.g1.mul(eng.gen_g1, scalar(spec)), eng.g2.mul(eng.gen_g2, scalar(spec))
+            g1s += [P, eng.g1.neg(P)]
+            g2s += [Q, Q]
+        if lanes % 2:
+            g1s.append(eng.g1.mul(eng.gen_g1, scalar(spec)))
+            g2s.append(eng.g2.mul(eng.gen_g2, scalar(spec)))
+        want_ok = n % 2 == 0
+        xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1s, g2s))
+        pc.reset_launches()
+        ok, prod = pc.pairing_check(cfg, xP, yP, Qx, Qy, n)
+        if pc.launches()["pairing_check"] != 1:
+            raise AssertionError("pairing_check: not one launch a call")
+        ok_p, prod_p = pc.pairing_check_plain(cfg, xP, yP, Qx, Qy, n)
+        if not bool(ok) == bool(ok_p) == want_ok:
+            raise AssertionError(f"pairing_check at {lanes} lanes: verdict {bool(ok)}, "
+                                 f"plain {bool(ok_p)}, want {want_ok}")
+        check("pairing_check", prod, prod_p)
+        pl = pc.check_prog.plan(lanes, n, pc.check_shape(cfg, lanes)[0])
+        log("pair_check_vs_plain", curve="BLS12_381", lanes=lanes, n=n, verdict=want_ok,
+            verdicts_equal=True, products_equal=True, block=pc.check_shape(cfg, lanes),
+            blocks=pl.blocks, block_levels=pl.block_levels, rounds=list(pl.rounds),
+            fexp_block=(pc.check_prog.FEXP_GROUP, pc.check_prog.FEXP_WORKERS))
+    for entry in check_ptxas(build.BUILD_LOG):
+        log("ptxas", kernel="pairing_check", design=check_design(build), entry=repr(entry))
+        if check_design(build) == "split" and not no_stack_or_spill(entry):
+            raise AssertionError(f"pairing_check: a stack or a spill: {entry}")
 
     # ---- (c) phase 7's 4,096-pair check and its twin under
     # MATHLIB_PAIR_FUSED=check through BatchEngine, beside the default and split
@@ -2882,7 +2958,10 @@ def time_pairing(repo: str) -> int:
     4,096 BLS12-381 and 1,024 BN254 pairs (best of 3 each); its product
     tree (``f12_seg_product``) at check (a)'s 4,096 lanes and at the grouped
     checks' 2,048 lanes, seg 2, with its launches a call and its ptxas
-    lines.  A
+    lines; the one-launch ``pairing_check`` at 4,096 lanes and at 2 (a
+    ``bls_verify_batch`` check) beside the split strategy's three kernels
+    on the same inputs (``miller_lanes``, the tree, ``final_exp`` on the
+    product), with its launches a call and its ptxas lines.  A
     ``[time_pairing]`` line each (and ``[miller_ins]`` lines for a checkout
     with the split Miller kernels).  Run it for two checkouts in turns (A, B, B, A) in one call
     to compare them on one card."""
@@ -3019,6 +3098,40 @@ def time_pairing(repo: str) -> int:
         pairs=N_PAIRS, seconds=[round(x, 4) for x in walls],
         pairs_per_s=f"{N_PAIRS / min(walls):.1f}", device_ms=f"{sum(best):.4f}",
         to_mont_ms=f"{best[0]:.4f}", miller_and_product_ms=f"{best[1]:.4f}")
+
+    # the one-launch check on these pairs at 4,096 lanes and on their first
+    # 2 (bls_verify_batch's check), beside the split strategy's three kernels
+    # on the same inputs: miller_lanes, the tree over every lane, final_exp
+    # on the product (CUDA events, mean of 5 each after a warm-up)
+    cdesign = check_design(build)
+    for entry in check_ptxas(build.BUILD_LOG):
+        log("ptxas_check", repo=repr(repo), design=cdesign, entry=repr(entry))
+    cfg, kcfg, L = be.pair.cfg, be.tw.kcfg, be.fp.L
+    tw = cfg.tower
+    split = be._pair_split_mont(packed)
+    for lanes in (N_PAIRS, 2):
+        args = [t[..., :lanes].contiguous() for t in split]
+        pc.reset_launches()
+        ms, (ok, prod) = cuda_ms(lambda: pc.pairing_check(cfg, *args, lanes), reps=5)
+        calls = pc.launches()["pairing_check"] // 6
+        m_ms, f = cuda_ms(lambda: pc.miller_lanes(cfg, *args, lanes), reps=5)
+        t_ms, pr = cuda_ms(lambda: pc.f12_seg_product(cfg, f, lanes), reps=5)
+        e_ms, _ = cuda_ms(lambda: pc.final_exp(kcfg, pr), reps=5)
+        if not bool(ok) or not torch.equal(pr, prod):
+            raise AssertionError(f"time_pairing: pairing_check at {lanes} lanes: verdict "
+                                 f"{bool(ok)}, product equal to the split one: "
+                                 f"{torch.equal(pr, prod)}")
+        fp_muls = (miller_fp_muls(cfg, lanes) + seg_product_fp_muls(cfg, lanes, lanes)
+                   + final_exp_mults(tw.n, tw.twist, cfg.tc.inv_bits, cfg.tc.x_bits))
+        b = bound(6 * L * 4 * lanes + (12 * L + 1) * 4, wide_mads(fp_muls, L))
+        split_ms = m_ms + t_ms + e_ms
+        log("time_pairing", repo=repr(repo), design=cdesign, kernel="pairing_check",
+            curve="BLS12_381", lanes=lanes, launches=calls, ms=f"{ms:.4f}",
+            split_ms=f"{split_ms:.4f}", miller_lanes_ms=f"{m_ms:.4f}", tree_ms=f"{t_ms:.4f}",
+            final_exp_ms=f"{e_ms:.4f}", over_split=f"{ms / split_ms:.3f}x",
+            bound_ms=f"{b['bound_ms']:.4f}", over_bound=f"{ms / b['bound_ms']:.2f}x",
+            card=repr(smi))
+    del split, args, f, pr, prod
 
     # the grouped checks (b) under MATHLIB_GROUP_FEXP=device: 1,024 BLS
     # verifies e(sig, g2) e(-H, pk), every other one corrupted
@@ -3261,7 +3374,9 @@ def time_hash(repo: str) -> int:
     messages (word path; a warm-up and 3 calls, 64 sampled lanes against the
     host hasher) with its ``hash_stages`` line; ``hash_to_g2_batch`` on 4,096
     32-byte messages, the same way, with its ``g2_hash_stages`` line and
-    fp_pow on its first map's four calls; mont_mul at (6, 24, 4,096).  Every
+    fp_pow on its first map's four calls; mont_mul at (6, 24, 4,096);
+    ``smul_static`` at 4,096 lanes with h_eff (``[time_smul_static]``, its
+    ptxas lines ``[ptxas_static]``).  Every
     line carries the card's name and power limit.  Run it for two checkouts
     in turns (A, B, B, A) in one call."""
     import numpy as np
@@ -3278,7 +3393,7 @@ def time_hash(repo: str) -> int:
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.host.hash_to_curve import get_hasher
     from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx, get_hash_g2_ctx, hash_to_g2_batch
-    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, hash_cuda
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, hash_cuda
 
     if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
         raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
@@ -3309,7 +3424,21 @@ def time_hash(repo: str) -> int:
         log("time_hash_g1", repo=repr(repo), design=hdesign, lanes=m, ms=f"{ms:.4f}",
             bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
             over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
-    del U0, U1, want
+
+    # smul_static at the hash's 4,096 lanes with h_eff (the cofactor clearing
+    # of sign="none"), its output equal to the plain version's
+    sdesign = static_design(build)
+    for entry in static_ptxas(build.BUILD_LOG):
+        log("ptxas_static", repo=repr(repo), design=sdesign, entry=repr(entry))
+    ms, got = cuda_ms(lambda: g1_cuda.smul_static(g1.F, want, ctx.h_bits), reps=5)
+    if not torch.equal(got, g1_cuda.smul_static_plain(g1.F, want, ctx.h_bits)):
+        raise AssertionError("time_hash: smul_static disagrees with its plain version")
+    h = [int(b) for b in ctx.h_bits]
+    b = bound(2 * 3 * L * 4 * N_HASH, wide_mads(N_HASH * (8 * len(h) + 12 * sum(h)), L))
+    log("time_smul_static", repo=repr(repo), design=sdesign, lanes=N_HASH, bits=len(h),
+        ones=sum(h), ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+    del U0, U1, want, got
 
     def calls(name, run, same, n, unit):
         """A warm-up (its fp_pow calls recorded) and 3 host-clock calls of
@@ -3555,7 +3684,8 @@ def main() -> int:
         if regs > 128 or not entry.endswith(
                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
             raise AssertionError(f"split G1 kernel over its register budget: {entry}")
-    if len(split_ptxas(build.BUILD_LOG)) != 2 * len(SPLIT_KERNELS):  # at 8 and 12 words
+    # at 8 and 12 words; the ladder twice (smul, and smul_static: STATIC)
+    if len(split_ptxas(build.BUILD_LOG)) != 2 * (len(SPLIT_KERNELS) + 1):
         raise AssertionError("the split G1 kernels' ptxas lines are missing from the build log")
     for entry in mont_ptxas(build.BUILD_LOG):
         log("ptxas_mont_mul", entry=repr(entry))
@@ -3685,7 +3815,8 @@ def main() -> int:
                "double": double_design(build), "addselneg": combiner_design(build),
                "maddsel": combiner_design(build), "maddselneg": combiner_design(build),
                "smul": smul_design(build), "mont_mul": mont_design(build),
-               "hash_g1": hash_design(build), "fp_pow": pow_design(build)}
+               "hash_g1": hash_design(build), "fp_pow": pow_design(build),
+               "smul_static": static_design(build), "pairing_check": check_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

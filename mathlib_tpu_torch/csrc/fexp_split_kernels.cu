@@ -14,10 +14,10 @@
 //                             _pairing_prod_seg_kernel (:1244): several
 //                             levels of the product tree a launch
 //
-// They compute what f12_pow_lane and final_exp_lane (fexp_rows.cuh) and
-// tower_rows.cuh's f12_mul compute, add for add and product for product, so
-// the relaxed [0, 2p) limbs that come out are the one-thread chains' and the
-// plain versions'.
+// They compute what the plain versions (pairing_cuda.f12_pow_plain,
+// final_exp_plain, final_exp_bn_plain, f12_seg_product_plain on
+// ops/kernels/tower_rows.py) compute, add for add and product for product,
+// so the relaxed [0, 2p) limbs that come out are theirs.
 //
 // What bounds them on an H100 is the integer multiply rate: a BLS12-381
 // final exp is 8,675 field products of 588 32-bit multiply-adds a lane (the
@@ -32,7 +32,7 @@
 //   * ops/kernels/fexp_prog.py traces each step (a cyclotomic or plain
 //     squaring, the squaring and the multiply by the base, the inverse's
 //     halves, the Frobenius maps, the products between the x-chains) op for
-//     op as tower_rows.cuh computes it, and schedules it with miller_prog's
+//     op as the plain versions compute it, and schedules it with miller_prog's
 //     scheduler: at BLS12-381 with K = 32 a cyclotomic squaring is one layer
 //     of 18 products and 6 phases, a squaring and multiply 15 phases;
 //   * a block owns G lanes (32, 16 or 8) and K = 32, 48 or 64 workers, as

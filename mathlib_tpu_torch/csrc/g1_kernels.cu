@@ -1,16 +1,15 @@
-// G1 group-law kernels for Hopper (sm_90a) that run one lane a thread: port
-// of mathlib_tpu/ops/kernels/g1_pallas.py.
+// The G1 group-law kernel for Hopper (sm_90a) that runs one lane a thread:
+// port of mathlib_tpu/ops/kernels/g1_pallas.py.
 //
 //   g1_dbladd_kernel  <- g1_pallas.py:_dbladd_kernel  (dbladd_pallas)
-//   g1_smul_static_kernel <- g1_pallas.py:_smul_static_kernel (smul_static_pallas)
 //
 // The point formulas, the lane layout and the operation order that keeps
 // the relaxed limbs the reference's are in g1_rows.cuh (shared with the
 // hash-to-G1 kernel).  The add, addsel, double, the MSM's signed and mixed
-// scan combiners and the per-lane ladder smul (g1_pallas.py:_add_kernel,
-// _addsel_kernel, _double_kernel, _addselneg_kernel, _maddsel_kernel,
-// _maddselneg_kernel, _smul_kernel) spread one formula over the warps of a
-// block: g1_split_kernels.cu.
+// scan combiners and the ladders smul and smul_static (g1_pallas.py:
+// _add_kernel, _addsel_kernel, _double_kernel, _addselneg_kernel,
+// _maddsel_kernel, _maddselneg_kernel, _smul_kernel, _smul_static_kernel)
+// spread one formula over the warps of a block: g1_split_kernels.cu.
 //
 // What bounds these kernels on an H100 is the integer multiply issue rate
 // and registers, not bytes: an RCB add is 12 field muls (3,456 32x32->64
@@ -18,8 +17,8 @@
 // for 288 bytes in and 144 out.  The design keeps
 // every operand in registers, with one lane per thread and no shared memory;
 // a point is 36 words, and the add holds two points plus temporaries, so
-// spills to local memory are accepted here.  The ladder steps here (dbladd,
-// smul_static) can run on the layers of g1_split_kernels.cu, as smul does.
+// spills to local memory are accepted here.  The ladder step here (dbladd)
+// can run on the layers of g1_split_kernels.cu, as the ladders do.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an unsupported L).
@@ -49,40 +48,9 @@ __global__ void g1_dbladd_kernel(const uint32_t* __restrict__ P, const uint32_t*
   store_point<NW>(out, a, n, i);
 }
 
-// out = [k]Q for ONE scalar shared by every lane, its MSB-first bits in a
-// device array (one build serves every static scalar): a double at every
-// bit, the complete add only at one-bits, from infinity -- the cofactor
-// clearing of HashG1Ctx.clear_cofactor.  The branch on a bit is uniform
-// across the warp.
-template <int NW>
-__global__ void g1_smul_static_kernel(const uint32_t* __restrict__ Q,
-                                      const uint8_t* __restrict__ bits, int nbits,
-                                      uint32_t* __restrict__ out, int n, FieldConsts k, int b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Point<NW> q, acc;
-  load_point<NW>(q, Q, n, i);
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    acc.x[j] = 0;
-    acc.y[j] = k.one[j];
-    acc.z[j] = 0;
-  }
-  for (int b = 0; b < nbits; ++b) {
-    rcb_dbl<NW>(acc, acc, k, b3);
-    if (bits[b]) rcb_add<NW>(acc, acc, q, k, b3);
-  }
-  store_point<NW>(out, acc, n, i);
-}
-
 constexpr int kThreads = 128;
-// 32 threads a block for the ladders of one static scalar: 4,096 lanes then
-// spread over 128 SMs instead of 32 blocks of 128 lanes on 32 SMs.
-constexpr int kLadderThreads = 32;
 
-inline dim3 grid_for(int n, int threads = kThreads) {
-  return dim3((unsigned)((n + threads - 1) / threads));
-}
+inline dim3 grid_for(int n) { return dim3((unsigned)((n + kThreads - 1) / kThreads)); }
 
 }  // namespace mlt
 
@@ -111,12 +79,4 @@ extern "C" int mlt_g1_dbladd(const uint32_t* P, const uint32_t* Q, const uint8_t
                              cudaStream_t stream) {
   MLT_DISPATCH(L, g1_dbladd_kernel<NW><<<grid_for(n), kThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
-}
-
-extern "C" int mlt_g1_smul_static(const uint32_t* Q, const uint8_t* bits, int nbits, uint32_t* out,
-                                  int n, int L, const uint32_t* consts, int b3,
-                                  cudaStream_t stream) {
-  MLT_DISPATCH(L, g1_smul_static_kernel<NW>
-               <<<grid_for(n, kLadderThreads), kLadderThreads, 0, stream>>>(
-                   Q, bits, nbits, out, n, make_consts(consts, NW), b3))
 }

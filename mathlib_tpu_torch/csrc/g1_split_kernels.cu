@@ -7,7 +7,9 @@
 //   g1_maddsel_kernel    <- g1_pallas.py:_maddsel_kernel    (maddsel_pallas)
 //   g1_maddselneg_kernel <- g1_pallas.py:_maddselneg_kernel (maddselneg_pallas)
 //   g1_double_kernel     <- g1_pallas.py:_double_kernel     (double_pallas)
-//   g1_smul_ladder_kernel <- g1_pallas.py:_smul_kernel      (smul_pallas)
+//   g1_smul_ladder_kernel <- g1_pallas.py:_smul_kernel      (smul_pallas),
+//                            and with STATIC _smul_static_kernel
+//                            (smul_static_pallas)
 //
 // out = P + Q, out = sel ? P + Q : Q (the MSM scan's combiner), its signed
 // form out = sel ? P + Q' : Q' with Q' = neg ? (X, -Y, Z) : Q, the mixed
@@ -56,7 +58,12 @@
 // warps 0-3 and the add's two layers on all six a bit, with Q, acc and the
 // products in shared memory for all nbits steps: four layers and four
 // barriers a bit (two where no lane of the block has the bit), and nothing
-// in global memory between bits.  Its layers are the add's and the
+// in global memory between bits.  With STATIC every lane shares one scalar,
+// its MSB-first bits a uint8 device array (the cofactor clearing of
+// HashG1Ctx.clear_cofactor: h_eff, 64 bits, 7 ones): the step's bit is
+// read from that array, so the block skips the add's layers at every zero
+// bit and runs them at every one-bit, the doubling alone costing two layers
+// and two barriers.  Its layers are the add's and the
 // doubling's functions (add_layer1/2, dbl_layer1/2 on slots, a point read
 // through a source), on fp_mul: at 8,192 lanes and below a lane's chain of
 // four layers a bit sets the time, not the instruction rate, and fp_mul's
@@ -638,19 +645,25 @@ struct LadderSlots {
 // own: the next doubling's first layer and the final store read acc through
 // LadderPoint, from the slots of D and A.  A block none of whose lanes has
 // the step's bit skips the add (acc = D either way).  The block's scalar
-// limbs sit in dynamic shared memory, [limb][lane].
-template <int NW>
+// limbs sit in dynamic shared memory, [limb][lane].  STATIC: one scalar for
+// every lane, its MSB-first bits in `bits` (s unused), the add skipped at
+// its zero bits: smul_static_plain's double and add at every step, in its
+// order.
+template <int NW, bool STATIC>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     g1_smul_ladder_kernel(const uint32_t* __restrict__ Q, const uint32_t* __restrict__ s,
-                          uint32_t* __restrict__ out, int n, int nbits, FieldConsts k, int b3) {
+                          const uint8_t* __restrict__ bits, uint32_t* __restrict__ out, int n,
+                          int nbits, FieldConsts k, int b3) {
   __shared__ LadderSlots<NW> S;
   extern __shared__ uint32_t limbs[];
   const int t = threadIdx.x & (kSplitLanes - 1);
   const int w = threadIdx.x / kSplitLanes;
   const int i = blockIdx.x * kSplitLanes + t;
   const bool live = i < n;
-  for (int l = w; l < (nbits + 15) / 16; l += 6) {
-    limbs[l * kSplitLanes + t] = live ? s[(int64_t)l * n + i] : 0u;
+  if (!STATIC) {
+    for (int l = w; l < (nbits + 15) / 16; l += 6) {
+      limbs[l * kSplitLanes + t] = live ? s[(int64_t)l * n + i] : 0u;
+    }
   }
   {  // Q's coordinate w on warps 0-2; acc = infinity (0 : R mod p : 0) as the
      // D of dxa = 0, dya = R mod p, dz = dyb = 0 on warps 3-5
@@ -679,7 +692,11 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
       dbl_layer2<NW, false>(a, w, S.f + 6, t, k, b3);
       slot_put<NW>(S.d[w == 2 ? 3 : w == 3 ? 2 : w], a, t);
     }
-    bit = (limbs[(b >> 4) * kSplitLanes + t] >> (b & 15)) & 1u;
+    if (STATIC) {
+      bit = __ldg(bits + (nbits - 1 - b)) != 0;
+    } else {
+      bit = (limbs[(b >> 4) * kSplitLanes + t] >> (b & 15)) & 1u;
+    }
     if (!__syncthreads_or(bit)) continue;  // no lane of the block adds: acc = D
     {  // 3. the add's first layer, D + Q
       uint32_t a[NW];
@@ -764,8 +781,17 @@ extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, 
                            cudaStream_t stream) {
   if (nbits < 0 || nbits > 16 * S) return -1;
   const size_t limb_bytes = (size_t)((nbits + 15) / 16) * kSplitLanes * sizeof(uint32_t);
-  MLT_DISPATCH(L, g1_smul_ladder_kernel<NW><<<split_grid(n), kSplitThreads, limb_bytes, stream>>>(
-                      Q, s, out, n, nbits, make_consts(consts, NW), b3))
+  MLT_DISPATCH(L, g1_smul_ladder_kernel<NW, false>
+               <<<split_grid(n), kSplitThreads, limb_bytes, stream>>>(
+                   Q, s, nullptr, out, n, nbits, make_consts(consts, NW), b3))
+}
+
+extern "C" int mlt_g1_smul_static(const uint32_t* Q, const uint8_t* bits, int nbits, uint32_t* out,
+                                  int n, int L, const uint32_t* consts, int b3,
+                                  cudaStream_t stream) {
+  if (nbits < 0) return -1;
+  MLT_DISPATCH(L, g1_smul_ladder_kernel<NW, true><<<split_grid(n), kSplitThreads, 0, stream>>>(
+                      Q, nullptr, bits, out, n, nbits, make_consts(consts, NW), b3))
 }
 
 extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,

@@ -1,9 +1,8 @@
-// Lane I/O and launch helpers shared by the pairing kernel sources
-// (check_kernels.cu; the tower constants and the L dispatch also
-// miller_split_kernels.cu, the L dispatch fexp_split_kernels.cu): one thread owns one lane of (..., L, B) limb
-// arrays (16-bit limbs in 32-bit words, lane batch last); T is
-// (3, 2, L, B), an f12 (2, 3, 2, L, B) = (12, L, B) with coefficient
-// q = (h*3 + j)*2 + c.
+// Lane I/O and launch helpers shared by the pairing and G2 kernel sources
+// (the tower constants and the L dispatch: miller_split_kernels.cu,
+// check_kernels.cu, fexp_split_kernels.cu; T's I/O: g2_kernels.cu through
+// g2_rows.cuh): one thread owns one lane of (..., L, B) limb arrays (16-bit
+// limbs in 32-bit words, lane batch last); T is (3, 2, L, B).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,22 +13,6 @@
 #include "tower_rows.cuh"
 
 namespace mlt {
-
-template <int NW>
-__device__ __forceinline__ void load_f12(F12<NW>& f, const uint32_t* src, int64_t n,
-                                         int64_t i) {
-  for (int h = 0; h < 2; ++h)
-    for (int j = 0; j < 3; ++j)
-      for (int c = 0; c < 2; ++c) load_fp<NW>(f.c[h].c[j].c[c], src, (h * 3 + j) * 2 + c, n, i);
-}
-
-template <int NW>
-__device__ __forceinline__ void store_f12(uint32_t* dst, const F12<NW>& f, int64_t n,
-                                          int64_t i) {
-  for (int h = 0; h < 2; ++h)
-    for (int j = 0; j < 3; ++j)
-      for (int c = 0; c < 2; ++c) store_fp<NW>(dst, f.c[h].c[j].c[c], (h * 3 + j) * 2 + c, n, i);
-}
 
 template <int NW>
 __device__ __forceinline__ void load_T(G2Proj<NW>& T, const uint32_t* src, int64_t n, int64_t i) {
@@ -49,15 +32,6 @@ __device__ __forceinline__ void store_T(uint32_t* dst, const G2Proj<NW>& T, int6
   }
 }
 
-template <int NW>
-__device__ __forceinline__ void load_f2(F2<NW>& a, const uint32_t* src, int64_t n, int64_t i) {
-  for (int c = 0; c < 2; ++c) load_fp<NW>(a.c[c], src, c, n, i);
-}
-
-// 32 threads a block: a 4,096-lane check then spreads over 128 SMs instead
-// of 32 blocks of 128 lanes on 32 SMs.
-constexpr int kPairThreads = 32;
-
 inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int nw) {
   // ints: n, xi0, twist_m, conj_end, bn_tail; tail: [4][2][nw] words
   TowerConsts tc = {};
@@ -71,8 +45,6 @@ inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int n
       for (int j = 0; j < nw; ++j) tc.tail[a][c][j] = tail[(a * 2 + c) * nw + j];
   return tc;
 }
-
-inline dim3 pair_grid(int n) { return dim3((unsigned)((n + kPairThreads - 1) / kPairThreads)); }
 
 }  // namespace mlt
 

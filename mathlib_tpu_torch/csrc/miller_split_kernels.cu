@@ -9,10 +9,10 @@
 //   add_step_split_kernel     <- _add_step_kernel (:807): (f l_{T,Q}(P),
 //                                T + Q), BN's chord steps after miller_ft
 //
-// They compute what miller_lane, miller_loop, add_step and f12_sparse_mul
-// (tower_rows.cuh) compute, add for add and product for product, so the
-// relaxed [0, 2p) limbs that come out are the one-thread functions' and the
-// plain versions'.
+// They compute what the plain versions (pairing_cuda.miller_lanes_plain,
+// miller_ft_plain, add_step_plain on ops/kernels/tower_rows.py) compute, add
+// for add and product for product, so the relaxed [0, 2p) limbs that come
+// out are theirs.
 //
 // What bounds them on an H100 is the integer multiply rate: a BLS12-381 lane
 // runs 63 doubling iterations (117 field products each: dbl_step 39,
@@ -76,21 +76,19 @@
 // group size or block).  The program and its host meta (G, K, slots, words
 // a slot, then the phase ranges [begin, end) of the doubling,
 // doubling-and-addition and tail programs, or of the addition step's) come
-// after the one-thread launchers' arguments.
+// after the lane arguments.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fp_rows.cuh"
 #include "lanes.cuh"
+#include "miller_state.cuh"
 #include "prog_interp.cuh"
 
 namespace mlt {
 
-// fixed slots (miller_prog.py): f 0-11, T 12-17, xP 18, yP 19, Qx 20-21,
-// Qy 22-23, tail constants 24-31
-constexpr int kSlotT = 12, kSlotXP = 18, kSlotYP = 19, kSlotQx = 20, kSlotQy = 22;
-constexpr int kSlotTail = 24, kStateSlots = 32;
+// the fixed slots are miller_state.cuh's
 constexpr int kAddState = 24;  // the addition step's: f, T, xP, yP, Qx, Qy
 
 // Lane i's Miller loop over the block's G lanes: state into shared memory,
@@ -110,24 +108,7 @@ __device__ __forceinline__ void miller_split(
   const bool real = i < nvalid;
   const SlotMem<NW, G> S{smem + t, m.stride};
   uint32_t acc[NW];
-  for (int q = wk; q < kStateSlots; q += K) {  // f = 1, T = (Qx : Qy : 1), P, Q, tail
-    if (q == 0 || q == kSlotT + 4) {
-      fp_copy<NW>(acc, k.one);
-    } else if (q >= kSlotTail) {  // static indices into the parameter
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-        if (q == kSlotTail + a) fp_copy<NW>(acc, tc.tail[a / 2][a % 2]);
-    } else if (real && q >= kSlotT && q < kSlotT + 4) {
-      load_fp<NW>(acc, q < kSlotT + 2 ? qx : qy, q % 2, lanes, i);
-    } else if (real && q >= kSlotXP) {
-      load_fp<NW>(acc, q == kSlotXP ? xp : q == kSlotYP ? yp : q < kSlotQy ? qx : qy,
-                  q >= kSlotQx ? q % 2 : 0, lanes, i);
-    } else {
-#pragma unroll
-      for (int j = 0; j < NW; ++j) acc[j] = 0;
-    }
-    S.put(q, acc);
-  }
+  miller_state<NW, G>(xp, yp, qx, qy, real, i, lanes, wk, K, S, acc, k, tc);
   __syncthreads();
   for (int b = 0; b < nbits; ++b) {  // a select, not an index into the parameter
     const bool add = bits[b] != 0;

@@ -1,5 +1,5 @@
 // The interpreter of the split pairing kernels (miller_split_kernels.cu,
-// fexp_split_kernels.cu): one lane's work spread over the K workers of a
+// fexp_split_kernels.cu, check_kernels.cu): one lane's work spread over the K workers of a
 // block that owns G lanes, as programs of accumulator instructions over
 // shared-memory slots (ops/kernels/miller_prog.py builds and explains them).
 //
@@ -111,13 +111,19 @@ __device__ __forceinline__ void fp_sub_cc(uint32_t* r, const uint32_t* a, const 
   for (int j = 1; j < NW; ++j) r[j] = addc_cc(d[j], k.p2[j] & neg);
 }
 
-// phases [p0, p1) of the program: this worker's instructions, then a barrier
-template <int NW, int G>
+// phases [p0, p1) of the program: this worker's instructions, then a barrier.
+// IDLE: the block may hold threads past its K workers (wk >= K), which run
+// no instruction and only meet the barriers.
+template <int NW, int G, bool IDLE = false>
 __device__ __forceinline__ void run_phases(const int32_t* __restrict__ prog, int p0, int p1,
                                            int K, int wk, const SlotMem<NW, G>& S,
                                            uint32_t* acc, const FieldConsts& k) {
   for (int p = p0; p < p1; ++p) {
-    const int beg = __ldg(prog + p * (K + 1) + wk), end = __ldg(prog + p * (K + 1) + wk + 1);
+    int beg = 0, end = 0;
+    if (!IDLE || wk < K) {
+      beg = __ldg(prog + p * (K + 1) + wk);
+      end = __ldg(prog + p * (K + 1) + wk + 1);
+    }
     uint32_t next = beg < end ? (uint32_t)__ldg(prog + beg) : 0u;
     for (int pc = beg; pc < end; ++pc) {
       const uint32_t ins = next;  // the next word loads while this one runs

@@ -58,7 +58,7 @@ SIGNATURES = {
     "mlt_g1_double": [_P, _P, _I, _I, _P, _I, _P],
     # Q, scalars, out, n, L, S, nbits, consts, b3, stream
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # (csrc/g1_kernels.cu) Q, bits, nbits, out, n, L, consts, b3, stream
+    # Q, bits, nbits, out, n, L, consts, b3, stream
     "mlt_g1_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _P],
     # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel;
     # dbladd in csrc/g1_kernels.cu, the others in csrc/g1_split_kernels.cu)
@@ -97,11 +97,11 @@ SIGNATURES = {
     # (csrc/gather_kernels.cu) table, idx, idx is int64, out, M, Wr, stream
     "mlt_gather_rows": [_P, _P, _I, _P, _Q, _I, _P],
     "mlt_gather_rows_t": [_P, _P, _I, _P, _Q, _I, _P],
-    # (csrc/check_kernels.cu) xP, yP, Qx, Qy, bits, nbits, nvalid, inverse bits, n,
-    # x bits, n, x < 0, gammas, ok out, product out, scratch, ticket, lanes, width,
-    # L, consts, tower ints, tail words, stream
-    "mlt_pairing_check": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _P, _P, _P, _P],
+    # (csrc/check_kernels.cu) xP, yP, Qx, Qy, nvalid, inverse bits, n, gammas, ok
+    # out, product out, scratch, ticket, lanes, blocks, L, consts, tower ints, tail
+    # words, code (programs and scripts), meta, stream
+    "mlt_pairing_check": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                          _P, _P, _P, _P],
     # (csrc/fp_kernels.cu) a, b, b_step, out, rows, n, L, consts, threads an
     # element, stream
     "mlt_fp_mont_mul": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P],

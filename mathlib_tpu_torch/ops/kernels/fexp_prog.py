@@ -1,18 +1,18 @@
 """The final exponentiation and the Fp12 power chain as layered programs for
 the split final-exp kernels (``csrc/fexp_split_kernels.cu``).
 
-The chains of ``final_exp_lane`` and ``f12_pow_lane`` (``csrc/fexp_rows.cuh``)
+The chains of ``final_exp_plain`` and ``f12_pow_plain`` (``pairing_cuda``)
 are serial in their steps, but each step -- a cyclotomic or plain squaring,
 an Fp12 product, a Frobenius map, the halves of the inverse -- is a few
 layers of independent field products.  This module traces the steps with
-``miller_prog.Tower``, operation for operation as ``csrc/tower_rows.cuh``
-computes them, and schedules them with ``miller_prog.schedule`` for a block of
+``miller_prog.Tower``, operation for operation as ``tower_rows.RowTower``
+(the plain versions' tower) computes them, and schedules them with ``miller_prog.schedule`` for a block of
 K workers, as the Miller programs are:
 
 * ``f12_pow``: ``sqr`` (acc = acc^2, cyclotomic or plain) and ``sqrmul``
   (acc = acc^2 * base), one of the two an exponent bit; the bits are the
   same for every lane, so the block runs one program a bit;
-* ``final_exp``, in ``final_exp_lane``'s order: ``pre`` (the inverse down to
+* ``final_exp``, in ``final_exp_plain``'s order: ``pre`` (the inverse down to
   its base-field norm), then the base-field inverse, a loop of 610 serial
   products at BLS12-381 that one worker runs in registers (``fp_pow``'s
   square-and-multiply over the bits of p - 2), then ``post`` (the inverse
@@ -44,7 +44,7 @@ worker in their last gap (``recompute``): at BLS12-381 a cyclotomic squaring
 is then 5 phases and 14 instructions on its critical worker, not 6 and 21.
 
 Each chain starts from acc = 1, BN's digit chains from acc = f1.  The
-values are those of the one-thread chains and of the plain versions
+values are those of the plain versions
 ``f12_pow_plain``, ``final_exp_plain`` and ``final_exp_bn_plain``, limb for
 limb: ``emulate`` runs a kernel's whole script on Python integers,
 and the tests hold it to the plain versions.
@@ -239,7 +239,7 @@ def pow_steps(bits, cyclo: bool) -> list:
 
 
 def fexp_steps(x_bits, x_neg: bool) -> list:
-    """final_exp's steps, in ``final_exp_lane``'s order."""
+    """final_exp's steps, in ``final_exp_plain``'s order."""
     out = [(RUN, "pre"), (INV, NORM, NINV)]
 
     def run(kind):

@@ -1,11 +1,11 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
-Nine kernels, CUDA C++ in ``csrc/g1_kernels.cu`` over the point formulas of
-``csrc/g1_rows.cuh`` (``add``, ``addsel``, ``addselneg``, ``maddsel``,
-``maddselneg``, ``double`` and ``smul``: ``csrc/g1_split_kernels.cu``, one
-add or mixed add spread over six warps, one doubling over four, the ladder
-a bit's doubling and add over six warps with its state in shared memory),
-each behind a wrapper here:
+Nine kernels, CUDA C++ in ``csrc/g1_split_kernels.cu`` over the point
+formulas of ``csrc/g1_rows.cuh`` (one add or mixed add spread over six
+warps, one doubling over four, the ladders ``smul`` and ``smul_static`` a
+bit's doubling and add over six warps with their state in shared memory;
+``dbladd``, one lane a thread: ``csrc/g1_kernels.cu``), each behind a
+wrapper here:
 
 ==============  ================================  ===============================================
 wrapper         computes                          replaces (TPU kernel)

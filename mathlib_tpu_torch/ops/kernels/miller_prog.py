@@ -8,8 +8,8 @@ other: the reference stacks each such layer into one ``MulBatch``
 one doubling iteration (``dbl_step``, ``f12_sqr``, ``f12_sparse_mul``), one
 doubling iteration followed by an addition step, the end of the loop (the
 conjugation and the BN chord steps), and one addition step alone (the
-``add_step`` kernel: the BN tail of ``miller_loop``), operation for operation as
-``csrc/tower_rows.cuh`` computes them, into a graph of base-field adds, subs,
+``add_step`` kernel: the BN tail of ``miller_ft``), operation for operation as
+``tower_rows.RowTower`` (the plain versions' tower) computes them, into a graph of base-field adds, subs,
 negations and Montgomery products, and schedules each graph for a block of
 ``K`` workers:
 
@@ -29,9 +29,9 @@ memory of G lanes each; the loop's state (f, T, P, Q and the BN tail's
 constants) keeps fixed slots across programs, the values in between take
 free slots by their lifetimes.
 
-The programs compute what ``tower_rows.cuh`` computes, add for add and
+The programs compute what ``tower_rows.RowTower`` computes, add for add and
 product for product, so the relaxed [0, 2p) limbs that come out are those of
-the one-thread kernels and of the plain versions (``pairing_cuda``):
+the plain versions (``pairing_cuda``):
 ``emulate`` runs a program on Python integers, and the tests hold it to
 ``miller_lanes_plain`` and ``miller_ft_plain``.
 
@@ -100,8 +100,8 @@ class Graph:
 
 
 class Tower:
-    """``csrc/tower_rows.cuh`` on graph nodes: f2 = 2 nodes, f6 = 3 f2,
-    f12 = 2 f6; every function in that file's order of operations."""
+    """``tower_rows.RowTower`` on graph nodes: f2 = 2 nodes, f6 = 3 f2,
+    f12 = 2 f6; every function in its order of operations."""
 
     def __init__(self, g: Graph, n: int, xi0: int, twist_m: bool):
         self.g, self.n, self.xi0, self.twist_m = g, n, xi0, twist_m
@@ -331,7 +331,7 @@ def trace(kind: str, n: int, xi0: int, twist_m: bool, conj_end: bool = False,
     """(graph, {slot: node}) of one program: "dbl" (a doubling iteration),
     "dbladd" (one followed by an addition step), "add" (an addition step
     alone: ``add_step_kernel``'s f l_{T,Q}(P) and T + Q), or "tail" (the
-    end of ``miller_lane``: conjugation when ``conj_end``, the BN chord
+    end of ``miller_lanes_plain``'s loop: conjugation when ``conj_end``, the BN chord
     steps when ``bn_tail``; f only)."""
     g = Graph()
     tw = Tower(g, n, xi0, twist_m)

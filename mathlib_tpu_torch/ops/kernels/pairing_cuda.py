@@ -6,8 +6,9 @@ addition step, one lane's work spread over the warps of a block, running
 the programs of ``miller_prog``), ``csrc/fexp_split_kernels.cu`` (the power
 chain and the final exponentiations, the same way, running the programs of
 ``fexp_prog``, and the product tree, several levels a launch, running
-``tree_prog``'s) and ``csrc/check_kernels.cu`` over ``csrc/tower_rows.cuh``,
-each kernel behind a wrapper here:
+``tree_prog``'s) and ``csrc/check_kernels.cu`` (the one-launch check: the
+same programs in one launch, by the scripts of ``check_prog``), each kernel
+behind a wrapper here:
 
 ===================  =========================================  ==============================
 wrapper              computes                                   replaces (TPU kernel)
@@ -59,7 +60,8 @@ import numpy as np
 import torch
 
 from ..field import FpCtx
-from . import build, fexp_prog, miller_prog, tree_prog
+from . import build, check_prog, fexp_prog, miller_prog, tree_prog
+from .check_prog import tree_width
 from .tower_rows import MulBatch, RowTower
 
 Tensor = torch.Tensor
@@ -270,11 +272,6 @@ def final_exp_bn_plain(cfg: TowerCfg, f: Tensor, inv_bits, digit_bits) -> Tensor
         part = _f12_pow64(tw, f1, bits[1:], True, acc=f1)
         y = tw.f12_mul(y, tw.f12_frob(part, cfg.gamma_limbs(i, f.device), i))
     return y.to(torch.int32)
-
-
-def tree_width(B: int) -> int:
-    """The lanes of a product tree over B lanes: the next power of two."""
-    return 1 << max(0, B - 1).bit_length()
 
 
 def f12_is_one_plain(cfg, f: Tensor) -> Tensor:
@@ -700,18 +697,74 @@ def final_exp(cfg: TowerCfg, f: Tensor, inv_bits=None, x_bits=None, x_neg=None,
     return out
 
 
-def _check_state(cfg: MillerCfg, device, slots: int, stream: int):
-    """The scratch (``slots`` words at least) and the ticket of
-    ``pairing_check`` for one device and stream, kept on the curve's config:
-    made once (the ticket zeroed then), the scratch grown when a call needs
-    more.  Calls on one stream are serialised by it, so they never race on
-    the ticket."""
+def check_programs(cfg: MillerCfg, G: int):
+    """The one-launch check's programs for a block of G lanes: part 1's
+    (the Miller loop's and the tree's product, ``check_prog.PART1_PROGRAMS``'
+    order, for ``MILLER_WORKERS[G]`` workers), their slots and slot words,
+    and part 2's (the final exp's for ``fexp_shape``'s one-lane block of 8
+    lanes and 64 workers), their slots and slot words."""
+    progs, slots, words = miller_programs(cfg, G)
+    (mul,), tree_slots, _ = tree_programs(cfg, G)
+    fprogs, fslots, fwords = fexp_programs(cfg.tc, "final_exp", check_prog.FEXP_GROUP)
+    return progs + (mul,), max(slots, tree_slots), words, fprogs, fslots, fwords
+
+
+def check_shape(cfg: MillerCfg, lanes: int) -> Tuple[int, int]:
+    """(G, K) of a ``pairing_check`` launch over ``lanes`` lanes: the largest
+    group of 32, 16 or 8 lanes that still gives ``MILLER_BLOCKS`` blocks over
+    the tree's width and whose slots, part 1's or part 2's, fit
+    ``MILLER_SMEM`` (BLS12-377's Miller programs do not fit a 32-lane
+    block)."""
+    W = tree_width(lanes)
+    for G in (32, 16, 8):
+        if G == 8 or W // G >= MILLER_BLOCKS:
+            _, slots, words, _, fslots, fwords = check_programs(cfg, G)
+            if 4 * max(slots * words, fslots * fwords) <= MILLER_SMEM:
+                return G, MILLER_WORKERS[G]
+    raise ValueError("the check's programs need more shared memory than a block has")
+
+
+def _check_launch_args(cfg: MillerCfg, device, lanes: int):
+    """(code, meta, blocks) of a ``pairing_check`` launch over ``lanes``
+    lanes, once per device, block and tree width: one int32 array on the
+    card with part 1's programs, part 2's, then the two scripts
+    (``check_prog.check_steps`` and ``fexp_prog.fexp_steps``), and the host
+    meta of csrc/check_kernels.cu (the blocks, the slots, the offsets)."""
+    G, K = check_shape(cfg, lanes)
+    W = tree_width(lanes)
+    key = ("check", str(device), G, W)
+    if key not in cfg._dev:
+        progs, slots, words, fprogs, fslots, fwords = check_programs(cfg, G)
+        code1, ranges1 = miller_prog.pack(progs, K)
+        code2, ranges2 = miller_prog.pack(fprogs, check_prog.FEXP_WORKERS)
+        pl = check_prog.plan(lanes, lanes, G)
+        tc = cfg.tc
+        script1 = fexp_prog.encode_steps(
+            check_prog.check_steps(pl, cfg.bits, progs[2] is not None),
+            check_prog.PART1_PROGRAMS, ranges1)
+        script2 = fexp_prog.encode_steps(fexp_prog.fexp_steps(tc.x_bits, tc.x < 0),
+                                         fexp_prog.FEXP_PROGRAMS, ranges2)
+        at1 = len(code1) + len(code2)
+        at2 = at1 + script1.size
+        code = np.concatenate([code1, code2, script1.ravel(), script2.ravel()])
+        meta = (ctypes.c_int32 * 12)(G, K, slots, words, check_prog.FEXP_WORKERS, fslots, fwords,
+                                     len(code1), at1, len(script1), at2, len(script2))
+        cfg._dev[key] = (torch.from_numpy(code).to(device), meta, pl.blocks)
+    return cfg._dev[key]
+
+
+def _check_state(cfg: MillerCfg, device, words: int, stream: int):
+    """The scratch (``words`` words at least: a partial product a block)
+    and the ticket of ``pairing_check`` for one device and stream, kept on
+    the curve's config: made once (the ticket zeroed then), the scratch
+    grown when a call needs more.  Calls on one stream are serialised by it,
+    so they never race on the ticket."""
     key = ("check_state", str(device), stream)
     scratch, ticket = cfg._dev.get(key, (None, None))
     if ticket is None:
         ticket = torch.zeros(1, dtype=torch.int32, device=device)
-    if scratch is None or scratch.numel() < slots:
-        scratch = torch.empty(slots, dtype=torch.int32, device=device)
+    if scratch is None or scratch.numel() < words:
+        scratch = torch.empty(words, dtype=torch.int32, device=device)
     cfg._dev[key] = (scratch, ticket)
     return scratch, ticket
 
@@ -723,26 +776,24 @@ def pairing_check(cfg: MillerCfg, xP: Tensor, yP: Tensor, Qx: Tensor, Qy: Tensor
     bool tensor, and the unreduced product (2, 3, 2, L, 1) of the masked
     Miller values, by the tree of ``f12_seg_product`` over the lanes padded
     with ones to the next power of two.  BLS12 curves with the factor-3
-    final exp (``cfg.tc`` carries gammas and x).  On the card: one launch."""
+    final exp (``cfg.tc`` carries gammas and x).  On the card: one launch
+    (``check_shape``'s blocks, ``check_prog``'s scripts)."""
     if xP.device.type == "cpu":
         return pairing_check_plain(cfg, xP, yP, Qx, Qy, nvalid)
     L, B = cfg.fp.L, xP.shape[-1]
     _check(cfg, xP, yP, Qx, Qy, shapes=[(L, B), (L, B), (2, L, B), (2, L, B)])
     _check_bls12(cfg)
     tc = cfg.tc
-    width = tree_width(B)
-    blocks = width // min(width, 32)  # csrc/lanes.cuh kPairThreads
-    # two halves of f12 slots of 12 * NW words (csrc/check_kernels.cu)
-    scratch, ticket = _check_state(cfg, xP.device, 2 * blocks * 12 * (L // 2), build.stream(xP))
+    code, meta, blocks = _check_launch_args(cfg, xP.device, B)
+    scratch, ticket = _check_state(cfg, xP.device, blocks * 12 * (L // 2), build.stream(xP))
     ok = torch.empty(1, dtype=torch.int32, device=xP.device)
     prod = torch.empty((2, 3, 2, L, 1), dtype=torch.int32, device=xP.device)
-    bits = _bits_on(cfg, xP.device)
-    ib, xb = _bits_on(cfg, xP.device, tc.inv_bits), _bits_on(cfg, xP.device, tc.x_bits)
+    ib = _bits_on(cfg, xP.device, tc.inv_bits)
     _launch("mlt_pairing_check", xP, cfg, xP.data_ptr(), yP.data_ptr(), Qx.data_ptr(),
-            Qy.data_ptr(), bits.data_ptr(), len(cfg.bits), max(0, min(nvalid, B)),
-            ib.data_ptr(), len(ib), xb.data_ptr(), len(xb), int(tc.x < 0),
+            Qy.data_ptr(), max(0, min(nvalid, B)), ib.data_ptr(), len(ib),
             _gammas_on(tc, xP.device).data_ptr(), ok.data_ptr(), prod.data_ptr(),
-            scratch.data_ptr(), ticket.data_ptr(), B, width)
+            scratch.data_ptr(), ticket.data_ptr(), B, blocks,
+            extra=(code.data_ptr(), ctypes.addressof(meta)))
     pairing_check.launches += 1
     return ok[0] != 0, prod
 

@@ -9,7 +9,7 @@ around them; the levels are serial.  So the tree is bound by the latency of
 one f12 product times its depth, not by its work, and this module runs it the
 way the final-exp kernels run their chains:
 
-* ``trace_mul`` traces ``Tower.f12_mul`` (op for op as ``csrc/tower_rows.cuh``
+* ``trace_mul`` traces ``Tower.f12_mul`` (op for op as ``tower_rows.RowTower``
   computes it) into a program of two operands A (slots 0-11) and B (12-23),
   the product written over A, scheduled with ``miller_prog.schedule`` for the
   K workers of a block (as ``fexp_prog._build`` schedules a multiply);

@@ -698,6 +698,96 @@ def test_device_strategies_give_the_default_verdicts(pair_ctx, monkeypatch):
     assert {k: v for k, v in pairing_cuda.launches().items() if v} == {"pairing_check": 2}
 
 
+def _check_pairs(eng, n, seed):
+    """n pairs whose product of pairings is one (n >= 2): (P_i, Q_i) beside
+    (-P_i, Q_i), and for odd n a triple (A, G), (B, G), (-(A + B), G); one
+    random pair for n = 1."""
+    rng = np.random.default_rng(seed)
+
+    def k():
+        return int(rng.integers(1, 1 << 62))
+
+    if n == 1:
+        return [eng.g1.mul(eng.gen_g1, k())], [eng.g2.mul(eng.gen_g2, k())]
+    g1s, g2s = [], []
+    for _ in range((n - 3) // 2 if n % 2 else n // 2):
+        P, Q = eng.g1.mul(eng.gen_g1, k()), eng.g2.mul(eng.gen_g2, k())
+        g1s += [P, eng.g1.neg(P)]
+        g2s += [Q, Q]
+    if n % 2:
+        A, B, G = eng.g1.mul(eng.gen_g1, k()), eng.g1.mul(eng.gen_g1, k()), eng.g2.mul(
+            eng.gen_g2, k())
+        g1s += [A, B, eng.g1.neg(eng.g1.add(A, B))]
+        g2s += [G, G, G]
+    return g1s, g2s
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381", "BLS12_377"])
+def test_one_launch_check_on_the_split_programs(curve):
+    """pairing_check (the split kernels' programs in one launch) against its
+    plain version at 1, 2, 33, 64 (nvalid 61, 3 pad lanes holding points)
+    and 257 lanes: the verdict and the unreduced product bit for bit, True
+    on a product of pairings that is one (False on the single random pair),
+    False on the twin of 2 and 64 lanes with one scalar changed; one launch
+    a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec(curve)
+    eng, be = get_engine(spec), BatchEngine(spec)
+    cfg = be.pair.cfg
+    for lanes, n in ((1, 1), (2, 2), (33, 33), (64, 61), (257, 257)):
+        g1s, g2s = _check_pairs(eng, n, lanes)
+        pad = _pairs(eng, lanes - n, lanes)
+        sets = [(g1s, n > 1)]
+        if lanes in (2, 64):
+            sets.append(([eng.g1.mul(g1s[0], 2)] + g1s[1:], False))
+        for g1l, want in sets:
+            xP, yP, Qx, Qy = be._pair_split_mont(be._encode_pairs(g1l + pad[0], g2s + pad[1]))
+            pairing_cuda.reset_launches()
+            ok, prod = pairing_cuda.pairing_check(cfg, xP, yP, Qx, Qy, n)
+            assert {k: v for k, v in pairing_cuda.launches().items() if v} == {"pairing_check": 1}
+            ok_p, prod_p = pairing_cuda.pairing_check_plain(cfg, xP, yP, Qx, Qy, n)
+            assert bool(ok) == bool(ok_p) == want and torch.equal(prod, prod_p), (lanes, want)
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381", "BLS12_377", "BN254"])
+def test_static_ladder_equals_the_plain_version(curve):
+    """smul_static (the six-warp ladder with one bit string) on 1, 31, 33
+    and 4,097 lanes against smul_static_plain's 4,097: relaxed Q with
+    infinity lanes, h_eff's 64 bits (the cofactor clearing) and a 255-bit
+    scalar.  One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec(curve)
+    eng, g1 = get_engine(spec), G1Ctx(spec, torch.device("cuda"))
+    F, n = g1.F, 4097
+    P, Q = _edge_points(eng, g1, n, 15)
+    S = g1_cuda.add_plain(F, P, Q)  # relaxed, with infinity lanes
+    k255 = int.from_bytes(np.random.default_rng(15).bytes(32), "big") % (1 << 255) | (1 << 254)
+    for bits in ([int(b) for b in bin(0xD201000000010001)[2:]], [int(b) for b in bin(k255)[2:]]):
+        want = g1_cuda.smul_static_plain(F, S, bits)
+        for m in (1, 31, 33, n):
+            g1_cuda.reset_launches()
+            got = g1_cuda.smul_static(F, S[..., :m], bits)
+            assert {k: v for k, v in g1_cuda.launches().items() if v} == {"smul_static": 1}
+            assert torch.equal(got, want[..., :m]), (len(bits), m)
+
+
+def test_redesigned_kernels_compile_without_stack_or_spill():
+    """ptxas' report for pairing_check_kernel and the static ladder
+    (g1_smul_ladder_kernel with STATIC): no stack, no spill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import check_ptxas, no_stack_or_spill, static_ptxas
+    from mathlib_tpu_torch.ops.kernels import build
+
+    build.load()
+    entries = check_ptxas(build.BUILD_LOG) + static_ptxas(build.BUILD_LOG)
+    assert len(entries) == 2 * 3 + 2, entries  # (NW, G) of the check; NW of the ladder
+    for entry in entries:
+        assert no_stack_or_spill(entry), entry
+
+
 def test_pairing_check_equals_its_plain_version(pair_ctx):
     """The one-launch check on 40 lanes with n = 37 (3 pad lanes holding
     points): the verdict and the unreduced product equal the

@@ -1,6 +1,8 @@
-"""The six-warp ladder behind ``g1_cuda.smul`` (``g1_smul_ladder_kernel`` in
-``csrc/g1_split_kernels.cu``), modelled on Python integers in the kernel's
-order of operations, against ``smul_plain``.
+"""The six-warp ladder behind ``g1_cuda.smul`` and ``g1_cuda.smul_static``
+(``g1_smul_ladder_kernel`` in ``csrc/g1_split_kernels.cu``, per-lane scalars
+or, with STATIC, one bit string for every lane), modelled on Python integers
+in the kernel's order of operations, against ``smul_plain`` and
+``smul_static_plain``.
 
 The CUDA kernel runs only on a card (``tests/test_torch_cuda.py`` holds it to
 ``smul_plain`` there).  Here its schedule is checked without one: per bit the
@@ -54,9 +56,11 @@ def _field(p, L):
     return mul, add, sub, small
 
 
-def _ladder_model(Q, ks, nbits, p, L, b3, block=32):
+def _ladder_model(Q, ks, nbits, p, L, b3, block=32, bits=None):
     """``g1_smul_ladder_kernel`` on lanes of Python ints: Q a list of (X, Y,
-    Z), ks the scalars, ``block`` lanes a block.  Each lane keeps the
+    Z), ks the scalars, ``block`` lanes a block; with ``bits`` (the STATIC
+    kernel) ks is unused and step b's bit is bits[nbits - 1 - b], MSB-first,
+    for every lane.  Each lane keeps the
     doubling's second layer d = (dxa, dya, dz, dyb), the add's second layer
     g = (xa, xb, ya, yb, za, zb) and its last bit, and reads acc from them as
     the kernel's LadderPoint does.  Returns the points and how many
@@ -88,10 +92,11 @@ def _ladder_model(Q, ks, nbits, p, L, b3, block=32):
             d[i] = [mul(t0m, xy), mul(small(zz, b3), z3t), mul(t1, z3t), mul(t0m, y3t)]
         for lo in range(0, n, block):
             lanes = range(lo, min(lo + block, n))
-            bits = {i: (ks[i] >> b) & 1 == 1 for i in lanes}
+            got = {i: bits[nbits - 1 - b] == 1 if bits else (ks[i] >> b) & 1 == 1
+                   for i in lanes}
             for i in lanes:
-                bit[i] = bits[i]
-            if not any(bits.values()):  # no lane of the block adds: acc = D
+                bit[i] = got[i]
+            if not any(got.values()):  # no lane of the block adds: acc = D
                 skipped += 1
                 continue
             added += 1
@@ -150,3 +155,28 @@ def test_ladder_model_equals_smul_plain(ladder_case, block):
     assert skipped > 0 and added > 0
     assert any(v[0] != 0 and v[0] < p for v in _ints(Q, L)) and any(
         c >= p for v in _ints(Q, L) for c in v)  # canonical and relaxed limbs both occur
+
+
+@pytest.mark.parametrize("ladder_case", ["BLS12_381"], indirect=True)
+@pytest.mark.parametrize("scalar", ["h_eff", "255-bit"])
+def test_static_ladder_model_equals_smul_static_plain(ladder_case, scalar):
+    """The STATIC ladder's schedule on Python ints (the step's bit read from
+    one MSB-first bit string, the add's layers skipped at its zero bits)
+    equals smul_static_plain limb for limb on BLS12-381's eight lanes (Q at
+    infinity on one, relaxed limbs), for h_eff (64 bits, 7 ones: the
+    cofactor clearing of ``hash_to_g1_batch(sign="none")``) and a 255-bit
+    scalar."""
+    g1, Q, _, _ = ladder_case
+    L, p = g1.fp.L, g1.fp.p
+    if scalar == "h_eff":
+        bits = [int(b) for b in bin(0xD201000000010001)[2:]]
+        assert len(bits) == 64 and sum(bits) == 7
+    else:
+        k = int.from_bytes(np.random.default_rng(17).bytes(32), "big")
+        bits = [int(b) for b in bin(k % (1 << 255) | (1 << 254))[2:]]
+        assert len(bits) == 255
+    want = g1_cuda.smul_static_plain(g1.F, Q, bits)
+    got, skipped, added = _ladder_model(_ints(Q, L), None, len(bits), p, L, g1.F.b3, bits=bits)
+    assert got == _ints(want, L)
+    assert (skipped, added) == (len(bits) - sum(bits), sum(bits))
+    assert g1.decode_points(want)[3] is None
