@@ -328,8 +328,8 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
                 "mathlib_tpu/ops/kernels/hash_pallas.py:258"),
     "smul_static": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
-    "g2_add": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
-    "g2_double": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
+    "g2_add": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
+    "g2_double": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
     "g2_addsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
     "g2_dblsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
     "g2_smul": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:358"),
@@ -615,9 +615,22 @@ SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_ad
                  "g1_maddsel_kernel", "g1_maddselneg_kernel", "g1_smul_ladder_kernel")
 
 
+G2_BLOCK_KERNELS = ("g2_ladder_kernel", "g2_smul", "g2_add_kernel", "g2_double_kernel")
+
+
 def g2_ladder_ptxas(path: str) -> list:
-    """The build log's ptxas lines of the G2 ladder kernels."""
-    return [e for e in ptxas_entries(path) if e.startswith(("g2_ladder_kernel", "g2_smul"))]
+    """The build log's ptxas lines of the G2 ladder kernels and of the add
+    and doubling kernels on the ladder's steps (or their one-thread
+    predecessors, in an older checkout)."""
+    return [e for e in ptxas_entries(path) if e.startswith(G2_BLOCK_KERNELS)]
+
+
+def g2_step_design(build) -> str:
+    """Which g2_add and g2_double kernels the imported checkout has: "block"
+    (a launch of the G2 ladder's add or doubling step over a block's warps,
+    csrc/g2_smul_kernels.cu) or "one-thread" (a lane a thread)."""
+    return ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_add_kernel")
+            else "one-thread")
 
 
 def split_ptxas(path: str) -> list:
@@ -2220,9 +2233,14 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     for entry in ptxas_entries(build.BUILD_LOG):
         if entry.startswith("g2_"):
             log("ptxas", entry=repr(entry))
-    for entry in g2_ladder_ptxas(build.BUILD_LOG):
-        if not entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
-            raise AssertionError(f"G2 ladder kernel with a stack or a spill: {entry}")
+    g2_block = g2_ladder_ptxas(build.BUILD_LOG)
+    for entry in g2_block:
+        regs = int(entry.split(": ")[1].split()[0])
+        if regs > 96 or not no_stack_or_spill(entry):
+            raise AssertionError(f"G2 block kernel over 96 registers, or with a stack or a "
+                                 f"spill: {entry}")
+    if len(g2_block) != 8:  # both ladders, the add and the doubling, at 16 and 32 lanes
+        raise AssertionError(f"the G2 block kernels' ptxas lines are missing: {g2_block}")
     pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
     n = N_CHECK
     A = [pool[i] for i in rng.integers(0, len(pool), n)]
@@ -2305,7 +2323,7 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
                            *static_work),
     }
     for name, (kern, plain, nbytes, fp_muls) in shapes.items():
-        ms, got = cuda_ms(kern, reps=3)
+        ms, got = cuda_ms(kern, reps=3 if name.startswith("g2_smul") else 50)
         plain_ms, want = cuda_ms(plain, reps=1)
         check(name, got, want)
         del got, want
@@ -3237,8 +3255,11 @@ def time_batch(repo: str) -> int:
 
 
 def time_g2(repo: str) -> int:
-    """The G2 ladders alone, with the ``mathlib_tpu_torch`` of the checkout at
-    ``repo`` (built there at first use): its G2 ladder kernels' ptxas lines;
+    """The G2 kernels alone, with the ``mathlib_tpu_torch`` of the checkout at
+    ``repo`` (built there at first use): the ptxas lines of its G2 ladder,
+    add and doubling kernels; ``g2_add`` and ``g2_double`` at 4,096 lanes
+    and at 16 lanes an SM and one more (CUDA events, mean of 100 after a
+    warm-up, beside their bounds, each output equal to the plain version's);
     ``g2_smul`` (255 bits) at 4,096, 2,048 and 1,024 lanes and at 16 lanes
     an SM and one more (where the block ladder turns from 16- to 32-lane
     blocks) and each cofactor ladder (``g2_smul_static``) at 4,096 lanes,
@@ -3271,7 +3292,8 @@ def time_g2(repo: str) -> int:
     design = ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_ladder_kernel")
               else "one-thread")
     for entry in g2_ladder_ptxas(build.BUILD_LOG):
-        log("ptxas_g2_ladder", repo=repr(repo), design=design, entry=repr(entry))
+        log("ptxas_g2_ladder", repo=repr(repo), design=design,
+            step_design=g2_step_design(build), entry=repr(entry))
     dev = mathlib_tpu_torch.device("cuda")
     spec = get_spec("BLS12_381")
     eng = get_engine(spec)
@@ -3295,6 +3317,29 @@ def time_g2(repo: str) -> int:
     pt = 3 * 2 * L * 4
     S = K.shape[-2]
 
+    # the add and the doubling at the path's 4,096 lanes and where the
+    # launcher's blocks turn from 16 to 32 lanes (16 lanes an SM, and one
+    # more), each against its plain version's lanes
+    edge = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sdesign = g2_step_design(build)
+    R = base.roll(7, -1).contiguous()
+    want_add, want_dbl = g2_cuda.add_plain(F, Q, R), g2_cuda.double_plain(F, Q)
+    for m in (N_G2, edge + 1, edge):
+        p_, r_ = Q[..., :m].contiguous(), R[..., :m].contiguous()
+        for name, run, want_m, nbytes, fp_muls in (
+                ("g2_add", lambda: g2_cuda.add(F, p_, r_), want_add, 3 * pt * m, 36 * m),
+                ("g2_double", lambda: g2_cuda.double(F, p_), want_dbl, 2 * pt * m, 24 * m)):
+            b = bound(nbytes, wide_mads(fp_muls, L))
+            ms, got = cuda_ms(run, reps=100)
+            if not torch.equal(got, want_m[..., :m]):
+                raise AssertionError(f"time_g2: {name} at {m} lanes disagrees with its plain "
+                                     "version")
+            log("time_g2", repo=repr(repo), design=sdesign, kernel=name, lanes=m,
+                block_lanes=(16 if m <= edge else 32) if sdesign == "block" else None,
+                ms=f"{ms:.5f}", bound_ms=f"{b['bound_ms']:.5f}", bound_by=b["bound_by"],
+                over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+    del want_add, want_dbl
+
     def smul_at(m):
         q, k = Q[..., :m].contiguous(), K[..., :m].contiguous()
         nbytes, fp_muls = g2_smul_work(pt, S, g2.nbits, m)
@@ -3304,7 +3349,6 @@ def time_g2(repo: str) -> int:
             raise AssertionError(f"time_g2: g2_smul at {m} lanes disagrees with its plain version")
         return ms, b
 
-    edge = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
     for m in (N_G2, edge + 1, edge, 2048, 1024):
         ms, b = smul_at(m)
         log("time_g2", repo=repr(repo), design=design, kernel="g2_smul", lanes=m,
@@ -3512,7 +3556,8 @@ def main() -> int:
                     help="only time BLS12-381 pairing_batch and its stages with the checkout "
                          "at REPO")
     ap.add_argument("--time-g2", metavar="REPO",
-                    help="only time the G2 ladders and g2_scalar_mul with the checkout at REPO")
+                    help="only time the G2 add, doubling and ladders and g2_scalar_mul with the "
+                         "checkout at REPO")
     ap.add_argument("--time-hash", metavar="REPO",
                     help="only time hash_g1, fp_pow, mont_mul and the hash and G1 entry points "
                          "with the checkout at REPO")
@@ -3816,7 +3861,8 @@ def main() -> int:
                "maddsel": combiner_design(build), "maddselneg": combiner_design(build),
                "smul": smul_design(build), "mont_mul": mont_design(build),
                "hash_g1": hash_design(build), "fp_pow": pow_design(build),
-               "smul_static": static_design(build), "pairing_check": check_design(build)}
+               "smul_static": static_design(build), "pairing_check": check_design(build),
+               "g2_add": g2_step_design(build), "g2_double": g2_step_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

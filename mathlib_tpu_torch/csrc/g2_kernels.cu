@@ -1,14 +1,13 @@
-// G2 group-law kernels for Hopper (sm_90a): port of
+// G2 select kernels for Hopper (sm_90a): port of
 // mathlib_tpu/ops/kernels/g2_pallas.py.
 //
-//   g2_add_kernel     <- g2_pallas.py:_add_kernel     (add_pallas)
-//   g2_double_kernel  <- g2_pallas.py:_double_kernel  (double_pallas)
 //   g2_addsel_kernel  <- g2_pallas.py:_addsel_kernel  (addsel_pallas)
 //   g2_dblsel_kernel  <- g2_pallas.py:_dblsel_kernel  (dblsel_pallas)
 //
 // The point formulas, the lane layout and the operation order that keeps
-// the relaxed limbs the reference's are in g2_rows.cuh (the G2 ladders of
-// g2_smul_kernels.cu split the same formulas over a block's warps).
+// the relaxed limbs the reference's are in g2_rows.cuh (the G2 ladders and
+// the add and doubling kernels of g2_smul_kernels.cu split the same
+// formulas over a block's warps).
 //
 // Bound on this card: integer multiply issue rate, then registers and the
 // stack.  An RCB add over Fp2 is 12 Fp2 products, 36 field muls (21,168
@@ -16,8 +15,8 @@
 // design keeps one lane per thread and no shared memory: a point is 72
 // words, the add holds two points and ten Fp2 temporaries, so the formulas
 // and the Fp2 products run as calls with their operands on the thread's
-// stack (L1).  Later work: a lane split over several threads, fewer
-// registers per product (PTX carry chains).
+// stack (L1).  Later work: each select as a launch of g2_smul_kernels.cu's
+// steps over a block's warps, as the add and the doubling are.
 //
 // Every launcher runs on the caller's stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (or -1 for an L other than
@@ -29,30 +28,6 @@
 #include "g2_rows.cuh"
 
 namespace mlt {
-
-template <int NW>
-__global__ void g2_add_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
-                              uint32_t* __restrict__ out, int n, FieldConsts k, TowerConsts tc,
-                              B3 b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G2Proj<NW> a, b;
-  load_T<NW>(a, P, n, i);
-  load_T<NW>(b, Q, n, i);
-  rcb_add2<NW>(a, a, b, k, tc, b3);
-  store_T<NW>(out, a, n, i);
-}
-
-template <int NW>
-__global__ void g2_double_kernel(const uint32_t* __restrict__ P, uint32_t* __restrict__ out,
-                                 int n, FieldConsts k, TowerConsts tc, B3 b3) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G2Proj<NW> a;
-  load_T<NW>(a, P, n, i);
-  rcb_dbl2<NW>(a, a, k, tc, b3);
-  store_T<NW>(out, a, n, i);
-}
 
 // out = sel ? P + Q : Q -- the segmented-scan combiner
 template <int NW>
@@ -92,18 +67,6 @@ __global__ void g2_dblsel_kernel(const uint32_t* __restrict__ P, const uint32_t*
 }  // namespace mlt
 
 using namespace mlt;
-
-extern "C" int mlt_g2_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
-                          const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
-  MLT_G2_DISPATCH(L, g2_add_kernel<NW><<<g2_grid(n), kG2Threads, 0, stream>>>(
-                         P, Q, out, n, make_consts(consts, NW), g2_tower(), B3{b3c0, b3c1}))
-}
-
-extern "C" int mlt_g2_double(const uint32_t* P, uint32_t* out, int n, int L,
-                             const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
-  MLT_G2_DISPATCH(L, g2_double_kernel<NW><<<g2_grid(n), kG2Threads, 0, stream>>>(
-                         P, out, n, make_consts(consts, NW), g2_tower(), B3{b3c0, b3c1}))
-}
 
 extern "C" int mlt_g2_addsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
                              uint32_t* out, int n, int L, const uint32_t* consts, int b3c0,

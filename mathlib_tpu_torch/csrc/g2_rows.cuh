@@ -1,6 +1,6 @@
-// G2 point arithmetic for one thread's registers, for the G2 point kernels
-// (g2_kernels.cu; the ladders of g2_smul_kernels.cu take B3, f2_mul_b3's
-// branches and the layout from here): port of
+// G2 point arithmetic for one thread's registers, for the G2 select kernels
+// (g2_kernels.cu; the ladders and the add and doubling kernels of
+// g2_smul_kernels.cu take B3, f2_mul_b3's branches and the layout from here): port of
 // mathlib_tpu/ops/kernels/g2_pallas.py Row2Ctx, _rcb_add and _rcb_double.
 //
 // Layout: a point batch is (3, 2, L, n) 16-bit limbs in 32-bit words, the

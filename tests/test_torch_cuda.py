@@ -1068,6 +1068,74 @@ def test_g2_ladders_on_a_ragged_batch_and_a_block_that_never_adds(g2_ctx, blocks
     assert torch.equal(g2_cuda.smul_static(F, Q, bits), g2_cuda.smul_static_plain(F, Q, bits))
 
 
+@pytest.fixture(scope="module")
+def g2_edge_lanes():
+    """4,097 relaxed BLS12-381 lanes P, Q: P = Q on every 7th lane, P = -Q on
+    every 17th, P at infinity on every 11th, Q on every 13th."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.ops.g2 import G2Ctx
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    spec = get_spec("BLS12_381")
+    eng, g2 = get_engine(spec), G2Ctx(spec, torch.device("cuda"))
+    n = 4097
+    rng = np.random.default_rng(18)
+    pool = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, 15)] + [None]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        B[i] = A[i]
+    for i in range(3, n, 17):
+        B[i] = eng.g2.neg(A[i]) if A[i] else None
+    for i in range(5, n, 11):
+        A[i] = None
+    for i in range(6, n, 13):
+        B[i] = None
+    Q = g2.encode_points(B)
+    # A + infinity: the same points, in relaxed projective limbs
+    P = g2_cuda.add_plain(g2.rows, g2.encode_points(A), g2.encode_points([None] * n))
+    P[..., 0::7] = Q[..., 0::7]  # P = Q limb for limb
+    return g2, P, Q
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 2113, 4097])
+def test_g2_add_and_double_equal_plain_versions_on_edge_lanes(g2_edge_lanes, n):
+    """The block add and doubling kernels against their plain versions, bit
+    for bit, at lane counts around their 16- and 32-lane blocks (2,113: past
+    16 lanes an SM on an H100), one launch each."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    g2, P, Q = g2_edge_lanes
+    F = g2.rows
+    p, q = P[..., :n].contiguous(), Q[..., :n].contiguous()
+    g2_cuda.reset_launches()
+    assert torch.equal(g2_cuda.add(F, p, q), g2_cuda.add_plain(F, p, q))
+    assert torch.equal(g2_cuda.double(F, p), g2_cuda.double_plain(F, p))
+    assert torch.equal(g2_cuda.double(F, q), g2_cuda.double_plain(F, q))
+    assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_add": 1, "g2_double": 2}
+
+
+def test_g2_block_kernels_compile_without_stack_or_spill():
+    """ptxas' report for the G2 ladders and the add and doubling kernels on
+    their steps, at 16- and 32-lane blocks: at most 96 registers, no stack,
+    no spill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import g2_ladder_ptxas, no_stack_or_spill
+    from mathlib_tpu_torch.ops.kernels import build
+
+    build.load()
+    entries = g2_ladder_ptxas(build.BUILD_LOG)
+    assert len(entries) == 8, entries
+    for name in ("g2_add_kernel<12,16>", "g2_add_kernel<12,32>", "g2_double_kernel<12,16>",
+                 "g2_double_kernel<12,32>"):
+        assert any(e.startswith(name + ":") for e in entries), (name, entries)
+    for entry in entries:
+        assert int(entry.split(": ")[1].split()[0]) <= 96, entry
+        assert no_stack_or_spill(entry), entry
+
+
 def test_g2_entry_points_on_the_card(g2_ctx):
     """hash_to_g2_batch (word path) and g2_scalar_mul against the host, on the
     kernels; BN254's g2_scalar_mul on the weier fallback over mont_mul."""

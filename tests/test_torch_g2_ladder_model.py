@@ -1,22 +1,30 @@
 """The G2 ladder body behind ``g2_cuda.smul`` and ``g2_cuda.smul_static``
-(``g2_ladder_kernel`` in ``csrc/g2_smul_kernels.cu``), modelled on Python
-integers in the kernel's order of operations.
+(``g2_ladder_kernel`` in ``csrc/g2_smul_kernels.cu``), and the add and
+doubling kernels on its steps behind ``g2_cuda.add`` and ``g2_cuda.double``
+(``g2_add_kernel``, ``g2_double_kernel``, same source), modelled on Python
+integers in the kernels' order of operations and on their slot layouts.
 
-The CUDA kernel runs only on a card (``tests/test_torch_cuda.py`` holds it to
-the plain versions there).  Here its schedule is checked without one: per
-bit the doubling's first layer of base-field products (each Fp2 product
-split into its three Karatsuba pieces, one a worker), the Fp2 products
-combined from the pieces, the middle values formed from those, the second
-layer, the doubled point D, the block's shortcut where no lane has the bit,
-the add's five steps, and the select acc = bit ? A : D that writes into the
-accumulator's buffer.  Every field operation is the kernel's relaxed
-[0, 2p) one.  Held limb for limb against ``smul_plain`` and
-``smul_static_plain`` on short bit strings (those are held to the reference's
-kernel bodies in ``tests/test_torch_g2_ladders.py``), and canonically against
-the host engine at full length.  Tolerance: exact.
+The CUDA kernels run only on a card (``tests/test_torch_cuda.py`` holds them
+to the plain versions there).  Here their schedule is checked without one:
+one half of a ladder bit (``half_bit``) is the doubling's or the add's first
+layer of base-field products (each Fp2 product split into its three
+Karatsuba pieces, one a worker), the Fp2 products combined from the pieces,
+the middle values formed from those, the second layer, and the result.  Per
+bit the ladder runs the doubling into the other point buffer, the block's
+shortcut where no lane has the bit, then the add and the select acc = bit ?
+A : D that writes into the accumulator's buffer; the add and doubling
+kernels stage P (and Q), run their half once and store every lane's result.
+Every field operation is the kernel's relaxed [0, 2p) one.  Held limb for
+limb against ``smul_plain`` and ``smul_static_plain`` on short bit strings
+(those are held to the reference's kernel bodies in
+``tests/test_torch_g2_ladders.py``), canonically against the host engine at
+full length, and limb for limb against ``add_plain`` and ``double_plain``
+(held to the reference's ``_add_kernel`` and ``_double_kernel`` bodies in
+``tests/test_torch_g2.py``).  Tolerance: exact.
 """
 
 import random
+from typing import NamedTuple
 
 import pytest
 import torch
@@ -68,29 +76,41 @@ def _field(p, L):
     return mul, add, sub, small
 
 
-def _ladder_model(Q, p, L, b3, block, ks=None, nbits=0, bits=None):
-    """``g2_ladder_kernel`` on lanes of Python ints: Q a list of six ints per
-    lane (coordinate c's component j at 2c + j); per-lane scalars ks over
-    nbits bits (MSB first), or one MSB-first bit list shared by every lane;
-    ``block`` lanes a block.  Each lane has the kernel's slots: two point
-    buffers, Q, a layer's 18 products K, the first layer's Fp2 products F
-    and the middle values M.  Returns the points and how many (block, bit)
-    steps skipped the add and ran it."""
-    mul, add, sub, small = _field(p, L)
-    one = (1 << (16 * L)) % p
-    n = len(Q)
-    pt = [[[0, 0, one, 0, 0, 0], [0] * 6] for _ in range(n)]
-    K = [[0] * 18 for _ in range(n)]
-    Fv = [[0] * 12 for _ in range(n)]
-    M = [[0] * 12 for _ in range(n)]
-    cur = [0] * ((n + block - 1) // block)
+class Slots(NamedTuple):
+    """Where a block's shared slots start (``Slots`` in the kernel source):
+    the point buffers, Q, a layer's products K, the first layer's Fp2
+    products F, the middle values M, and the slot count."""
 
-    def kara(i, e, j):  # component j of Fp2 product e from its pieces
-        t0, t1 = K[i][3 * e], K[i][3 * e + 1]
-        return sub(t0, t1) if j == 0 else sub(K[i][3 * e + 2], add(t0, t1))
+    pt: int
+    q: int
+    k: int
+    f: int
+    m: int
+    n: int
 
-    def b3_comp(a0, a1, j):  # f2_mul_b3's branches
-        c0, c1 = b3
+
+LADDER = Slots(0, 12, 18, 36, 48, 60)  # acc and D, Q, K 18, F 12, M 12
+ADD = Slots(0, 6, 12, 30, 42, 54)  # P, Q, K 18, F 12, M 12
+DBL = Slots(0, 0, 6, 18, 26, 34)  # P, K 12, F 8, M 8 (no Q)
+
+
+class _HalfBit:
+    """``half_bit`` on one lane's slots: a list of ``S.n`` Python ints, None
+    where nothing was written yet (so a read of such a slot fails).  Each
+    step computes every worker's value from the slots, then writes them all:
+    the barrier after it."""
+
+    def __init__(self, p, L, b3, S):
+        self.mul, self.add, self.sub, self.small = _field(p, L)
+        self.b3, self.S = b3, S
+
+    def kara(self, sm, e, j):  # component j of Fp2 product e from its pieces
+        K = self.S.k
+        t0, t1 = sm[K + 3 * e], sm[K + 3 * e + 1]
+        return self.sub(t0, t1) if j == 0 else self.sub(sm[K + 3 * e + 2], self.add(t0, t1))
+
+    def b3_comp(self, a0, a1, j):  # f2_mul_b3's branches
+        (c0, c1), add, sub, small = self.b3, self.add, self.sub, self.small
         if c1 == 0:
             return small(a1 if j else a0, c0)
         if c0 == 0:
@@ -101,97 +121,141 @@ def _ladder_model(Q, p, L, b3, block, ks=None, nbits=0, bits=None):
             return sub(small(a0, c0), small(a1, c1))
         return add(small(a1, c0), small(a0, c1))
 
-    def pt_get(P, x, j):  # coordinate x < 3, or X + Y, Y + Z, X + Z
+    def pt_get(self, sm, P, x, j):  # coordinate x < 3, or X + Y, Y + Z, X + Z
         if x < 3:
-            return P[2 * x + j]
+            return sm[P + 2 * x + j]
         c0, c1 = (1 if x == 4 else 0), (1 if x == 3 else 2)
-        return add(P[2 * c0 + j], P[2 * c1 + j])
+        return self.add(sm[P + 2 * c0 + j], sm[P + 2 * c1 + j])
 
-    def piece(get, pc):  # Karatsuba piece: a0, a1, a0 + a1
-        return get(pc) if pc < 2 else add(get(0), get(1))
+    def piece(self, get, pc):  # Karatsuba piece: a0, a1, a0 + a1
+        return get(pc) if pc < 2 else self.add(get(0), get(1))
 
-    def value(i, ref, j):  # a second-layer operand's component j
+    def value(self, ref, j):  # the slot of a second-layer operand's component j
         kind, idx = ref
-        return (Fv if kind == "F" else M)[i][2 * idx + j]
+        return (self.S.f if kind == "F" else self.S.m) + 2 * idx + j
 
-    def product(i, h, lay, x, c):
+    def product(self, sm, h, lay, x, A):
         e, pc = divmod(x, 3)
         if lay == 0:
-            A = pt[i][c if h == 0 else c ^ 1]
-            B = A if h == 0 else Q[i]
-            a = piece(lambda j: pt_get(A, PT_A[h][e], j), pc)
-            b = piece(lambda j: pt_get(B, PT_B[h][e], j), pc)
+            B = A if h == 0 else self.S.q
+            a = self.piece(lambda j: self.pt_get(sm, A, PT_A[h][e], j), pc)
+            b = self.piece(lambda j: self.pt_get(sm, B, PT_B[h][e], j), pc)
         else:
-            a = piece(lambda j: value(i, MID_A[h][e], j), pc)
-            b = piece(lambda j: value(i, MID_B[h][e], j), pc)
-        return mul(a, b)
+            a = self.piece(lambda j: sm[self.value(MID_A[h][e], j)], pc)
+            b = self.piece(lambda j: sm[self.value(MID_B[h][e], j)], pc)
+        return self.mul(a, b)
 
-    def dbl_mid(i, m, j):  # t0m, t2, z3t, y3t from t0, t1, zz, xy
-        F = Fv[i]
+    def dbl_mid(self, sm, m, j):  # t0m, t2, z3t, y3t from t0, t1, zz, xy
+        F, add, sub = self.S.f, self.add, self.sub
         if m == 2:
-            return small(F[j], 8)
-        t2 = b3_comp(F[4], F[5], j)
+            return self.small(sm[F + j], 8)
+        t2 = self.b3_comp(sm[F + 4], sm[F + 5], j)
         if m == 1:
             return t2
-        return add(F[j], t2) if m == 3 else sub(F[j], add(add(t2, t2), t2))
+        return add(sm[F + j], t2) if m == 3 else sub(sm[F + j], add(add(t2, t2), t2))
 
-    def add_mid(i, m, j):  # t3, t4, lnb, t0_3, z3t, t1m from t0, t1, t2, s3, s4, s5
-        F = Fv[i]
+    def add_mid(self, sm, m, j):  # t3, t4, lnb, t0_3, z3t, t1m from t0, t1, t2, s3, s4, s5
+        F, add, sub = self.S.f, self.add, self.sub
         if m < 2:
-            return sub(F[2 * (m + 3) + j], add(F[2 * m + j], F[2 * (m + 1) + j]))
+            return sub(sm[F + 2 * (m + 3) + j], add(sm[F + 2 * m + j], sm[F + 2 * (m + 1) + j]))
         if m == 2:
-            ln = [sub(F[10 + c], add(F[c], F[4 + c])) for c in (0, 1)]
-            return b3_comp(ln[0], ln[1], j)
+            ln = [sub(sm[F + 10 + c], add(sm[F + c], sm[F + 4 + c])) for c in (0, 1)]
+            return self.b3_comp(ln[0], ln[1], j)
         if m == 3:
-            return add(add(F[j], F[j]), F[j])
-        t2b = b3_comp(F[4], F[5], j)
-        return add(F[2 + j], t2b) if m == 4 else sub(F[2 + j], t2b)
+            return add(add(sm[F + j], sm[F + j]), sm[F + j])
+        t2b = self.b3_comp(sm[F + 4], sm[F + 5], j)
+        return add(sm[F + 2 + j], t2b) if m == 4 else sub(sm[F + 2 + j], t2b)
 
-    def point_out(i, h, c, j):
+    def point_out(self, sm, h, c, j):
+        add, kara = self.add, self.kara
         if h == 0:
             if c == 0:
-                return add(kara(i, 0, j), kara(i, 0, j))
-            return add(kara(i, 1, j), kara(i, 2, j)) if c == 1 else kara(i, 3, j)
-        a, b = kara(i, 2 * c, j), kara(i, 2 * c + 1, j)
-        return sub(a, b) if c == 0 else add(a, b)
+                return add(kara(sm, 0, j), kara(sm, 0, j))
+            return add(kara(sm, 1, j), kara(sm, 2, j)) if c == 1 else kara(sm, 3, j)
+        a, b = kara(sm, 2 * c, j), kara(sm, 2 * c + 1, j)
+        return self.sub(a, b) if c == 0 else add(a, b)
 
+    def run(self, sm, h, A, take=True, keep=0):
+        """Steps 1-5 of the doubling (h = 0) of the point in slots A, or the
+        add (h = 1) of the points in slots A and Q; returns the six
+        components of the result where take holds, else slots keep's."""
+        S = self.S
+        nx, nf = (12, 8) if h == 0 else (18, 12)
+        mid = self.dbl_mid if h == 0 else self.add_mid
+        # 1. the first layer, one product a worker
+        sm[S.k:S.k + nx] = [self.product(sm, h, 0, x, A) for x in range(nx)]
+        # 2. its Fp2 products
+        sm[S.f:S.f + nf] = [self.kara(sm, v >> 1, v & 1) for v in range(nf)]
+        # 3. the middle values
+        sm[S.m:S.m + nf] = [mid(sm, v >> 1, v & 1) for v in range(nf)]
+        # 4. the second layer
+        sm[S.k:S.k + nx] = [self.product(sm, h, 1, x, A) for x in range(nx)]
+        # 5. the result, or slots keep
+        if take:
+            return [self.point_out(sm, h, v >> 1, v & 1) for v in range(6)]
+        return sm[keep:keep + 6]
+
+
+def _lane_slots(S):
+    return [None] * S.n
+
+
+def _ladder_model(Q, p, L, b3, block, ks=None, nbits=0, bits=None):
+    """``g2_ladder_kernel`` on lanes of Python ints: Q a list of six ints per
+    lane (coordinate c's component j at 2c + j); per-lane scalars ks over
+    nbits bits (MSB first), or one MSB-first bit list shared by every lane;
+    ``block`` lanes a block.  Each lane has the kernel's slots (``LADDER``):
+    two point buffers, Q, a layer's 18 products K, the first layer's Fp2
+    products F and the middle values M.  Returns the points and how many
+    (block, bit) steps skipped the add and ran it."""
+    S = LADDER
+    half = _HalfBit(p, L, b3, S)
+    one = (1 << (16 * L)) % p
+    n = len(Q)
+    sms = [_lane_slots(S) for _ in range(n)]
+    for i in range(n):  # Q; acc = infinity
+        sms[i][S.q:S.q + 6] = Q[i]
+        sms[i][S.pt:S.pt + 6] = [0, 0, one, 0, 0, 0]
+    cur = [0] * ((n + block - 1) // block)
     steps = len(bits) if bits is not None else nbits
     skipped = added = 0
     for blk, lo in enumerate(range(0, n, block)):
         lanes = range(lo, min(lo + block, n))
         for step in range(steps):
-            c = cur[blk]
+            A, D = S.pt + 6 * cur[blk], S.pt + 6 * (cur[blk] ^ 1)
             lane_bit = {}
-            for h in (0, 1):
-                if h == 1 and not any(lane_bit.values()):  # acc = D
-                    cur[blk] ^= 1
-                    skipped += 1
-                    break
-                nx, nf = (12, 8) if h == 0 else (18, 12)
-                mid = dbl_mid if h == 0 else add_mid
-                for i in lanes:  # 1. the first layer, one product a worker
-                    K[i][:nx] = [product(i, h, 0, x, c) for x in range(nx)]
-                for i in lanes:  # 2. its Fp2 products
-                    Fv[i][:nf] = [kara(i, v >> 1, v & 1) for v in range(nf)]
-                for i in lanes:  # 3. the middle values
-                    M[i][:nf] = [mid(i, v >> 1, v & 1) for v in range(nf)]
-                for i in lanes:  # 4. the second layer
-                    K[i][:nx] = [product(i, h, 1, x, c) for x in range(nx)]
-                if h == 0:  # 5. D into the other buffer; the lanes' bits
-                    for i in lanes:
-                        pt[i][c ^ 1] = [point_out(i, 0, v >> 1, v & 1) for v in range(6)]
-                        if bits is not None:
-                            lane_bit[i] = bits[step] == 1
-                        else:
-                            lane_bit[i] = (ks[i] >> (nbits - 1 - step)) & 1 == 1
-                else:  # 5. acc = bit ? A : D
-                    added += 1
-                    for i in lanes:
-                        if lane_bit[i]:
-                            pt[i][c] = [point_out(i, 1, v >> 1, v & 1) for v in range(6)]
-                        else:
-                            pt[i][c] = list(pt[i][c ^ 1])
-    return [pt[i][cur[i // block]] for i in range(n)], skipped, added
+            for i in lanes:  # D = 2 acc into the other buffer; the lanes' bits
+                sms[i][D:D + 6] = half.run(sms[i], 0, A)
+                if bits is not None:
+                    lane_bit[i] = bits[step] == 1
+                else:
+                    lane_bit[i] = (ks[i] >> (nbits - 1 - step)) & 1 == 1
+            if not any(lane_bit.values()):  # acc = D
+                cur[blk] ^= 1
+                skipped += 1
+                continue
+            added += 1
+            for i in lanes:  # acc = bit ? D + Q : D, into acc's buffer
+                sms[i][A:A + 6] = half.run(sms[i], 1, D, take=lane_bit[i], keep=D)
+    return ([sms[i][S.pt + 6 * cur[i // block]:][:6] for i in range(n)], skipped, added)
+
+
+def _step_model(P, p, L, b3, Q=None):
+    """``g2_add_kernel`` (Q given) or ``g2_double_kernel`` (Q None) on lanes
+    of Python ints: each lane's P (and Q) staged into the kernel's slots
+    (``ADD``: 54, ``DBL``: 34), the add's or the doubling's five steps once,
+    every lane taking the result (no select), which goes straight out."""
+    S = ADD if Q is not None else DBL
+    half = _HalfBit(p, L, b3, S)
+    out = []
+    for i, lane in enumerate(P):
+        sm = _lane_slots(S)
+        sm[S.pt:S.pt + 6] = lane
+        if Q is not None:
+            sm[S.q:S.q + 6] = Q[i]
+        out.append(half.run(sm, 0 if Q is None else 1, S.pt))
+        assert len(sm) == S.n  # no step wrote past the layout's slots
+    return out
 
 
 def _ints(t, L):
@@ -275,3 +339,46 @@ def test_g2_ladder_model_at_full_length_equals_the_host_engine(g2_case, which):
         got, _, _ = _ladder_model(q, fp.p, fp.L, g2.rows.b3, 32, bits=bits)
     want = [eng.g2.mul_any(host[i], k) for i, k in zip(lanes, ks)]
     assert g2.decode_points(_limbs(got, fp.L)) == want
+
+
+@pytest.fixture(scope="module")
+def edge_lanes():
+    """Ten BLS12-381 lane pairs P, Q in relaxed limbs (each a host point plus
+    infinity by the plain add): P = Q (the same limbs, and the same point in
+    other limbs), P = -Q, P or Q or both at infinity, and random pairs."""
+    spec = get_spec("BLS12_381")
+    eng, g2 = get_engine(spec), get_hash_g2_ctx(spec, "cpu").g2
+    rng = random.Random(18)
+    pts = [eng.g2.mul(eng.gen_g2, rng.randrange(1, spec.r)) for _ in range(6)]
+    A = [pts[0], pts[1], pts[2], None, pts[3], None, pts[4], pts[5], pts[1], pts[3]]
+    B = [pts[0], pts[1], eng.g2.neg(pts[2]), pts[3], None, None, pts[5], pts[4], pts[2], pts[0]]
+    inf = g2.encode_points([None] * len(A))
+    P = g2_cuda.add_plain(g2.rows, g2.encode_points(A), inf)
+    Q = g2_cuda.add_plain(g2.rows, g2.encode_points(B), inf)
+    Q[..., 0] = P[..., 0]  # lane 0: P = Q limb for limb
+    Q[..., 1] = g2.encode_points(B[1:2])[..., 0]  # lane 1: the same point in other limbs
+    return eng, g2, P, Q, A, B
+
+
+@pytest.mark.parametrize("kernel", ["add", "double"])
+def test_g2_add_and_double_models_equal_the_plain_versions(edge_lanes, kernel):
+    """g2_add_kernel's and g2_double_kernel's single launch (staging, the
+    five steps, the direct store) limb for limb against add_plain and
+    double_plain on the edge lanes, relaxed limbs in [p, 2p) among inputs and
+    outputs; and canonically against the host engine."""
+    eng, g2, P, Q, A, B = edge_lanes
+    fp = g2.fp
+    p, q = _ints(P, fp.L), _ints(Q, fp.L)
+    if kernel == "add":
+        got = _step_model(p, fp.p, fp.L, g2.rows.b3, Q=q)
+        want = g2_cuda.add_plain(g2.rows, P, Q)
+        host = [eng.g2.add(a, b) for a, b in zip(A, B)]
+    else:
+        got = _step_model(p, fp.p, fp.L, g2.rows.b3)
+        want = g2_cuda.double_plain(g2.rows, P)
+        host = [eng.g2.add(a, a) for a in A]
+    assert got == _ints(want, fp.L)
+    assert g2.decode_points(_limbs(got, fp.L)) == host
+    for lanes in (p, q, got):  # relaxed limbs occur
+        assert any(c >= fp.p for lane in lanes for c in lane)
+
