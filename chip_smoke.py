@@ -21,8 +21,9 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
      over six warps) also at 4,096, 2,048 and 1,024 lanes, each against the
      plain version's first lanes; the split kernels of
      ``g1_split_kernels.cu`` (add, addsel, double, phase 10's signed and
-     mixed combiners and the ladder) with their ptxas registers, stack and
-     spills (none allowed, at most 128 registers), and mont_mul's lines;
+     mixed combiners and dbladd, and the ladder) with their ptxas registers,
+     stack and spills (none allowed, at most 128 registers), and mont_mul's
+     lines;
   4. the n=512 gates of ``bench.py``: msm_totals + horner_host and the split
      path must equal the port's msm_naive and the host engine's MSM;
   5. the main path at 2^20 points: 8,192 base points by the port's
@@ -94,13 +95,15 @@ The G1 MSM options behind the API's bridge and ``BatchEngine.g1_msm``:
      maddselneg) against their plain PyTorch versions on the card, bit for
      bit: first on phase 3's 4,097 lanes and edge lanes (P = inf,
      P = lift(Q), P = -lift(Q), sel and neg mixed, a 32-lane block that adds
-     nowhere and one that adds everywhere, neg mixed in both) on BLS12-381
-     and BN254, then at the path's shapes (the three combiners, each one add
-     or mixed add over six warps, at the 262,144 lanes of one 2^20, c=16
-     scan step, dbladd at 2^20 lanes), each timed beside its plain version
-     with its bound; the combiners' ptxas registers, stack and spills (none
-     allowed, at most 128 registers: checked in phase 3); and a 64-bit
-     ladder through
+     nowhere and one that adds everywhere, neg mixed in both, a partial
+     last block) on BLS12-381 and BN254, dbladd also with P = inf, Q = inf,
+     Q = 2P and Q = -2P lanes; then at the path's shapes (the three
+     combiners, each one add or mixed add over six warps, at the 262,144
+     lanes of one 2^20, c=16 scan step, dbladd, one bit of the six-warp
+     ladder, at 2^20 lanes and at the 8,192 lanes of the ladder below),
+     each timed beside its plain version with its bound; their ptxas
+     registers, stack and spills (none allowed, at most 128 registers:
+     checked in phase 3); and a 64-bit ladder through
      ``G1Ctx.dbl_add_select`` (its launches are dbladd's count) against
      ``scalar_mul``;
  11. the entry points at full size, one warm-up and 3 timed calls each
@@ -152,14 +155,20 @@ G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
  14. the six G2 kernels (g2_add, g2_double, g2_addsel, g2_dblsel, g2_smul,
      g2_smul_static) against their plain PyTorch versions on the card, bit
      for bit: the point kernels on 4,097 lanes with P = Q, P = -Q and
-     infinity on either side and a 15/16 selection, the ladders on 256
+     infinity on either side and a 15/16 selection, g2_dblsel (one bit of
+     the G2 ladder) also with Q = 2P and Q = -2P lanes, a block that adds
+     nowhere and one that adds everywhere, in 32-lane blocks (4,097 lanes)
+     and the launcher's 16-lane ones (100 lanes); the ladders on 256
      lanes (k = 0, 1, r - 1, lanes 32-63 with k = 0; infinity among them;
      the two cofactor scalars) and on their first 250 (a partial block),
-     in the launcher's blocks and in 32-lane blocks, with the ladders'
-     ptxas lines (no stack, no spill allowed); then each timed at the path's 4,096 lanes beside its plain
-     version, with its bound; then g2_addsel and g2_dblsel on their paths,
-     ``G2Ctx.add_select`` and a 64-bit ``G2Ctx.dbl_add_select`` ladder held
-     to ``G2Ctx.scalar_mul`` (their launch counts come from there);
+     in the launcher's blocks and in 32-lane blocks, with the ptxas lines
+     of the ladders, g2_add, g2_double and g2_dblsel (at most 96
+     registers, no stack, no spill allowed); then each timed at the path's
+     4,096 lanes beside its plain version, with its bound; then g2_addsel
+     and g2_dblsel on their paths, ``G2Ctx.add_select`` and a 64-bit
+     ``G2Ctx.dbl_add_select`` ladder at 4,096 lanes (32-lane blocks) and at
+     16 lanes an SM (16-lane blocks), each held to ``G2Ctx.scalar_mul``
+     (their launch counts come from there);
  15. the entry points, one warm-up and 3 timed calls each, the launch counts
      set to 0 just before and read just after: ``hash_to_g2_batch`` on 4,096
      messages under ``BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_``, (a)
@@ -228,9 +237,10 @@ double at 16, 1 and 2^20 lanes, its signed and mixed scan combiners
 (addselneg, maddsel, maddselneg) at phase 10's 262,144 lanes, phase 11
 (e)'s three 2^20 MSMs (affine, signed, both), ``msm_host_bridge`` on
 60,000 BLS12-381 points, its smul at 8,192, 4,096, 2,048 and 1,024 lanes,
-``BatchEngine.g1_scalar_mul`` on 8,192 points and mont_mul at (6, 24,
-4,096) and (2, 24, 2^20) (each body where the checkout has two); run for
-two checkouts in turns to compare them on one card.
+its dbladd at 2^20 and 8,192 lanes and smul_static at 4,096 lanes with
+h_eff, ``BatchEngine.g1_scalar_mul`` on 8,192 points and mont_mul at (6,
+24, 4,096) and (2, 24, 2^20) (each body where the checkout has two); run
+for two checkouts in turns to compare them on one card.
 
     python3 chip_smoke.py --time-pairing REPO
 
@@ -247,10 +257,12 @@ product check
 
     python3 chip_smoke.py --time-g2 REPO
 
-times, with the checkout at REPO, ``g2_smul`` at 4,096, 2,048 and 1,024
-lanes and at 16 lanes an SM and one more (the last count of the launcher's
-16-lane blocks and the first of its 32-lane ones), each cofactor ladder at
-4,096 lanes, beside their bounds, with the G2 ladders' ptxas lines, and
+times, with the checkout at REPO, ``g2_add``, ``g2_double``, ``g2_dblsel``
+and ``g2_addsel`` at 4,096 lanes and at 16 lanes an SM and one more (the
+last count of the launcher's 16-lane blocks and the first of its 32-lane
+ones), ``g2_smul`` at those counts and at 2,048 and 1,024 lanes, each
+cofactor ladder at 4,096 lanes, beside their bounds, with the G2 block
+kernels' ptxas lines, and
 ``BatchEngine.g2_scalar_mul`` on 4,096 points with its ``g2_smul_stages``
 line; run for two checkouts in turns.
 
@@ -301,7 +313,6 @@ CHECK_LANES = ((1, 1), (2, 2), (257, 256))
 TREE_LANES = (1, 2, 64, 4096)  # phase 6: lanes of the product tree against its plain version
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
-G1_SRC = "mathlib_tpu_torch/csrc/g1_kernels.cu"
 G1_SPLIT_SRC = "mathlib_tpu_torch/csrc/g1_split_kernels.cu"
 G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
 G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
@@ -312,7 +323,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "double": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:182"),
     "addsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:210"),
     "smul": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:476"),
-    "dbladd": (G1_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
+    "dbladd": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:189"),
     "addselneg": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:230"),
     "maddsel": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:263"),
     "maddselneg": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:284"),
@@ -331,7 +342,7 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "g2_add": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
     "g2_double": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
     "g2_addsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
-    "g2_dblsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
+    "g2_dblsel": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
     "g2_smul": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:358"),
     "g2_smul_static": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:393"),
     "gather_rows": ("mathlib_tpu_torch/csrc/gather_kernels.cu",
@@ -611,16 +622,58 @@ def time_double(g1_cuda, F, P, design: str) -> None:
             bound_by=bnd["bound_by"], over_bound=f"{ms / bnd['bound_ms']:.1f}x")
 
 
+def time_dbladd(g1_cuda, F, P, Q, sel, design: str) -> None:
+    """``dbladd`` of the imported checkout (``design``: its name in the log)
+    at 2^20 lanes and at the 8,192 of phase 10's ladder on contiguous slices
+    of P, Q and sel, beside the bound (8 products a lane, 12 more where sel
+    is set), each output equal to the plain version's; a ``[time_dbladd]``
+    line each."""
+    import torch
+
+    L = F.fp.L
+    smi = smi_line()
+    for lanes in (N_MAIN, N_BASE):
+        a, b, s_ = (t[..., :lanes].contiguous() for t in (P, Q, sel))
+        ms, got = cuda_ms(lambda: g1_cuda.dbladd(F, a, b, s_), reps=5 if lanes > N_BASE else 50)
+        want = chunked(lambda x, y, z: g1_cuda.dbladd_plain(F, x, y, z), lanes, a, b, s_)
+        if not torch.equal(got, want):
+            raise AssertionError(f"dbladd at {lanes} lanes disagrees with its plain version")
+        bnd = bound((3 * 3 * L * 4 + 1) * lanes, wide_mads(8 * lanes + 12 * int(s_.sum()), L))
+        log("time_dbladd", design=design, lanes=lanes, L=L, ms=f"{ms:.4f}",
+            bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+            over_bound=f"{ms / bnd['bound_ms']:.2f}x", equal=True, card=repr(smi))
+
+
+def time_smul_static(g1_cuda, F, Q, bits, repo: str, design: str, smi: str) -> None:
+    """``smul_static`` of the imported checkout on Q's lanes with the
+    MSB-first ``bits``, beside the bound (8 products a bit, 12 more at each
+    one-bit), its output equal to the plain version's; a
+    ``[time_smul_static]`` line."""
+    import torch
+
+    L, n = F.fp.L, Q.shape[-1]
+    ms, got = cuda_ms(lambda: g1_cuda.smul_static(F, Q, bits), reps=5)
+    if not torch.equal(got, g1_cuda.smul_static_plain(F, Q, bits)):
+        raise AssertionError("smul_static disagrees with its plain version")
+    h = [int(b) for b in bits]
+    b = bound(2 * 3 * L * 4 * n, wide_mads(n * (8 * len(h) + 12 * sum(h)), L))
+    log("time_smul_static", repo=repr(repo), design=design, lanes=n, bits=len(h), ones=sum(h),
+        ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+
+
 SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_addselneg_kernel",
-                 "g1_maddsel_kernel", "g1_maddselneg_kernel", "g1_smul_ladder_kernel")
+                 "g1_maddsel_kernel", "g1_maddselneg_kernel", "g1_smul_ladder_kernel",
+                 "g1_dbladd_kernel")
 
 
-G2_BLOCK_KERNELS = ("g2_ladder_kernel", "g2_smul", "g2_add_kernel", "g2_double_kernel")
+G2_BLOCK_KERNELS = ("g2_ladder_kernel", "g2_smul", "g2_add_kernel", "g2_double_kernel",
+                    "g2_dblsel_kernel")
 
 
 def g2_ladder_ptxas(path: str) -> list:
-    """The build log's ptxas lines of the G2 ladder kernels and of the add
-    and doubling kernels on the ladder's steps (or their one-thread
+    """The build log's ptxas lines of the G2 ladder kernels and of the add,
+    doubling and dblsel kernels on the ladder's steps (or their one-thread
     predecessors, in an older checkout)."""
     return [e for e in ptxas_entries(path) if e.startswith(G2_BLOCK_KERNELS)]
 
@@ -932,6 +985,21 @@ def double_design(build) -> str:
     (split_dbl in csrc/g1_split_kernels.cu) or "one-thread" (rcb_dbl a
     thread)."""
     return "four-warp" if _source_has(build, "g1_split_kernels.cu", "split_dbl") else "one-thread"
+
+
+def dbladd_design(build) -> str:
+    """Which dbladd kernel the imported checkout has: "six-warp" (one bit of
+    the six-warp ladder, csrc/g1_split_kernels.cu) or "one-thread"."""
+    return ("six-warp" if _source_has(build, "g1_split_kernels.cu", "g1_dbladd_kernel")
+            else "one-thread")
+
+
+def dblsel_design(build) -> str:
+    """Which g2_dblsel kernel the imported checkout has: "block" (one bit of
+    the G2 ladder over a block's warps, csrc/g2_smul_kernels.cu) or
+    "one-thread"."""
+    return ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_dblsel_kernel")
+            else "one-thread")
 
 
 def tree_design(build) -> str:
@@ -1631,6 +1699,14 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
         P, Q, Qa = edge_inputs(g, get_engine(sp), sp)
         F = g.F
         check("dbladd", g1_cuda.dbladd(F, P, Q, sel), g1_cuda.dbladd_plain(F, P, Q, sel))
+        # dbladd's own edge lanes: P = inf, Q = inf, Q = 2P and Q = -2P
+        Pd, Qd = P.clone(), Q.clone()
+        Pd[..., 5::11] = g.inf
+        Qd[..., 1::13] = g.inf
+        D = g1_cuda.double_plain(F, Pd)
+        Qd[..., 2::7] = D[..., 2::7]
+        Qd[..., 4::17] = g.neg(D)[..., 4::17]
+        check("dbladd", g1_cuda.dbladd(F, Pd, Qd, sel), g1_cuda.dbladd_plain(F, Pd, Qd, sel))
         check("addselneg", g1_cuda.addselneg(F, P, Q, sel, neg),
               g1_cuda.addselneg_plain(F, P, Q, sel, neg))
         check("maddsel", g1_cuda.maddsel(F, P, Qa, sel), g1_cuda.maddsel_plain(F, P, Qa, sel))
@@ -1686,7 +1762,17 @@ def g1_option_phases(dev, smi: str, results: dict, main: dict) -> dict:
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
             bound_ms=f"{results[name]['bound_ms']:.4f}", bound_by=results[name]["bound_by"],
             fp_muls=fp_muls)
-    del Pb, Qb, Qab, selb, negb, Pw, Qw, sw
+    # dbladd at the 8,192 lanes of the ladder below, where a lane's chain of
+    # layers sets the time
+    Pl, Ql, sl = (t[..., :N_BASE].contiguous() for t in (Pb, Qb, selb))
+    ms, got = cuda_ms(lambda: g1_cuda.dbladd(F, Pl, Ql, sl), reps=50)
+    plain_ms, want = cuda_ms(lambda: g1_cuda.dbladd_plain(F, Pl, Ql, sl), reps=1)
+    check("dbladd", got, want)
+    b = bound((3 * pt + 1) * N_BASE, wide_mads(8 * N_BASE + 12 * int(sl.sum()), g1.fp.L))
+    log("time", kernel="dbladd", design=dbladd_design(build), lanes=N_BASE, equal=True,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], card=repr(smi))
+    del Pb, Qb, Qab, selb, negb, Pw, Qw, sw, Pl, Ql, sl, got, want
 
     # dbladd on its path: a 64-bit double-and-add ladder through
     # G1Ctx.dbl_add_select, as the reference's XLA scalar_mul runs, against
@@ -2239,7 +2325,7 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
         if regs > 96 or not no_stack_or_spill(entry):
             raise AssertionError(f"G2 block kernel over 96 registers, or with a stack or a "
                                  f"spill: {entry}")
-    if len(g2_block) != 8:  # both ladders, the add and the doubling, at 16 and 32 lanes
+    if len(g2_block) != 10:  # both ladders, the add, the doubling and dblsel, at 16 and 32 lanes
         raise AssertionError(f"the G2 block kernels' ptxas lines are missing: {g2_block}")
     pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
     n = N_CHECK
@@ -2261,6 +2347,19 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     check("g2_double", g2_cuda.double(F, S), g2_cuda.double_plain(F, S))
     check("g2_addsel", g2_cuda.addsel(F, S, Q, sel), g2_cuda.addsel_plain(F, S, Q, sel))
     check("g2_dblsel", g2_cuda.dblsel(F, S, Q, sel), g2_cuda.dblsel_plain(F, S, Q, sel))
+    # g2_dblsel's own edge lanes, Q = 2P and Q = -2P, a block that adds
+    # nowhere and one that adds everywhere, in 32-lane blocks (4,097 lanes)
+    # and the launcher's 16-lane ones (100)
+    Qd = Q.clone()
+    D = g2_cuda.double_plain(F, S)
+    Qd[..., 2::7] = D[..., 2::7]
+    Qd[..., 4::17] = g2.neg(D)[..., 4::17]
+    seld = sel.clone()
+    seld[32:64], seld[64:96] = False, True
+    for m in (n, 100):
+        Sm, Qm, sm = S[..., :m].contiguous(), Qd[..., :m].contiguous(), seld[:m]
+        check("g2_dblsel", g2_cuda.dblsel(F, Sm, Qm, sm), g2_cuda.dblsel_plain(F, Sm, Qm, sm))
+    del Qd, D, Sm, Qm
     # the ladders against the plain version's lanes on 256 lanes and on the
     # first G2_RAGGED of them (a partial block), both in the launcher's
     # 16-lane blocks, and on 88 lanes past 16 an SM (32-lane blocks, a
@@ -2340,21 +2439,26 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
 
     # g2_addsel and g2_dblsel on their paths (no entry point reaches them by
     # default): G2Ctx.add_select, and a 64-bit ladder of G2Ctx.dbl_add_select
-    # held to G2Ctx.scalar_mul
+    # held to G2Ctx.scalar_mul, at 4,096 lanes (32-lane blocks) and at 16
+    # lanes an SM (the launcher's 16-lane blocks)
     g2_cuda.reset_launches()
     check("g2_addsel", g2.add_select(Pt, Qt, selt), g2_cuda.addsel_plain(F, Pt, Qt, selt))
     ks64 = [int.from_bytes(rng.bytes(8), "big") >> (64 - N_G2_LADDER_BITS) for _ in range(N_G2)]
     K64 = g2.encode_scalars(ks64)
-    acc = g2.inf.expand(Qt.shape)
-    for i in range(N_G2_LADDER_BITS - 1, -1, -1):
-        acc = g2.dbl_add_select(acc, Qt, g2_cuda.scalar_bit(K64, i))
+    ladder_lanes = (N_G2, 16 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    for m in ladder_lanes:
+        q, k64 = Qt[..., :m].contiguous(), K64[..., :m].contiguous()
+        acc = g2.inf.expand(q.shape)
+        for i in range(N_G2_LADDER_BITS - 1, -1, -1):
+            acc = g2.dbl_add_select(acc, q, g2_cuda.scalar_bit(k64, i))
+        if not bool(g2.eq(acc, g2.scalar_mul(q, k64)).all()):
+            raise AssertionError(f"the G2 dbl_add_select ladder at {m} lanes disagrees with "
+                                 "scalar_mul")
     sel_launches = {k: v for k, v in g2_cuda.launches().items() if k in ("g2_addsel", "g2_dblsel")}
-    if sel_launches != {"g2_addsel": 1, "g2_dblsel": N_G2_LADDER_BITS}:
+    if sel_launches != {"g2_addsel": 1, "g2_dblsel": 2 * N_G2_LADDER_BITS}:
         raise AssertionError(f"G2Ctx did not run on g2_addsel/g2_dblsel: {sel_launches}")
-    if not bool(g2.eq(acc, g2.scalar_mul(Qt, K64)).all()):
-        raise AssertionError("the G2 dbl_add_select ladder disagrees with scalar_mul")
-    log("g2_dblsel_ladder", lanes=N_G2, bits=N_G2_LADDER_BITS, equals_scalar_mul=True,
-        **sel_launches)
+    log("g2_dblsel_ladder", lanes=list(ladder_lanes), block_lanes=[32, 16],
+        bits=N_G2_LADDER_BITS, equals_scalar_mul=True, **sel_launches)
     del Pt, Qt, selt, Kt, acc, S, P, Q
     log("phase14", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
@@ -2700,9 +2804,10 @@ def time_msm(repo: str) -> int:
     at phase 3's shapes (``time_g1_adds``) with the split kernels' ptxas
     lines, its double at 16, 1 and 2^20 lanes (``time_double``), its signed
     and mixed combiners at phase 10's 262,144 lanes (``time_g1_combiners``),
-    phase 11 (e)'s 2^20 MSMs with affine points, signed digits and both (one
-    warm-up and 3 runs each, each equal to the first line's result;
-    ``[time_msm_option]`` lines) and ``msm_host_bridge`` on 60,000
+    its dbladd at 2^20 and 8,192 lanes (``time_dbladd``) and smul_static at
+    4,096 lanes with h_eff (``time_smul_static``), phase 11 (e)'s 2^20 MSMs
+    with affine points, signed digits and both (one warm-up and 3 runs each,
+    each equal to the first line's result; ``[time_msm_option]`` lines) and ``msm_host_bridge`` on 60,000
     BLS12-381 host points (one warm-up and 3 calls, against a host MSM of
     the scalars folded per base point; a ``[time_bridge]`` line).  Run it
     for two checkouts in turns (A, B, B, A) in one call to compare them on
@@ -2764,7 +2869,15 @@ def time_msm(repo: str) -> int:
     neg = torch.from_numpy(np.random.default_rng(7).random(N_MAIN) < 0.5).to(points.device)
     time_g1_combiners(g1_cuda, g1.F, points, Q, g1.to_affine_rows(Q[..., :COMBINER_LANES]), sel,
                       neg, combiner_design(build))
+    time_dbladd(g1_cuda, g1.F, points, Q, sel, dbladd_design(build))
     del Q, sel, neg
+    # smul_static, the ladder whose layers dbladd shares, at 4,096 lanes with
+    # h_eff (the cofactor clearing of hash_to_g1_batch)
+    from mathlib_tpu_torch.ops.hash import get_hash_g1_ctx
+
+    time_smul_static(g1_cuda, g1.F, base[..., :N_HASH].contiguous(),
+                     get_hash_g1_ctx(spec, points.device).h_bits, repo, static_design(build),
+                     smi_line())
 
     # phase 11 (e): the 2^20 MSM with affine points, signed digits and both
     aff = g1.to_affine_rows(points)
@@ -3257,9 +3370,11 @@ def time_batch(repo: str) -> int:
 def time_g2(repo: str) -> int:
     """The G2 kernels alone, with the ``mathlib_tpu_torch`` of the checkout at
     ``repo`` (built there at first use): the ptxas lines of its G2 ladder,
-    add and doubling kernels; ``g2_add`` and ``g2_double`` at 4,096 lanes
-    and at 16 lanes an SM and one more (CUDA events, mean of 100 after a
-    warm-up, beside their bounds, each output equal to the plain version's);
+    add, doubling and dblsel kernels; ``g2_add``, ``g2_double``,
+    ``g2_dblsel`` and ``g2_addsel`` (15/16 of the lanes selected) at 4,096
+    lanes and at 16 lanes an SM and one more (CUDA events, mean of 100 after
+    a warm-up, beside their bounds, each output equal to the plain
+    version's);
     ``g2_smul`` (255 bits) at 4,096, 2,048 and 1,024 lanes and at 16 lanes
     an SM and one more (where the block ladder turns from 16- to 32-lane
     blocks) and each cofactor ladder (``g2_smul_static``) at 4,096 lanes,
@@ -3323,22 +3438,32 @@ def time_g2(repo: str) -> int:
     edge = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
     sdesign = g2_step_design(build)
     R = base.roll(7, -1).contiguous()
+    sel = torch.from_numpy(rng.random(N_G2) < 15 / 16).to(dev)
     want_add, want_dbl = g2_cuda.add_plain(F, Q, R), g2_cuda.double_plain(F, Q)
+    want_dblsel, want_addsel = (g2_cuda.dblsel_plain(F, Q, R, sel),
+                                g2_cuda.addsel_plain(F, Q, R, sel))
+    ddesign = dblsel_design(build)
     for m in (N_G2, edge + 1, edge):
-        p_, r_ = Q[..., :m].contiguous(), R[..., :m].contiguous()
-        for name, run, want_m, nbytes, fp_muls in (
-                ("g2_add", lambda: g2_cuda.add(F, p_, r_), want_add, 3 * pt * m, 36 * m),
-                ("g2_double", lambda: g2_cuda.double(F, p_), want_dbl, 2 * pt * m, 24 * m)):
+        p_, r_, s_ = Q[..., :m].contiguous(), R[..., :m].contiguous(), sel[:m].contiguous()
+        n_sel = int(s_.sum())
+        for name, design_m, run, want_m, nbytes, fp_muls in (
+                ("g2_add", sdesign, lambda: g2_cuda.add(F, p_, r_), want_add, 3 * pt * m, 36 * m),
+                ("g2_double", sdesign, lambda: g2_cuda.double(F, p_), want_dbl, 2 * pt * m,
+                 24 * m),
+                ("g2_dblsel", ddesign, lambda: g2_cuda.dblsel(F, p_, r_, s_), want_dblsel,
+                 (3 * pt + 1) * m, 24 * m + 36 * n_sel),
+                ("g2_addsel", "one-thread", lambda: g2_cuda.addsel(F, p_, r_, s_), want_addsel,
+                 (3 * pt + 1) * m, 36 * n_sel)):
             b = bound(nbytes, wide_mads(fp_muls, L))
             ms, got = cuda_ms(run, reps=100)
             if not torch.equal(got, want_m[..., :m]):
                 raise AssertionError(f"time_g2: {name} at {m} lanes disagrees with its plain "
                                      "version")
-            log("time_g2", repo=repr(repo), design=sdesign, kernel=name, lanes=m,
-                block_lanes=(16 if m <= edge else 32) if sdesign == "block" else None,
+            log("time_g2", repo=repr(repo), design=design_m, kernel=name, lanes=m,
+                block_lanes=(16 if m <= edge else 32) if design_m == "block" else None,
                 ms=f"{ms:.5f}", bound_ms=f"{b['bound_ms']:.5f}", bound_by=b["bound_by"],
                 over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
-    del want_add, want_dbl
+    del want_add, want_dbl, want_dblsel, want_addsel
 
     def smul_at(m):
         q, k = Q[..., :m].contiguous(), K[..., :m].contiguous()
@@ -3474,15 +3599,8 @@ def time_hash(repo: str) -> int:
     sdesign = static_design(build)
     for entry in static_ptxas(build.BUILD_LOG):
         log("ptxas_static", repo=repr(repo), design=sdesign, entry=repr(entry))
-    ms, got = cuda_ms(lambda: g1_cuda.smul_static(g1.F, want, ctx.h_bits), reps=5)
-    if not torch.equal(got, g1_cuda.smul_static_plain(g1.F, want, ctx.h_bits)):
-        raise AssertionError("time_hash: smul_static disagrees with its plain version")
-    h = [int(b) for b in ctx.h_bits]
-    b = bound(2 * 3 * L * 4 * N_HASH, wide_mads(N_HASH * (8 * len(h) + 12 * sum(h)), L))
-    log("time_smul_static", repo=repr(repo), design=sdesign, lanes=N_HASH, bits=len(h),
-        ones=sum(h), ms=f"{ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
-        over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
-    del U0, U1, want, got
+    time_smul_static(g1_cuda, g1.F, want, ctx.h_bits, repo, sdesign, smi)
+    del U0, U1, want
 
     def calls(name, run, same, n, unit):
         """A warm-up (its fp_pow calls recorded) and 3 host-clock calls of
@@ -3862,7 +3980,8 @@ def main() -> int:
                "smul": smul_design(build), "mont_mul": mont_design(build),
                "hash_g1": hash_design(build), "fp_pow": pow_design(build),
                "smul_static": static_design(build), "pairing_check": check_design(build),
-               "g2_add": g2_step_design(build), "g2_double": g2_step_design(build)}
+               "g2_add": g2_step_design(build), "g2_double": g2_step_design(build),
+               "dbladd": dbladd_design(build), "g2_dblsel": dblsel_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

@@ -10,18 +10,19 @@
 //   g1_smul_ladder_kernel <- g1_pallas.py:_smul_kernel      (smul_pallas),
 //                            and with STATIC _smul_static_kernel
 //                            (smul_static_pallas)
+//   g1_dbladd_kernel     <- g1_pallas.py:_dbladd_kernel     (dbladd_pallas)
 //
 // out = P + Q, out = sel ? P + Q : Q (the MSM scan's combiner), its signed
 // form out = sel ? P + Q' : Q' with Q' = neg ? (X, -Y, Z) : Q, the mixed
 // forms out = sel ? P + lift(Q') : lift(Q') for affine (2, L, n) Q,
-// out = 2P, and out = [k]Q per lane (the ladder), on (3, L, n) int32 words
-// holding 16-bit limbs, Montgomery form, relaxed to [0, 2p), as the other
-// G1 kernels (g1_rows.cuh has the layout).
+// out = 2P, out = [k]Q per lane (the ladder) and out = sel ? 2P + Q : 2P
+// (one bit of the ladder), on (3, L, n) int32 words holding 16-bit limbs,
+// Montgomery form, relaxed to [0, 2p) (g1_rows.cuh has the layout).
 //
 // What bounds them on an H100 is the integer multiply rate: an add is 12
 // field products (7,056 32-bit multiply-adds at NW = 12) for 288 bytes in and
-// 144 out, a mixed add 11 (6,468) for 240 in.  The one-thread design
-// (rcb_add in g1_rows.cuh) holds two points and eight temporaries a thread:
+// 144 out, a mixed add 11 (6,468) for 240 in.  The one-thread design (the
+// formula as a call, a lane a thread) held two points and eight temporaries:
 // 246-255 registers, a stack, spills, 8 warps an SM, and 12 dependent
 // products of latency a lane.  Here the add's shape is used instead: its 12
 // products fall into two layers of six independent ones (t0, t1, t2, s3, s4,
@@ -34,7 +35,7 @@
 //      neg is set, so every later step reads Q';
 //   2. warp w computes product w of the first layer from shared memory;
 //   3. warp w computes the two middle values its second-layer product needs
-//      (rcb_add's adds, subs and b3 chains, in rcb_add's order) from the six
+//      (_rcb_add_rows' adds, subs and b3 chains, in its order) from the six
 //      first-layer products, and multiplies;
 //   4. warps 0-2 form X3 = xa - xb, Y3 = ya + yb, Z3 = za + zb, one
 //      coordinate each, and store (Q' where sel is 0).
@@ -47,7 +48,7 @@
 // computes t2b = b3 Z1; then the middle, the second layer and step 4 as
 // above, lift(Q') = (X2, Y2', R mod p) where sel is 0.
 //
-// The doubling (RCB Alg 9, rcb_dbl) is 8 products in two layers of four
+// The doubling (RCB Alg 9, _rcb_dbl_rows) is 8 products in two layers of four
 // (Y Y, Y Z, Z Z, X Y; then t0m xy, t2 z3t, t0m y3t, t1 z3t) for 288 bytes:
 // the same design over four warps.  The MSM runs it at 16 lanes (one a
 // window) and Horner at one, so what it pays there is the latency of a
@@ -69,16 +70,20 @@
 // four layers a bit sets the time, not the instruction rate, and fp_mul's
 // carries wait less than fp_mul_ptx's.  The one-thread ladder it replaced
 // held 255 registers, a 704-byte stack and spills, and waited for 20
-// dependent products a bit.
+// dependent products a bit.  dbladd (out = sel ? 2P + Q : 2P) is one bit of
+// this ladder with acc read from P: P and Q staged from global memory, the
+// doubling's two layers, the add's two where a lane of the block has sel,
+// and the store of sel ? A : D.
 //
 // A thread holds two operands and one product: no stack, no spill (ptxas'
 // report is on chip_smoke.py's build lines), and a lane waits for two
 // products, not twelve or eight.  A block none of whose lanes adds stores
 // Q' (or lift(Q')) without the formula.  Shared memory: 12 slots of NW x 32
 // words (18 KB at NW = 12) for the adds, 7 for the doubling, 19 and the
-// scalar limbs for the ladder.  The MSM kernels' field product is
-// fp_mul_ptx (PTX carry chains): 1-2 % faster than fp_mul in these kernels
-// on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+// scalar limbs for the ladder, 19 for dbladd.  The MSM kernels' and
+// dbladd's field product is fp_mul_ptx (PTX carry chains): 1-2 % faster
+// than fp_mul in the MSM kernels, 3-5 % in dbladd at 2^20 lanes and 2 % at
+// 8,192, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
 //
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return cudaGetLastError() (or -1 for an unsupported L).
@@ -157,7 +162,7 @@ __device__ __forceinline__ void store_lift(uint32_t* out, const uint32_t* Q,
 // the middle values of RCB Alg 7, each from the first layer's products
 enum Mid { kT3, kT4, kLnb, kT0x3, kZ3t, kT1m };
 
-// r = one middle value, by rcb_add's operations in rcb_add's order, from
+// r = one middle value, by _rcb_add_rows' operations in their order, from
 // the first layer's slots F: t0, t1, t2, s3, s4, s5
 template <int NW>
 __device__ __forceinline__ void rcb_mid(uint32_t* r, int id, const Slot<NW>* F, int t,
@@ -234,13 +239,12 @@ struct SlotPoint {
   }
 };
 
-// a = product w of the add's first layer: t0 = X1 X2, t1 = Y1 Y2,
-// t2 = Z1 Z2, s3 = (X1 + Y1)(X2 + Y2), s4 = (Y1 + Z1)(Y2 + Z2),
+// a, b = the operands of product w of the add's first layer: t0 = X1 X2,
+// t1 = Y1 Y2, t2 = Z1 Z2, s3 = (X1 + Y1)(X2 + Y2), s4 = (Y1 + Z1)(Y2 + Z2),
 // s5 = (X1 + Z1)(X2 + Z2)
-template <int NW, bool PTX = true, class P1, class P2>
-__device__ __forceinline__ void add_layer1(uint32_t* a, int w, const P1& P, const P2& Q, int t,
-                                           const FieldConsts& k) {
-  uint32_t b[NW];
+template <int NW, class P1, class P2>
+__device__ __forceinline__ void add_operands1(uint32_t* a, uint32_t* b, int w, const P1& P,
+                                              const P2& Q, int t, const FieldConsts& k) {
   if (w < 3) {
     P.get(a, w, t, k);
     Q.get(b, w, t, k);
@@ -254,17 +258,32 @@ __device__ __forceinline__ void add_layer1(uint32_t* a, int w, const P1& P, cons
     Q.get(u, c1, t, k);
     fp_add<NW>(b, b, u, k);
   }
+}
+
+// a = product w of the add's first layer
+template <int NW, bool PTX = true, class P1, class P2>
+__device__ __forceinline__ void add_layer1(uint32_t* a, int w, const P1& P, const P2& Q, int t,
+                                           const FieldConsts& k) {
+  uint32_t b[NW];
+  add_operands1<NW>(a, b, w, P, Q, t, k);
   layer_mul<NW, PTX>(a, a, b, k);
 }
 
-// a = product w of the add's second layer (xa, xb, ya, yb, za, zb) from
-// the first layer's slots F
+// a, b = the operands of product w of the add's second layer (xa, xb, ya,
+// yb, za, zb) from the first layer's slots F
+template <int NW>
+__device__ __forceinline__ void add_operands2(uint32_t* a, uint32_t* b, int w, const Slot<NW>* F,
+                                              int t, const FieldConsts& k, int b3) {
+  rcb_mid<NW>(a, kMidA[w], F, t, k, b3);
+  rcb_mid<NW>(b, kMidB[w], F, t, k, b3);
+}
+
+// a = product w of the add's second layer
 template <int NW, bool PTX = true>
 __device__ __forceinline__ void add_layer2(uint32_t* a, int w, const Slot<NW>* F, int t,
                                            const FieldConsts& k, int b3) {
   uint32_t b[NW];
-  rcb_mid<NW>(a, kMidA[w], F, t, k, b3);
-  rcb_mid<NW>(b, kMidB[w], F, t, k, b3);
+  add_operands2<NW>(a, b, w, F, t, k, b3);
   layer_mul<NW, PTX>(a, a, b, k);
 }
 
@@ -507,8 +526,8 @@ template <int NW>
 using DblSlots = uint32_t[7][NW][kSplitLanes];
 
 // warp w's operands of the second layer: dxa = t0m xy, dya = t2 z3t,
-// dyb = t0m y3t, dz = t1 z3t, each middle value by rcb_dbl's operations in
-// rcb_dbl's order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
+// dyb = t0m y3t, dz = t1 z3t, each middle value by _rcb_dbl_rows' operations
+// in its order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
 // t0m = t0 - ((t2 + t2) + t2)) from the first layer's slots T: t0, t1, zz, xy
 template <int NW>
 __device__ __forceinline__ void dbl_mid(uint32_t* a, uint32_t* b, int w, const Slot<NW>* T,
@@ -537,14 +556,21 @@ __device__ __forceinline__ void dbl_mid(uint32_t* a, uint32_t* b, int w, const S
   fp_sub<NW>(a, t0, a, k);  // t0m
 }
 
-// a = product w of the doubling's first layer: t0 = Y Y, t1 = Y Z,
-// zz = Z Z, xy = X Y
+// a, b = the operands of product w of the doubling's first layer: t0 = Y Y,
+// t1 = Y Z, zz = Z Z, xy = X Y
+template <int NW, class Pt>
+__device__ __forceinline__ void dbl_operands1(uint32_t* a, uint32_t* b, int w, const Pt& P, int t,
+                                              const FieldConsts& k) {
+  P.get(a, w == 2 ? 2 : w == 3 ? 0 : 1, t, k);
+  P.get(b, w == 0 || w == 3 ? 1 : 2, t, k);
+}
+
+// a = product w of the doubling's first layer
 template <int NW, bool PTX = true, class Pt>
 __device__ __forceinline__ void dbl_layer1(uint32_t* a, int w, const Pt& P, int t,
                                            const FieldConsts& k) {
   uint32_t b[NW];
-  P.get(a, w == 2 ? 2 : w == 3 ? 0 : 1, t, k);
-  P.get(b, w == 0 || w == 3 ? 1 : 2, t, k);
+  dbl_operands1<NW>(a, b, w, P, t, k);
   layer_mul<NW, PTX>(a, a, b, k);
 }
 
@@ -718,6 +744,60 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
   }
 }
 
+// out = sel ? 2P + Q : 2P for the 32 lanes of this block: one bit of the
+// ladder above with acc read from P.  Warps 0-2 stage P's coordinates into
+// f 0-2 (free until the add's second layer), warps 3-5 Q's into q; then four
+// layers of one product a warp: the doubling's two on warps 0-3, the first
+// reading P, and, where a lane of the block has sel, the add's two on the
+// six, D + Q; then warps 0-2 store coordinate w of LadderPoint{d, f, sel}.
+// A block none of whose lanes has sel stores D without the add.  The layers
+// run in a loop through one product site: with a product inlined per layer
+// (four copies of fp_mul_ptx) the kernel took 12 % longer at 2^20 lanes and
+// 6 % at 8,192 on an H100 (PERF.md section 6).
+template <int NW>
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
+    g1_dbladd_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
+                     const uint8_t* __restrict__ sel, uint32_t* __restrict__ out, int n,
+                     FieldConsts k, int b3) {
+  __shared__ LadderSlots<NW> S;
+  const int t = threadIdx.x & (kSplitLanes - 1);
+  const int w = threadIdx.x / kSplitLanes;
+  const int64_t i = (int64_t)blockIdx.x * kSplitLanes + t;
+  const bool live = i < n;
+  const bool adds = live && sel[i];
+  {  // P's coordinate w into f w (w < 3), Q's coordinate w - 3 into q
+    uint32_t v[NW] = {};
+    if (live) load_coord<NW>(v, w < 3 ? P : Q, w % 3, n, i);
+    slot_put<NW>(w < 3 ? S.f[w] : S.q[w - 3], v, t);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int lay = 0; lay < 4; ++lay) {
+    if (lay == 2 && !__syncthreads_or(adds)) break;  // no lane of the block adds
+    if (lay >= 2 || w < 4) {
+      uint32_t a[NW], b[NW];
+      if (lay == 0) {  // t0 = Y Y, t1 = Y Z, zz = Z Z, xy = X Y of P
+        dbl_operands1<NW>(a, b, w, SlotPoint<NW>{S.f}, t, k);
+      } else if (lay == 1) {  // dxa, dya, dyb, dz
+        dbl_mid<NW>(a, b, w, S.f + 6, t, k, b3);
+      } else if (lay == 2) {  // t0, t1, t2, s3, s4, s5 of D and Q
+        add_operands1<NW>(a, b, w, LadderPoint<NW>{S.d, S.f, false}, SlotPoint<NW>{S.q}, t, k);
+      } else {  // xa, xb, ya, yb, za, zb; P's f 0-2 were last read by layer 0
+        add_operands2<NW>(a, b, w, S.f + 6, t, k, b3);
+      }
+      fp_mul_ptx<NW>(a, a, b, k);
+      // layer 0 into f 6-9, 1 into d 0, 1, 3, 2, 2 into f 6-11, 3 into f 0-5
+      slot_put<NW>(lay == 1 ? S.d[w == 2 ? 3 : w == 3 ? 2 : w] : S.f[lay == 3 ? w : 6 + w], a, t);
+    }
+    if (lay != 1) __syncthreads();  // layer 1's barrier is layer 2's vote
+  }
+  if (w < 3 && live) {  // sel ? A : D
+    uint32_t a[NW];
+    LadderPoint<NW>{S.d, S.f, adds}.get(a, w, t, k);
+    store_coord<NW>(out, a, w, n, i);
+  }
+}
+
 inline dim3 split_grid(int n) { return dim3((unsigned)((n + kSplitLanes - 1) / kSplitLanes)); }
 
 }  // namespace mlt
@@ -774,6 +854,13 @@ extern "C" int mlt_g1_maddselneg(const uint32_t* P, const uint32_t* Q, const uin
                                  const uint32_t* consts, int b3, cudaStream_t stream) {
   MLT_DISPATCH(L, g1_maddselneg_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
+}
+
+extern "C" int mlt_g1_dbladd(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
+                             uint32_t* out, int n, int L, const uint32_t* consts, int b3,
+                             cudaStream_t stream) {
+  MLT_DISPATCH(L, g1_dbladd_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
+                      P, Q, sel, out, n, make_consts(consts, NW), b3))
 }
 
 extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,

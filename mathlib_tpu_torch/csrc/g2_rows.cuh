@@ -1,7 +1,7 @@
-// G2 point arithmetic for one thread's registers, for the G2 select kernels
-// (g2_kernels.cu; the ladders and the add and doubling kernels of
+// G2 point arithmetic for one thread's registers, for the G2 addsel kernel
+// (g2_kernels.cu; the ladders and the add, doubling and dblsel kernels of
 // g2_smul_kernels.cu take B3, f2_mul_b3's branches and the layout from here): port of
-// mathlib_tpu/ops/kernels/g2_pallas.py Row2Ctx, _rcb_add and _rcb_double.
+// mathlib_tpu/ops/kernels/g2_pallas.py Row2Ctx and _rcb_add.
 //
 // Layout: a point batch is (3, 2, L, n) 16-bit limbs in 32-bit words, the
 // reference's lane-major structure of arrays (coefficient q = c*2 + j of
@@ -11,10 +11,9 @@
 // Fp2 is Fp[u]/(u^2 + 1).  A product is tower_rows.cuh's f2_mul with
 // tc.n == 1, which is Row2Ctx's Karatsuba exactly: t0 = a0 b0, t1 = a1 b1,
 // t2 = (a0 + a1)(b0 + b1), c0 = t0 - t1 (fp_mul_small by 1 is a copy),
-// c1 = t2 - (t0 + t1).  Squares go through the general product, as
-// _rcb_double does.  The formulas are RCB (eprint 2015/1060, Algs 7 and 9,
-// a = 0) in the reference's exact operation order, so the relaxed [0, 2p)
-// limbs that come out are the reference kernel's.
+// c1 = t2 - (t0 + t1).  The add is RCB (eprint 2015/1060, Alg 7, a = 0) in
+// the reference's exact operation order, so the relaxed [0, 2p) limbs that
+// come out are the reference kernel's.
 #pragma once
 
 #include <cstdint>
@@ -58,9 +57,9 @@ __device__ __noinline__ void f2_mul_b3(F2<NW>& r, const F2<NW>& a, B3 b3, const 
   fp_copy<NW>(r.c[1], y);
 }
 
-// The point formulas are real calls (__noinline__), each with its Fp2
-// products as calls too: nvcc 12.9 crashed when it inlined the G1 formulas
-// into a ladder, and a G2 point is twice a G1 point.  Points and
+// The point formula is a real call (__noinline__), with its Fp2 products as
+// calls too: nvcc 12.9 crashed when it inlined the G1 formulas into a
+// one-thread ladder, and a G2 point is twice a G1 point.  Points and
 // temporaries (~10 Fp2 values, 240 words) live on the thread's stack.
 
 // RCB Algorithm 7 (a = 0) over Fp2: O = P + Q, complete (_rcb_add).  O may
@@ -106,30 +105,6 @@ __device__ __noinline__ void rcb_add2(G2Proj<NW>& O, const G2Proj<NW>& P, const 
   f2_sub<NW>(O.x, xa, xb, k);
   f2_add<NW>(O.y, v, s5, k);
   f2_add<NW>(O.z, u, t0, k);
-}
-
-// RCB Algorithm 9 (a = 0) over Fp2: O = 2P (_rcb_double).  O may alias P.
-template <int NW>
-__device__ __noinline__ void rcb_dbl2(G2Proj<NW>& O, const G2Proj<NW>& P, const FieldConsts& k,
-                                      const TowerConsts& tc, B3 b3) {
-  F2<NW> t0, t1, zz, xy, z3t, t2, y3t, u;
-  f2_mul<NW>(t0, P.y, P.y, k, tc);
-  f2_mul<NW>(t1, P.y, P.z, k, tc);
-  f2_mul<NW>(zz, P.z, P.z, k, tc);
-  f2_mul<NW>(xy, P.x, P.y, k, tc);
-  f2_small<NW>(z3t, t0, 8, k);
-  f2_mul_b3<NW>(t2, zz, b3, k);
-  f2_add<NW>(y3t, t0, t2, k);
-  f2_add<NW>(u, t2, t2, k);
-  f2_add<NW>(u, u, t2, k);   // u := t2_3
-  f2_sub<NW>(t0, t0, u, k);  // t0 := t0m
-  // dxa = t0m*xy, dya = t2*z3t, dyb = t0m*y3t, dz = t1*z3t
-  f2_mul<NW>(xy, t0, xy, k, tc);
-  f2_mul<NW>(t2, t2, z3t, k, tc);
-  f2_mul<NW>(y3t, t0, y3t, k, tc);
-  f2_mul<NW>(O.z, t1, z3t, k, tc);
-  f2_add<NW>(O.x, xy, xy, k);
-  f2_add<NW>(O.y, t2, y3t, k);
 }
 
 // The launchers' shared parts: Fp2 with u^2 = -1 (tc.n = 1; the rest of the

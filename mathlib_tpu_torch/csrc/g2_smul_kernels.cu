@@ -1,7 +1,7 @@
 // G2 point kernels for Hopper (sm_90a) on one body, the G2 ladder's steps,
 // whose base-field products are spread over the warps of a block: port of
-// mathlib_tpu/ops/kernels/g2_pallas.py's fused chain kernels and of its add
-// and doubling.
+// mathlib_tpu/ops/kernels/g2_pallas.py's fused chain kernels and of its add,
+// doubling and ladder step.
 //
 //   g2_ladder_kernel<.., STATIC = false> <- g2_pallas.py:_g2_smul_kernel
 //                                          (g2_smul_pallas)
@@ -10,6 +10,8 @@
 //   g2_add_kernel                        <- g2_pallas.py:_add_kernel (add_pallas)
 //   g2_double_kernel                     <- g2_pallas.py:_double_kernel
 //                                          (double_pallas)
+//   g2_dblsel_kernel                     <- g2_pallas.py:_dblsel_kernel
+//                                          (dblsel_pallas)
 //
 // out = [k]Q on (3, 2, L, n) points (g2_rows.cuh has the layout), MSB first
 // from infinity: per-lane scalars (G2Ctx.scalar_mul: each bit a doubling
@@ -17,7 +19,8 @@
 // array shared by every lane (HashG2Ctx's cofactor ladders: a doubling at
 // every bit, the add only at one-bits, no select; the bits are a small
 // device array, so one build serves every scalar).  out = P + Q and
-// out = 2P are one half of a ladder bit each, in one launch.
+// out = 2P are one half of a ladder bit each, in one launch, and
+// out = sel ? 2P + Q : 2P is one whole bit with acc read from P.
 //
 // What bounds them on an H100 is the integer multiply rate: a bit of the
 // per-lane ladder is 20 Fp2 products, 60 field products (35,280 32-bit
@@ -26,7 +29,7 @@
 // one thread (145 registers, a 2,376-byte stack).  Here a bit's products
 // fall into four layers of independent ones, each Fp2 product split by
 // Row2Ctx's Karatsuba (a0 b0, a1 b1, (a0 + a1)(b0 + b1)) into three field
-// products: the doubling (RCB Alg 9 over Fp2, rcb_dbl2's order) is two
+// products: the doubling (RCB Alg 9 over Fp2, _rcb_double's order) is two
 // layers of 12, the add (RCB Alg 7, rcb_add2's order) two layers of 18.
 // A block owns LB lanes (16 or 32) and has a worker of LB threads for each
 // field product of a layer (18; the doubling's kernel 12); thread t of
@@ -49,7 +52,10 @@
 //      whose lanes has the bit takes D as acc after the doubling (the select
 //      would throw A away).  The add and doubling kernels stage P (and Q)
 //      into the slots, run steps 1-5 once and store the result: every lane
-//      takes it, so there is no select and no barrier after step 5.
+//      takes it, so there is no select and no barrier after step 5.  The
+//      dblsel kernel stages P and Q into the ladder's slots and runs one
+//      bit (both halves, h a runtime value), its add's step 5 storing
+//      sel ? A : D straight out.
 //      half_bit runs steps 1-4 and leaves step 5 to its caller, each half
 //      with its own store (with one store shared by both halves of the
 //      ladder, its cofactor ladders ran 1-2 % slower on an H100).
@@ -57,11 +63,11 @@
 // Q, acc, D, the products and the middle values stay in shared memory for
 // all nbits steps (60 slots of NW x LB words: 90 KB at NW = 12 and 32
 // lanes, dynamic, above the 48 KB static limit; the per-lane scalar limbs
-// after them; the add takes 54 slots, the doubling 34), and a thread holds
-// two operands and one product at a time: no stack, no spill at 18 warps,
-// whose five warps on one scheduler leave 96 registers a thread, the cap
-// the add and doubling kernels set (ptxas' report is on chip_smoke.py's
-// build lines).  Ten barriers a bit, five where no lane of the block has
+// after them; dblsel takes the ladder's 60 without the limbs, the add 54,
+// the doubling 34), and a thread holds two operands and one product at a
+// time: no stack, no spill at 18 warps, whose five warps on one scheduler
+// leave 96 registers a thread, the cap the add, doubling and dblsel kernels
+// set (ptxas' report is on chip_smoke.py's build lines).  Ten barriers a bit, five where no lane of the block has
 // it.  Each field product gets the reference's operands; the adds and subs
 // in between may run in any order, since each returns the unique value in
 // [0, 2p) of its residue mod 2p, so the limbs that come out are the
@@ -82,7 +88,7 @@ namespace mlt {
 
 constexpr int kLadderWorkers = 18;  // one a field product of the add's layers
 constexpr int kDblWorkers = 12;     // one a field product of the doubling's
-constexpr int kStepRegs = 96;       // the add and doubling kernels' register cap
+constexpr int kStepRegs = 96;       // the add, doubling and dblsel kernels' register cap
 
 // where a block's shared slots start, each NW words for each of its LB
 // lanes: the point buffers (coordinate c's component j at c * 2 + j), Q, a
@@ -512,6 +518,65 @@ __global__ void __maxnreg__(kStepRegs)
   });
 }
 
+// out = sel ? 2P + Q : 2P (RCB Alg 9 then Alg 7 over Fp2: one bit of the
+// ladder with acc read from P) for the LB lanes of this block, on the
+// ladder's slots: workers 0-5 stage P's components into point buffer 0,
+// 6-11 Q's, the doubling's half puts D into buffer 1, and, where a lane of
+// the block has sel, the add's half D + Q stores sel ? A : D straight out,
+// lane by lane; a block none of whose lanes has sel stores D.  h is a
+// runtime value, as in the ladder: with the two halves inlined apart the
+// kernel took 4 % longer at 4,096 lanes and 8 % at 2,112 on an H100
+// (PERF.md section 6).
+template <int NW, int LB>
+__global__ void __maxnreg__(kStepRegs)
+    g2_dblsel_kernel(const uint32_t* __restrict__ P, const uint32_t* __restrict__ Q,
+                     const uint8_t* __restrict__ sel, uint32_t* __restrict__ out, int n,
+                     FieldConsts k, B3 b3) {
+  using S = LadderSlots;
+  constexpr int D = S::kPt + 6;
+  extern __shared__ uint32_t sm[];
+  const int t = threadIdx.x % LB;
+  const int w = threadIdx.x / LB;
+  const int i = blockIdx.x * LB + t;
+  const bool live = i < n;
+  if (w < 12) {
+    const int c = w < 6 ? w : w - 6;
+    uint32_t v[NW] = {};
+    if (live) load_fp<NW>(v, w < 6 ? P : Q, c, n, i);
+    sput<NW, LB>(sm, (w < 6 ? S::kPt : S::kQ) + c, v, t);
+  }
+  __syncthreads();
+  const bool adds = live && sel[i];
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {  // the doubling D = 2P, then the add A = D + Q
+    if (h == 1 && !__syncthreads_or(adds)) {  // no lane of the block adds: out = D
+      if (w < 6 && live) {
+        uint32_t r[NW];
+        sget<NW, LB>(r, sm, D + w, t);
+        store_fp<NW>(out, r, w, n, i);
+      }
+      return;
+    }
+    half_bit<NW, LB, S>(sm, h, h == 0 ? S::kPt : D, w, t, k, b3, [&] {
+      if (h == 0) {  // D into point buffer 1
+        if (w < 6) {
+          uint32_t r[NW];
+          point_out<NW, LB, S>(r, sm, 0, w >> 1, w & 1, t, k);
+          sput<NW, LB>(sm, D + w, r, t);
+        }
+      } else if (w < 6 && live) {  // sel ? A : D, straight out
+        uint32_t r[NW];
+        if (adds) {
+          point_out<NW, LB, S>(r, sm, 1, w >> 1, w & 1, t, k);
+        } else {
+          sget<NW, LB>(r, sm, D + w, t);
+        }
+        store_fp<NW>(out, r, w, n, i);
+      }
+    });
+  }
+}
+
 // lanes a block: 16 while the 16-lane blocks fit on the card's SMs in one
 // wave (n <= 16 SMs, 2,112 lanes on an H100), else 32: the ladder and the
 // add and doubling kernels are latency-bound, so below that more, smaller
@@ -595,6 +660,31 @@ int launch_step(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, cons
   return (int)cudaGetLastError();
 }
 
+template <int NW, int LB>
+int launch_dblsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel, uint32_t* out, int n,
+                  const FieldConsts& k, B3 b3, cudaStream_t stream) {
+  static int raised[kMaxDevices] = {};
+  const size_t bytes = (size_t)LadderSlots::kN * NW * LB * sizeof(uint32_t);
+  auto kern = g2_dblsel_kernel<NW, LB>;
+  const cudaError_t err = smem_cap(kern, bytes, raised);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(n + LB - 1) / LB, kLadderWorkers * LB, bytes, stream>>>(P, Q, sel, out, n, k, b3);
+  return (int)cudaGetLastError();
+}
+
+int dblsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel, uint32_t* out, int n, int L,
+           const uint32_t* consts, B3 b3, cudaStream_t stream) {
+  if (L != 24) return -1;
+  if (n == 0) return 0;
+  constexpr int NW = 12;
+  const FieldConsts k = make_consts(consts, NW);
+  int lanes = 0;
+  const cudaError_t err = ladder_lanes(n, &lanes);
+  if (err != cudaSuccess) return (int)err;
+  if (lanes == 16) return launch_dblsel<NW, 16>(P, Q, sel, out, n, k, b3, stream);
+  return launch_dblsel<NW, 32>(P, Q, sel, out, n, k, b3, stream);
+}
+
 int point_step(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
                const uint32_t* consts, B3 b3, cudaStream_t stream) {
   if (L != 24) return -1;
@@ -633,4 +723,10 @@ extern "C" int mlt_g2_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, i
 extern "C" int mlt_g2_double(const uint32_t* P, uint32_t* out, int n, int L,
                              const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
   return point_step(P, nullptr, out, n, L, consts, B3{b3c0, b3c1}, stream);
+}
+
+extern "C" int mlt_g2_dblsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
+                             uint32_t* out, int n, int L, const uint32_t* consts, int b3c0,
+                             int b3c1, cudaStream_t stream) {
+  return dblsel(P, Q, sel, out, n, L, consts, B3{b3c0, b3c1}, stream);
 }

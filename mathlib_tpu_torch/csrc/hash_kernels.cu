@@ -22,9 +22,9 @@
 //   * the sign from the canonical integer: from_mont (a product with the
 //     literal 1) and a conditional subtraction of p; the negation is the
 //     relaxed sub(0, y);
-//   * the RCB add and double in rcb_add's and rcb_dbl's order
-//     (g1_rows.cuh), their products in the layers of add_layer1/2 and
-//     dbl_layer1/2 (g1_split_kernels.cu).
+//   * the RCB add and double in the order of the reference's row formulas
+//     (g1_pallas.py _rcb_add_rows and _rcb_dbl_rows), their products in the
+//     layers of add_layer1/2 and dbl_layer1/2 (g1_split_kernels.cu).
 // Only the order of independent products changes, and each product's
 // operands are the body's; fp_add, fp_sub and fp_mul_small return the one
 // value in [0, 2p) of their residue, so their grouping is free.
@@ -249,7 +249,7 @@ struct HashGroup {
 // coordinate c (the whole element) of a point in slots: form 0 its X, Y, Z;
 // form 1 a doubling's second layer dxa, dya, dz, dyb: (dxa + dxa,
 // dya + dyb, dz); form 2 an add's second layer xa, xb, ya, yb, za, zb:
-// (xa - xb, ya + yb, za + zb) (rcb_dbl's and rcb_add's last steps)
+// (xa - xb, ya + yb, za + zb) (_rcb_dbl_rows' and _rcb_add_rows' last steps)
 template <int NW>
 struct HashPoint {
   const HSlot<NW>* s;
@@ -306,7 +306,7 @@ __device__ __forceinline__ void hash_add_l1(uint32_t* r, int e, const HashPoint<
   G.mul(r, a, b);
 }
 
-// the middle values of RCB Alg 7, each by rcb_add's operations in its order
+// the middle values of RCB Alg 7, each by _rcb_add_rows' operations in its order
 // from the first layer's slots f: t0, t1, t2, s3, s4, s5
 enum HashMid { kT3, kT4, kLnb, kT0x3, kZ3t, kT1m };
 
@@ -388,8 +388,8 @@ __device__ __forceinline__ void hash_dbl_l1(uint32_t* r, int w, const HashPoint<
 }
 
 // r = product w of the doubling's second layer (dbl_layer2): dxa = t0m xy,
-// dya = t2 z3t, dyb = t0m y3t, dz = t1 z3t, each middle value by rcb_dbl's
-// operations in its order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
+// dya = t2 z3t, dyb = t0m y3t, dz = t1 z3t, each middle value by
+// _rcb_dbl_rows' operations in its order (z3t = 8 t0, t2 = b3 zz, y3t = t0 + t2,
 // t0m = t0 - ((t2 + t2) + t2)) from the first layer's slots df
 template <int NW>
 __device__ __forceinline__ void hash_dbl_l2(uint32_t* r, int w, const HSlot<NW>* df,

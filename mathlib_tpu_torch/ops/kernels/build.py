@@ -60,16 +60,15 @@ SIGNATURES = {
     "mlt_g1_smul": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     # Q, bits, nbits, out, n, L, consts, b3, stream
     "mlt_g1_smul_static": [_P, _P, _I, _P, _I, _I, _P, _I, _P],
-    # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel;
-    # dbladd in csrc/g1_kernels.cu, the others in csrc/g1_split_kernels.cu)
+    # P, Q, sel, out, n, L, consts, b3, stream (Q affine (2, L, n) for maddsel)
     "mlt_g1_dbladd": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddsel": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # P, Q, sel, neg, out, n, L, consts, b3, stream
     "mlt_g1_addselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-    # (csrc/g2_kernels.cu, g2_smul_kernels.cu) P, [Q, [sel,]] out, n, L, consts,
-    # b3.c0, b3.c1, stream; the ladders Q, scalars, S, nbits / Q, bits, nbits, then
-    # out, n, L, consts, b3.c0, b3.c1, stream
+    # (csrc/g2_smul_kernels.cu; addsel in csrc/g2_kernels.cu) P, [Q, [sel,]] out, n,
+    # L, consts, b3.c0, b3.c1, stream; the ladders Q, scalars, S, nbits / Q, bits,
+    # nbits, then out, n, L, consts, b3.c0, b3.c1, stream
     "mlt_g2_add": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_double": [_P, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P],

@@ -1,10 +1,10 @@
 """G1 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g1_pallas.py``).
 
-Nine kernels, CUDA C++ in ``csrc/g1_split_kernels.cu`` over the point
-formulas of ``csrc/g1_rows.cuh`` (one add or mixed add spread over six
-warps, one doubling over four, the ladders ``smul`` and ``smul_static`` a
-bit's doubling and add over six warps with their state in shared memory;
-``dbladd``, one lane a thread: ``csrc/g1_kernels.cu``), each behind a
+Nine kernels, CUDA C++ in ``csrc/g1_split_kernels.cu`` on the lane layout
+of ``csrc/g1_rows.cuh`` (one add or mixed add spread over six warps, one
+doubling over four, the ladders ``smul`` and ``smul_static`` a bit's
+doubling and add over six warps with their state in shared memory, and
+``dbladd`` one bit of that ladder with acc read from P), each behind a
 wrapper here:
 
 ==============  ================================  ===============================================

@@ -1,14 +1,15 @@
 """G2 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g2_pallas.py``).
 
-Six kernels, CUDA C++: the two select kernels in ``csrc/g2_kernels.cu`` (one
-lane a thread, over the point formulas of ``csrc/g2_rows.cuh``), and in
+Six kernels, CUDA C++: ``addsel`` in ``csrc/g2_kernels.cu`` (one lane a
+thread, over the point formula of ``csrc/g2_rows.cuh``), and in
 ``csrc/g2_smul_kernels.cu`` the two ladders (one ladder body,
 ``g2_ladder_kernel``, whose bit's base-field products are spread over a
 block's 18 warps, with Q, the accumulator and the products in shared memory
-for all bits) and the add and the doubling (``g2_add_kernel``,
-``g2_double_kernel``: one half of that ladder's bit each, in one launch);
-16 lanes a block up to 16 lanes an SM, 2,112 on an H100, 32 above.  Each is
-behind a wrapper here:
+for all bits), the add and the doubling (``g2_add_kernel``,
+``g2_double_kernel``: one half of that ladder's bit each, in one launch) and
+``dblsel`` (``g2_dblsel_kernel``: one whole bit with acc read from P, in one
+launch); 16 lanes a block up to 16 lanes an SM, 2,112 on an H100, 32 above.
+Each is behind a wrapper here:
 
 ===============  ==============================  ==================================================
 wrapper          computes                        replaces (TPU kernel)

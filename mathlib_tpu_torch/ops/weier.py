@@ -8,8 +8,8 @@ addition, doubling and the point at infinity (0 : 1 : 0).
 Values live in the relaxed domain [0, 2p), where x and x + p are both valid,
 so the order of the adds, subs and small-multiple chains fixes which
 representative comes out.  The sequence below is the reference's operation
-for operation, and the CUDA kernels (``csrc/g1_kernels.cu``) follow the same
-sequence, so all three agree limb for limb.  Each dependency level's
+for operation, and the CUDA kernels (``csrc/g1_split_kernels.cu``) follow the
+same sequence, so all three agree limb for limb.  Each dependency level's
 multiplications go out as ONE stacked ``mul_many`` call.
 """
 

@@ -367,6 +367,41 @@ def test_msm_option_kernels_equal_plain_versions(ctx):
     assert [counts[k] for k in ("dbladd", "addselneg", "maddsel", "maddselneg")] == [1, 1, 1, 1]
 
 
+def test_dbladd_on_edge_lanes_blocks_and_batch_dims(ctx):
+    """dbladd (one bit of the six-warp ladder) against dbladd_plain, bit for
+    bit, on 4,097 relaxed lanes (a partial last block): P = infinity, Q =
+    infinity, Q = 2P and Q = -2P lanes, a 32-lane block with no lane
+    selected and one with every lane selected; then with leading batch dims
+    (2, 3) and Q broadcast over them.  One launch a call."""
+    eng, g1 = ctx
+    F = g1.F
+    n = 4097
+    rng = np.random.default_rng(19)
+    pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 31)]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 11):
+        A[i] = None
+    for i in range(1, n, 13):
+        B[i] = None
+    inf = g1.encode_points([None] * n)
+    P, Q = g1.add(g1.encode_points(A), inf), g1.add(g1.encode_points(B), inf)  # relaxed
+    D = g1_cuda.double_plain(F, P)
+    Q[..., 2::7] = D[..., 2::7]
+    Q[..., 4::17] = g1.neg(D)[..., 4::17]
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(P.device)
+    sel[32:64], sel[64:96] = False, True
+    g1_cuda.reset_launches()
+    assert torch.equal(g1_cuda.dbladd(F, P, Q, sel), g1_cuda.dbladd_plain(F, P, Q, sel))
+    Pb = torch.stack([P[..., 100 * j:100 * (j + 1)] for j in range(6)]).reshape(
+        (2, 3) + P.shape[:-1] + (100,))
+    Qb, selb = Q[..., :100], sel[:600].reshape(2, 3, 100)
+    got = g1_cuda.dbladd(F, Pb, Qb, selb)
+    assert got.shape == Pb.shape
+    assert torch.equal(got, g1_cuda.dbladd_plain(F, Pb, Qb, selb))
+    assert {k: v for k, v in g1_cuda.launches().items() if v} == {"dbladd": 2}
+
+
 def test_field_product_and_affine_run_on_the_kernels(ctx):
     """FpCtx.mont_mul on a CUDA tensor launches the mont_mul kernel, and
     G1Ctx.to_affine reaches it (and fp_pow) on the card."""
@@ -774,18 +809,23 @@ def test_static_ladder_equals_the_plain_version(curve):
 
 
 def test_redesigned_kernels_compile_without_stack_or_spill():
-    """ptxas' report for pairing_check_kernel and the static ladder
-    (g1_smul_ladder_kernel with STATIC): no stack, no spill."""
+    """ptxas' report for pairing_check_kernel, the static ladder
+    (g1_smul_ladder_kernel with STATIC) and dbladd (g1_dbladd_kernel): no
+    stack, no spill; dbladd at most 128 registers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from chip_smoke import check_ptxas, no_stack_or_spill, static_ptxas
+    from chip_smoke import check_ptxas, no_stack_or_spill, ptxas_entries, static_ptxas
     from mathlib_tpu_torch.ops.kernels import build
 
     build.load()
-    entries = check_ptxas(build.BUILD_LOG) + static_ptxas(build.BUILD_LOG)
-    assert len(entries) == 2 * 3 + 2, entries  # (NW, G) of the check; NW of the ladder
+    dbladd = [e for e in ptxas_entries(build.BUILD_LOG) if e.startswith("g1_dbladd_kernel")]
+    entries = check_ptxas(build.BUILD_LOG) + static_ptxas(build.BUILD_LOG) + dbladd
+    # (NW, G) of the check; NW of the ladder and of dbladd
+    assert len(entries) == 2 * 3 + 2 + 2, entries
     for entry in entries:
         assert no_stack_or_spill(entry), entry
+    for entry in dbladd:
+        assert int(entry.split(": ")[1].split()[0]) <= 128, entry
 
 
 def test_pairing_check_equals_its_plain_version(pair_ctx):
@@ -1116,10 +1156,41 @@ def test_g2_add_and_double_equal_plain_versions_on_edge_lanes(g2_edge_lanes, n):
     assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_add": 1, "g2_double": 2}
 
 
+@pytest.mark.parametrize("n", [100, 4097])
+def test_g2_dblsel_on_edge_lanes_blocks_and_batch_dims(g2_edge_lanes, n):
+    """dblsel (one bit of the G2 ladder with acc read from P) against
+    dblsel_plain, bit for bit, on the edge lanes (P = Q, P = -Q, infinity
+    on either side) with Q = 2P and Q = -2P lanes added, in the launcher's
+    16-lane blocks (100 lanes) and 32-lane blocks (4,097: past 16 lanes an
+    SM on an H100), lanes 32-63 unselected (a 32-lane block, or two 16-lane
+    ones, that never adds) and 64-95 all selected; then with leading batch
+    dims (2, 3) and Q broadcast over them.  One launch a call."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    g2, P, Q = g2_edge_lanes
+    F = g2.rows
+    p, q = P[..., :n].contiguous(), Q[..., :n].clone()
+    D = g2_cuda.double_plain(F, p)
+    q[..., 2::7] = D[..., 2::7]
+    q[..., 4::17] = g2.neg(D)[..., 4::17]
+    rng = np.random.default_rng(n)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(p.device)
+    sel[32:64], sel[64:96] = False, True
+    g2_cuda.reset_launches()
+    assert torch.equal(g2_cuda.dblsel(F, p, q, sel), g2_cuda.dblsel_plain(F, p, q, sel))
+    pb = torch.stack([p[..., 16 * j:16 * (j + 1)] for j in range(6)]).reshape(
+        (2, 3) + p.shape[:-1] + (16,))
+    qb, selb = q[..., :16], sel[:96].reshape(2, 3, 16)
+    got = g2_cuda.dblsel(F, pb, qb, selb)
+    assert got.shape == pb.shape
+    assert torch.equal(got, g2_cuda.dblsel_plain(F, pb, qb, selb))
+    assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_dblsel": 2}
+
+
 def test_g2_block_kernels_compile_without_stack_or_spill():
-    """ptxas' report for the G2 ladders and the add and doubling kernels on
-    their steps, at 16- and 32-lane blocks: at most 96 registers, no stack,
-    no spill."""
+    """ptxas' report for the G2 ladders and the add, doubling and dblsel
+    kernels on their steps, at 16- and 32-lane blocks: at most 96 registers,
+    no stack, no spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from chip_smoke import g2_ladder_ptxas, no_stack_or_spill
@@ -1127,9 +1198,9 @@ def test_g2_block_kernels_compile_without_stack_or_spill():
 
     build.load()
     entries = g2_ladder_ptxas(build.BUILD_LOG)
-    assert len(entries) == 8, entries
+    assert len(entries) == 10, entries
     for name in ("g2_add_kernel<12,16>", "g2_add_kernel<12,32>", "g2_double_kernel<12,16>",
-                 "g2_double_kernel<12,32>"):
+                 "g2_double_kernel<12,32>", "g2_dblsel_kernel<12,16>", "g2_dblsel_kernel<12,32>"):
         assert any(e.startswith(name + ":") for e in entries), (name, entries)
     for entry in entries:
         assert int(entry.split(": ")[1].split()[0]) <= 96, entry

@@ -1,7 +1,8 @@
 """The G2 ladder body behind ``g2_cuda.smul`` and ``g2_cuda.smul_static``
-(``g2_ladder_kernel`` in ``csrc/g2_smul_kernels.cu``), and the add and
-doubling kernels on its steps behind ``g2_cuda.add`` and ``g2_cuda.double``
-(``g2_add_kernel``, ``g2_double_kernel``, same source), modelled on Python
+(``g2_ladder_kernel`` in ``csrc/g2_smul_kernels.cu``), and the add,
+doubling and dblsel kernels on its steps behind ``g2_cuda.add``,
+``g2_cuda.double`` and ``g2_cuda.dblsel`` (``g2_add_kernel``,
+``g2_double_kernel``, ``g2_dblsel_kernel``, same source), modelled on Python
 integers in the kernels' order of operations and on their slot layouts.
 
 The CUDA kernels run only on a card (``tests/test_torch_cuda.py`` holds them
@@ -20,7 +21,10 @@ limb against ``smul_plain`` and ``smul_static_plain`` on short bit strings
 ``tests/test_torch_g2_ladders.py``), canonically against the host engine at
 full length, and limb for limb against ``add_plain`` and ``double_plain``
 (held to the reference's ``_add_kernel`` and ``_double_kernel`` bodies in
-``tests/test_torch_g2.py``).  Tolerance: exact.
+``tests/test_torch_g2.py``); the dblsel kernel (``g2_dblsel_kernel``: P
+and Q staged into the ladder's slots, one bit with acc read from P) limb
+for limb against ``dblsel_plain`` (held to ``_dblsel_kernel``'s body
+there).  Tolerance: exact.
 """
 
 import random
@@ -258,6 +262,40 @@ def _step_model(P, p, L, b3, Q=None):
     return out
 
 
+def _dblsel_model(P, Q, sel, p, L, b3, block):
+    """``g2_dblsel_kernel`` on lanes of Python ints: each lane's P staged
+    into point buffer 0 and Q into the Q slots of the ladder's layout
+    (``LADDER``, no scalar limbs; its unwritten slots stay None), the
+    doubling's half into buffer 1 (D), then per block of ``block`` lanes:
+    none selected, every lane stores D; else the add's half D + Q, whose
+    step 5 gives sel ? A : D.  Returns the points and how many blocks
+    skipped the add and ran it."""
+    S = LADDER
+    half = _HalfBit(p, L, b3, S)
+    D = S.pt + 6
+    sms = []
+    for i, lane in enumerate(P):
+        sm = _lane_slots(S)
+        sm[S.pt:S.pt + 6] = lane
+        sm[S.q:S.q + 6] = Q[i]
+        sm[D:D + 6] = half.run(sm, 0, S.pt)
+        sms.append(sm)
+    out = [None] * len(P)
+    skipped = added = 0
+    for lo in range(0, len(P), block):
+        lanes = range(lo, min(lo + block, len(P)))
+        if not any(sel[i] for i in lanes):  # out = D
+            skipped += 1
+            for i in lanes:
+                out[i] = sms[i][D:D + 6]
+            continue
+        added += 1
+        for i in lanes:
+            out[i] = half.run(sms[i], 1, D, take=sel[i], keep=D)
+    assert all(len(sm) == S.n for sm in sms)  # no step wrote past the layout's slots
+    return out, skipped, added
+
+
 def _ints(t, L):
     """(3, 2, L, B) limbs -> per lane six Python ints, 2c + j."""
     v = t.to(torch.int64).reshape(6, L, -1).tolist()
@@ -382,3 +420,33 @@ def test_g2_add_and_double_models_equal_the_plain_versions(edge_lanes, kernel):
     for lanes in (p, q, got):  # relaxed limbs occur
         assert any(c >= fp.p for lane in lanes for c in lane)
 
+
+def test_g2_dblsel_model_equals_dblsel_plain():
+    """g2_dblsel_kernel's one launch (P and Q staged into the ladder's
+    slots, the doubling, the block shortcut, the add's half storing
+    sel ? A : D) limb for limb against dblsel_plain on BLS12-381 lanes in
+    relaxed limbs: random pairs, P or Q or both at infinity, 2P = Q and
+    2P = -Q, in 2-lane blocks (one with no lane selected, one with both)
+    and one 32-lane block; and canonically against the host engine."""
+    spec = get_spec("BLS12_381")
+    eng, g2 = get_engine(spec), get_hash_g2_ctx(spec, "cpu").g2
+    fp = g2.fp
+    rng = random.Random(19)
+    pts = [eng.g2.mul(eng.gen_g2, rng.randrange(1, spec.r)) for _ in range(12)]
+    A = [pts[0], pts[1], None, pts[2], None, pts[3], pts[4], pts[5], pts[6], pts[7]]
+    B = [pts[8], pts[9], pts[10], None, None, eng.g2.add(pts[3], pts[3]),
+         eng.g2.neg(eng.g2.add(pts[4], pts[4])), pts[11], pts[0], pts[6]]
+    sel = [False, False, True, True, True, True, True, False, False, True]
+    inf = g2.encode_points([None] * len(A))
+    P = g2_cuda.add_plain(g2.rows, g2.encode_points(A), inf)
+    Q = g2_cuda.add_plain(g2.rows, g2.encode_points(B), inf)
+    want = g2_cuda.dblsel_plain(g2.rows, P, Q, torch.tensor(sel))
+    p, q = _ints(P, fp.L), _ints(Q, fp.L)
+    for block, shortcut in ((2, 1), (32, 0)):
+        got, skipped, added = _dblsel_model(p, q, sel, fp.p, fp.L, g2.rows.b3, block)
+        assert got == _ints(want, fp.L), block
+        assert (skipped, added) == (shortcut, -(-len(sel) // block) - shortcut)
+    host = [eng.g2.add(eng.g2.add(a, a), b) if s else eng.g2.add(a, a)
+            for a, b, s in zip(A, B, sel)]
+    assert g2.decode_points(want) == host
+    assert any(c >= fp.p for lane in p + q for c in lane)  # relaxed limbs occur

@@ -56,6 +56,47 @@ def _field(p, L):
     return mul, add, sub, small
 
 
+def _steps(p, L, b3):
+    """The kernels' layers on Python ints: dbl(X, Y, Z) gives the doubling's
+    second layer d = (dxa, dya, dz, dyb) (its first layer on warps 0-3,
+    the middle values, the second layer), add(P1, P2) the add's second layer
+    g = (xa, xb, ya, yb, za, zb) (its first layer on warps 0-5, rcb_mid,
+    the second layer), and point(d, g, use_sum) the point the kernels'
+    LadderPoint reads from them: D = (dxa + dxa, dya + dyb, dz), or A = D + Q
+    from g."""
+    mul, add, sub, small = _field(p, L)
+
+    def dbl(X, Y, Z):
+        t0, t1, zz, xy = mul(Y, Y), mul(Y, Z), mul(Z, Z), mul(X, Y)
+        z3t = small(t0, 8)
+        t2 = small(zz, b3)
+        t0m = sub(t0, add(add(t2, t2), t2))
+        y3t = add(t0, small(zz, b3))
+        return [mul(t0m, xy), mul(small(zz, b3), z3t), mul(t1, z3t), mul(t0m, y3t)]
+
+    def add_pts(P1, P2):
+        (X1, Y1, Z1), (X2, Y2, Z2) = P1, P2
+        t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
+        s3 = mul(add(X1, Y1), add(X2, Y2))
+        s4 = mul(add(Y1, Z1), add(Y2, Z2))
+        s5 = mul(add(X1, Z1), add(X2, Z2))
+        t3 = sub(s3, add(t0, t1))
+        t4 = sub(s4, add(t1, t2))
+        lnb = small(sub(s5, add(t0, t2)), b3)
+        t0_3 = add(add(t0, t0), t0)
+        z3t = add(t1, small(t2, b3))
+        t1m = sub(t1, small(t2, b3))
+        return [mul(t3, t1m), mul(t4, lnb), mul(t1m, z3t), mul(lnb, t0_3),
+                mul(z3t, t4), mul(t0_3, t3)]
+
+    def point(d, g, use_sum):
+        if use_sum:
+            return sub(g[0], g[1]), add(g[2], g[3]), add(g[4], g[5])
+        return add(d[0], d[0]), add(d[1], d[3]), d[2]
+
+    return dbl, add_pts, point
+
+
 def _ladder_model(Q, ks, nbits, p, L, b3, block=32, bits=None):
     """``g1_smul_ladder_kernel`` on lanes of Python ints: Q a list of (X, Y,
     Z), ks the scalars, ``block`` lanes a block; with ``bits`` (the STATIC
@@ -65,31 +106,16 @@ def _ladder_model(Q, ks, nbits, p, L, b3, block=32, bits=None):
     g = (xa, xb, ya, yb, za, zb) and its last bit, and reads acc from them as
     the kernel's LadderPoint does.  Returns the points and how many
     (block, bit) steps skipped the add and ran it."""
-    mul, add, sub, small = _field(p, L)
+    dbl, add_pts, point = _steps(p, L, b3)
     one = (1 << (16 * L)) % p
     n = len(Q)
     d = [[0, one, 0, 0] for _ in range(n)]  # acc = infinity, as a D
     g = [[0] * 6 for _ in range(n)]
     bit = [False] * n
-
-    def point(i, use_sum):  # LadderPoint.get for c = 0, 1, 2
-        if use_sum:
-            G = g[i]
-            return sub(G[0], G[1]), add(G[2], G[3]), add(G[4], G[5])
-        D = d[i]
-        return add(D[0], D[0]), add(D[1], D[3]), D[2]
-
     skipped = added = 0
     for b in range(nbits - 1, -1, -1):
-        for i in range(n):
-            X, Y, Z = point(i, bit[i])
-            # the doubling: first layer (warps 0-3), middle values, second layer
-            t0, t1, zz, xy = mul(Y, Y), mul(Y, Z), mul(Z, Z), mul(X, Y)
-            z3t = small(t0, 8)
-            t2 = small(zz, b3)
-            t0m = sub(t0, add(add(t2, t2), t2))
-            y3t = add(t0, small(zz, b3))
-            d[i] = [mul(t0m, xy), mul(small(zz, b3), z3t), mul(t1, z3t), mul(t0m, y3t)]
+        for i in range(n):  # the doubling, from acc
+            d[i] = dbl(*point(d[i], g[i], bit[i]))
         for lo in range(0, n, block):
             lanes = range(lo, min(lo + block, n))
             got = {i: bits[nbits - 1 - b] == 1 if bits else (ks[i] >> b) & 1 == 1
@@ -100,23 +126,32 @@ def _ladder_model(Q, ks, nbits, p, L, b3, block=32, bits=None):
                 skipped += 1
                 continue
             added += 1
-            for i in lanes:
-                (X1, Y1, Z1), (X2, Y2, Z2) = point(i, False), Q[i]
-                # the add's first layer (warps 0-5): t0, t1, t2, s3, s4, s5
-                t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
-                s3 = mul(add(X1, Y1), add(X2, Y2))
-                s4 = mul(add(Y1, Z1), add(Y2, Z2))
-                s5 = mul(add(X1, Z1), add(X2, Z2))
-                # rcb_mid, then the second layer
-                t3 = sub(s3, add(t0, t1))
-                t4 = sub(s4, add(t1, t2))
-                lnb = small(sub(s5, add(t0, t2)), b3)
-                t0_3 = add(add(t0, t0), t0)
-                z3t = add(t1, small(t2, b3))
-                t1m = sub(t1, small(t2, b3))
-                g[i] = [mul(t3, t1m), mul(t4, lnb), mul(t1m, z3t), mul(lnb, t0_3),
-                        mul(z3t, t4), mul(t0_3, t3)]
-    return [point(i, bit[i]) for i in range(n)], skipped, added
+            for i in lanes:  # the add, D + Q
+                g[i] = add_pts(point(d[i], g[i], False), Q[i])
+    return [point(d[i], g[i], bit[i]) for i in range(n)], skipped, added
+
+
+def _dbladd_model(P, Q, sel, p, L, b3, block=32):
+    """``g1_dbladd_kernel`` on lanes of Python ints: P and Q lists of (X, Y,
+    Z) (staged into the slots), sel a list of bools, ``block`` lanes a
+    block.  The doubling's layers read P; a block none of whose lanes has
+    sel skips the add, the others run D + Q; each lane stores LadderPoint
+    {d, g, sel}.  Returns the points and how many blocks skipped the add and
+    ran it."""
+    dbl, add_pts, point = _steps(p, L, b3)
+    n = len(P)
+    d = [dbl(*P[i]) for i in range(n)]
+    g = [None] * n  # unwritten: a read of the add's slots fails
+    skipped = added = 0
+    for lo in range(0, n, block):
+        lanes = range(lo, min(lo + block, n))
+        if not any(sel[i] for i in lanes):
+            skipped += 1
+            continue
+        added += 1
+        for i in lanes:
+            g[i] = add_pts(point(d[i], g[i], False), Q[i])
+    return [point(d[i], g[i], sel[i]) for i in range(n)], skipped, added
 
 
 def _ints(t, L):
@@ -180,3 +215,41 @@ def test_static_ladder_model_equals_smul_static_plain(ladder_case, scalar):
     assert got == _ints(want, L)
     assert (skipped, added) == (len(bits) - sum(bits), sum(bits))
     assert g1.decode_points(want)[3] is None
+
+
+def _dbladd_lanes(g1, eng, spec, rng):
+    """Ten lanes P, Q of one curve in relaxed limbs (each a host point plus
+    infinity by the plain add) and sel, for 2-lane blocks: lanes 0-1 random
+    pairs, neither selected; 2-3 P = infinity, Q = infinity, both selected;
+    4-5 both at infinity, 2P = Q; 6-7 2P = -Q, a random pair; 8-9 random."""
+    pts = [eng.g1.mul(eng.gen_g1, rng.randrange(1, spec.r)) for _ in range(12)]
+    A = [pts[0], pts[1], None, pts[2], None, pts[3], pts[4], pts[5], pts[6], pts[7]]
+    B = [pts[8], pts[9], pts[10], None, None, eng.g1.add(pts[3], pts[3]),
+         eng.g1.neg(eng.g1.add(pts[4], pts[4])), pts[11], pts[0], pts[6]]
+    inf = g1.encode_points([None] * len(A))
+    P, Q = g1.add(g1.encode_points(A), inf), g1.add(g1.encode_points(B), inf)
+    sel = [False, False, True, True, True, True, True, False, False, True]
+    return P, Q, sel, A, B
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381", "BN254"])
+def test_dbladd_model_equals_dbladd_plain(curve):
+    """dbladd's one bit of the ladder (P and Q staged, the doubling's layers
+    from P, the block shortcut, the add, the select of LadderPoint) on
+    Python ints equals dbladd_plain limb for limb on the edge lanes (P or Q
+    or both at infinity, 2P = Q, 2P = -Q) and random pairs, in 2-lane
+    blocks (one with no lane selected, one with both) and in one 32-lane
+    block; and canonically the host engine's 2P + Q or 2P."""
+    spec = get_spec(curve)
+    eng, g1 = get_engine(spec), G1Ctx(spec, "cpu")
+    L, p = g1.fp.L, g1.fp.p
+    P, Q, sel, A, B = _dbladd_lanes(g1, eng, spec, random.Random(19))
+    want = g1_cuda.dbladd_plain(g1.F, P, Q, torch.tensor(sel))
+    for block, shortcut in ((2, 1), (32, 0)):
+        got, skipped, added = _dbladd_model(_ints(P, L), _ints(Q, L), sel, p, L, g1.F.b3, block)
+        assert got == _ints(want, L), block
+        assert (skipped, added) == (shortcut, -(-len(sel) // block) - shortcut)
+    host = [eng.g1.add(eng.g1.add(a, a), b) if s else eng.g1.add(a, a)
+            for a, b, s in zip(A, B, sel)]
+    assert g1.decode_points(want) == host
+    assert any(c >= p for v in _ints(P, L) + _ints(Q, L) for c in v)  # relaxed limbs occur
