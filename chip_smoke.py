@@ -10,7 +10,9 @@ capture, host Horner), as ``bench.py`` times it for the JAX package -- through
   1. device: needs a CUDA card (exit 1 otherwise); prints its name and
      power limit as ``nvidia-smi`` reports them;
   2. build: compiles the CUDA kernels from ``mathlib_tpu_torch/csrc`` with
-     nvcc (ptxas register and spill report in the build log);
+     nvcc, one process a source, all at once (ptxas register and spill
+     report in the build log; each source's nvcc seconds, and the slowest,
+     which sets the build's wall, on the ``[build]`` line);
   3. each kernel (add, double, addsel, smul) against its plain PyTorch
      version on the card, bit for bit (tolerance: exact), and each one's
      time beside the plain version's at the main path's shapes; double (one
@@ -155,14 +157,15 @@ G2's group law, ``BatchEngine.g2_scalar_mul`` and hash-to-G2 (BLS12-381):
  14. the six G2 kernels (g2_add, g2_double, g2_addsel, g2_dblsel, g2_smul,
      g2_smul_static) against their plain PyTorch versions on the card, bit
      for bit: the point kernels on 4,097 lanes with P = Q, P = -Q and
-     infinity on either side and a 15/16 selection, g2_dblsel (one bit of
-     the G2 ladder) also with Q = 2P and Q = -2P lanes, a block that adds
-     nowhere and one that adds everywhere, in 32-lane blocks (4,097 lanes)
-     and the launcher's 16-lane ones (100 lanes); the ladders on 256
+     infinity on either side and a 15/16 selection, g2_addsel and g2_dblsel
+     (the add's half with a select, one bit of the G2 ladder) also with a
+     block that adds nowhere and one that adds everywhere, in 32-lane
+     blocks (4,097 lanes) and the launcher's 16-lane ones (100 lanes),
+     g2_dblsel with Q = 2P and Q = -2P lanes; the ladders on 256
      lanes (k = 0, 1, r - 1, lanes 32-63 with k = 0; infinity among them;
      the two cofactor scalars) and on their first 250 (a partial block),
      in the launcher's blocks and in 32-lane blocks, with the ptxas lines
-     of the ladders, g2_add, g2_double and g2_dblsel (at most 96
+     of the ladders, g2_add, g2_double, g2_addsel and g2_dblsel (at most 96
      registers, no stack, no spill allowed); then each timed at the path's
      4,096 lanes beside its plain version, with its bound; then g2_addsel
      and g2_dblsel on their paths, ``G2Ctx.add_select`` and a 64-bit
@@ -257,10 +260,12 @@ product check
 
     python3 chip_smoke.py --time-g2 REPO
 
-times, with the checkout at REPO, ``g2_add``, ``g2_double``, ``g2_dblsel``
+times, with the checkout at REPO (built there, each source's nvcc seconds
+on its ``[build]`` line), ``g2_add``, ``g2_double``, ``g2_dblsel``
 and ``g2_addsel`` at 4,096 lanes and at 16 lanes an SM and one more (the
 last count of the launcher's 16-lane blocks and the first of its 32-lane
-ones), ``g2_smul`` at those counts and at 2,048 and 1,024 lanes, each
+ones), ``g2_addsel`` with no lane selected at 4,096, ``g2_smul`` at those
+counts and at 2,048 and 1,024 lanes, each
 cofactor ladder at 4,096 lanes, beside their bounds, with the G2 block
 kernels' ptxas lines, and
 ``BatchEngine.g2_scalar_mul`` on 4,096 points with its ``g2_smul_stages``
@@ -314,7 +319,8 @@ TREE_LANES = (1, 2, 64, 4096)  # phase 6: lanes of the product tree against its 
 PLAIN_PAIR_CHUNK = 1024  # lanes per plain-version call of the pairing kernels
 
 G1_SPLIT_SRC = "mathlib_tpu_torch/csrc/g1_split_kernels.cu"
-G2_SRC = "mathlib_tpu_torch/csrc/g2_kernels.cu"
+G2_POINT_SRC = "mathlib_tpu_torch/csrc/g2_point_kernels.cu"
+G2_DBLSEL_SRC = "mathlib_tpu_torch/csrc/g2_dblsel_kernels.cu"
 G2_SMUL_SRC = "mathlib_tpu_torch/csrc/g2_smul_kernels.cu"
 MILLER_SRC = "mathlib_tpu_torch/csrc/miller_split_kernels.cu"
 FEXP_SRC = "mathlib_tpu_torch/csrc/fexp_split_kernels.cu"
@@ -339,10 +345,10 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
     "hash_g1": ("mathlib_tpu_torch/csrc/hash_kernels.cu",
                 "mathlib_tpu/ops/kernels/hash_pallas.py:258"),
     "smul_static": (G1_SPLIT_SRC, "mathlib_tpu/ops/kernels/g1_pallas.py:509"),
-    "g2_add": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
-    "g2_double": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
-    "g2_addsel": (G2_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
-    "g2_dblsel": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
+    "g2_add": (G2_POINT_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:201"),
+    "g2_double": (G2_POINT_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:206"),
+    "g2_addsel": (G2_POINT_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:211"),
+    "g2_dblsel": (G2_DBLSEL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:228"),
     "g2_smul": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:358"),
     "g2_smul_static": (G2_SMUL_SRC, "mathlib_tpu/ops/kernels/g2_pallas.py:393"),
     "gather_rows": ("mathlib_tpu_torch/csrc/gather_kernels.cu",
@@ -668,22 +674,37 @@ SPLIT_KERNELS = ("g1_add_kernel", "g1_addsel_kernel", "g1_double_kernel", "g1_ad
 
 
 G2_BLOCK_KERNELS = ("g2_ladder_kernel", "g2_smul", "g2_add_kernel", "g2_double_kernel",
-                    "g2_dblsel_kernel")
+                    "g2_dblsel_kernel", "g2_addsel_kernel")
+# the G2 sources that hold kernels on the ladder's step, in this checkout and
+# in older ones (before the step code had a header of its own)
+G2_STEP_SOURCES = ("g2_point_kernels.cu", "g2_dblsel_kernels.cu", "g2_smul_kernels.cu")
 
 
 def g2_ladder_ptxas(path: str) -> list:
     """The build log's ptxas lines of the G2 ladder kernels and of the add,
-    doubling and dblsel kernels on the ladder's steps (or their one-thread
-    predecessors, in an older checkout)."""
+    doubling, addsel and dblsel kernels on the ladder's steps (or their
+    one-thread predecessors, in an older checkout)."""
     return [e for e in ptxas_entries(path) if e.startswith(G2_BLOCK_KERNELS)]
+
+
+def _g2_block(build, kernel: str) -> str:
+    """"block" if the imported checkout has ``kernel`` on the G2 ladder's step
+    (over a block's warps), else "one-thread" (a lane a thread)."""
+    return ("block" if any(_source_has(build, src, kernel) for src in G2_STEP_SOURCES)
+            else "one-thread")
 
 
 def g2_step_design(build) -> str:
     """Which g2_add and g2_double kernels the imported checkout has: "block"
-    (a launch of the G2 ladder's add or doubling step over a block's warps,
-    csrc/g2_smul_kernels.cu) or "one-thread" (a lane a thread)."""
-    return ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_add_kernel")
-            else "one-thread")
+    (a launch of the G2 ladder's add or doubling half over a block's warps)
+    or "one-thread"."""
+    return _g2_block(build, "g2_add_kernel")
+
+
+def addsel_design(build) -> str:
+    """Which g2_addsel kernel the imported checkout has: "block" (a launch of
+    the G2 add's half with the select at its store) or "one-thread"."""
+    return _g2_block(build, "g2_addsel_kernel")
 
 
 def split_ptxas(path: str) -> list:
@@ -996,10 +1017,8 @@ def dbladd_design(build) -> str:
 
 def dblsel_design(build) -> str:
     """Which g2_dblsel kernel the imported checkout has: "block" (one bit of
-    the G2 ladder over a block's warps, csrc/g2_smul_kernels.cu) or
-    "one-thread"."""
-    return ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_dblsel_kernel")
-            else "one-thread")
+    the G2 ladder over a block's warps) or "one-thread"."""
+    return _g2_block(build, "g2_dblsel_kernel")
 
 
 def tree_design(build) -> str:
@@ -2325,7 +2344,7 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
         if regs > 96 or not no_stack_or_spill(entry):
             raise AssertionError(f"G2 block kernel over 96 registers, or with a stack or a "
                                  f"spill: {entry}")
-    if len(g2_block) != 10:  # both ladders, the add, the doubling and dblsel, at 16 and 32 lanes
+    if len(g2_block) != 12:  # both ladders, add, double, addsel, dblsel, at 16 and 32 lanes
         raise AssertionError(f"the G2 block kernels' ptxas lines are missing: {g2_block}")
     pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
     n = N_CHECK
@@ -2347,9 +2366,10 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     check("g2_double", g2_cuda.double(F, S), g2_cuda.double_plain(F, S))
     check("g2_addsel", g2_cuda.addsel(F, S, Q, sel), g2_cuda.addsel_plain(F, S, Q, sel))
     check("g2_dblsel", g2_cuda.dblsel(F, S, Q, sel), g2_cuda.dblsel_plain(F, S, Q, sel))
-    # g2_dblsel's own edge lanes, Q = 2P and Q = -2P, a block that adds
-    # nowhere and one that adds everywhere, in 32-lane blocks (4,097 lanes)
-    # and the launcher's 16-lane ones (100)
+    # the selects' own edge lanes: a block that adds nowhere and one that
+    # adds everywhere (lanes 32-63, 64-95), in 32-lane blocks (4,097 lanes)
+    # and the launcher's 16-lane ones (100); g2_addsel on P, Q (P = Q, P = -Q,
+    # infinity) and on S (relaxed limbs), g2_dblsel with Q = 2P and Q = -2P
     Qd = Q.clone()
     D = g2_cuda.double_plain(F, S)
     Qd[..., 2::7] = D[..., 2::7]
@@ -2357,9 +2377,12 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
     seld = sel.clone()
     seld[32:64], seld[64:96] = False, True
     for m in (n, 100):
-        Sm, Qm, sm = S[..., :m].contiguous(), Qd[..., :m].contiguous(), seld[:m]
+        Pm, Sm, Qm, sm = (t[..., :m].contiguous() for t in (P, S, Q, seld))
+        for Am in (Pm, Sm):
+            check("g2_addsel", g2_cuda.addsel(F, Am, Qm, sm), g2_cuda.addsel_plain(F, Am, Qm, sm))
+        Qm = Qd[..., :m].contiguous()
         check("g2_dblsel", g2_cuda.dblsel(F, Sm, Qm, sm), g2_cuda.dblsel_plain(F, Sm, Qm, sm))
-    del Qd, D, Sm, Qm
+    del Qd, D, Pm, Sm, Qm, Am
     # the ladders against the plain version's lanes on 256 lanes and on the
     # first G2_RAGGED of them (a partial block), both in the launcher's
     # 16-lane blocks, and on 88 lanes past 16 an SM (32-lane blocks, a
@@ -3370,10 +3393,11 @@ def time_batch(repo: str) -> int:
 def time_g2(repo: str) -> int:
     """The G2 kernels alone, with the ``mathlib_tpu_torch`` of the checkout at
     ``repo`` (built there at first use): the ptxas lines of its G2 ladder,
-    add, doubling and dblsel kernels; ``g2_add``, ``g2_double``,
-    ``g2_dblsel`` and ``g2_addsel`` (15/16 of the lanes selected) at 4,096
-    lanes and at 16 lanes an SM and one more (CUDA events, mean of 100 after
-    a warm-up, beside their bounds, each output equal to the plain
+    add, doubling, addsel and dblsel kernels and each source's nvcc
+    seconds; ``g2_add``, ``g2_double``, ``g2_dblsel`` and ``g2_addsel`` (15/16
+    of the lanes selected) at 4,096 lanes and at 16 lanes an SM and one more,
+    and ``g2_addsel`` with no lane selected at 4,096 (CUDA events, mean of
+    100 after a warm-up, beside their bounds, each output equal to the plain
     version's);
     ``g2_smul`` (255 bits) at 4,096, 2,048 and 1,024 lanes and at 16 lanes
     an SM and one more (where the block ladder turns from 16- to 32-lane
@@ -3402,7 +3426,10 @@ def time_g2(repo: str) -> int:
 
     if not os.path.abspath(mathlib_tpu_torch.__file__).startswith(repo + os.sep):
         raise RuntimeError(f"mathlib_tpu_torch was not imported from {repo}")
+    t0 = time.perf_counter()
     lib = build.load()
+    log("build", repo=repr(repo), seconds=f"{time.perf_counter() - t0:.1f}",
+        nvcc_seconds=build.SECONDS)
     smi = smi_line()
     design = ("block" if _source_has(build, "g2_smul_kernels.cu", "g2_ladder_kernel")
               else "one-thread")
@@ -3442,7 +3469,7 @@ def time_g2(repo: str) -> int:
     want_add, want_dbl = g2_cuda.add_plain(F, Q, R), g2_cuda.double_plain(F, Q)
     want_dblsel, want_addsel = (g2_cuda.dblsel_plain(F, Q, R, sel),
                                 g2_cuda.addsel_plain(F, Q, R, sel))
-    ddesign = dblsel_design(build)
+    ddesign, adesign = dblsel_design(build), addsel_design(build)
     for m in (N_G2, edge + 1, edge):
         p_, r_, s_ = Q[..., :m].contiguous(), R[..., :m].contiguous(), sel[:m].contiguous()
         n_sel = int(s_.sum())
@@ -3452,7 +3479,7 @@ def time_g2(repo: str) -> int:
                  24 * m),
                 ("g2_dblsel", ddesign, lambda: g2_cuda.dblsel(F, p_, r_, s_), want_dblsel,
                  (3 * pt + 1) * m, 24 * m + 36 * n_sel),
-                ("g2_addsel", "one-thread", lambda: g2_cuda.addsel(F, p_, r_, s_), want_addsel,
+                ("g2_addsel", adesign, lambda: g2_cuda.addsel(F, p_, r_, s_), want_addsel,
                  (3 * pt + 1) * m, 36 * n_sel)):
             b = bound(nbytes, wide_mads(fp_muls, L))
             ms, got = cuda_ms(run, reps=100)
@@ -3463,6 +3490,15 @@ def time_g2(repo: str) -> int:
                 block_lanes=(16 if m <= edge else 32) if design_m == "block" else None,
                 ms=f"{ms:.5f}", bound_ms=f"{b['bound_ms']:.5f}", bound_by=b["bound_by"],
                 over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
+    # g2_addsel with no lane selected: every block stores Q and adds nowhere
+    none = torch.zeros_like(sel)
+    b = bound((3 * pt + 1) * N_G2, 0)
+    ms, got = cuda_ms(lambda: g2_cuda.addsel(F, Q, R, none), reps=100)
+    if not torch.equal(got, R):
+        raise AssertionError("time_g2: g2_addsel with no lane selected is not Q")
+    log("time_g2", repo=repr(repo), design=adesign, kernel="g2_addsel", lanes=N_G2, selected=0,
+        ms=f"{ms:.5f}", bound_ms=f"{b['bound_ms']:.5f}", bound_by=b["bound_by"],
+        over_bound=f"{ms / b['bound_ms']:.2f}x", equal=True, card=repr(smi))
     del want_add, want_dbl, want_dblsel, want_addsel
 
     def smul_at(m):
@@ -3723,7 +3759,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()  # builds here unless an up-to-date library is already there
     log("build", seconds=f"{time.perf_counter() - t0:.1f}", log=build.BUILD_LOG,
-        nvcc_seconds=build.SECONDS)
+        nvcc_seconds=build.SECONDS,
+        wall_source=max(build.SECONDS, key=build.SECONDS.get) if build.SECONDS else None)
     for entry in ptxas_entries(build.BUILD_LOG):
         print("  ptxas:", entry)
 
@@ -3981,7 +4018,8 @@ def main() -> int:
                "hash_g1": hash_design(build), "fp_pow": pow_design(build),
                "smul_static": static_design(build), "pairing_check": check_design(build),
                "g2_add": g2_step_design(build), "g2_double": g2_step_design(build),
-               "dbladd": dbladd_design(build), "g2_dblsel": dblsel_design(build)}
+               "dbladd": dbladd_design(build), "g2_dblsel": dblsel_design(build),
+               "g2_addsel": addsel_design(build)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          **({"design": designs[name]} if name in designs else {}),

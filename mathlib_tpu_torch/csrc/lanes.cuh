@@ -1,8 +1,6 @@
-// Lane I/O and launch helpers shared by the pairing and G2 kernel sources
-// (the tower constants and the L dispatch: miller_split_kernels.cu,
-// check_kernels.cu, fexp_split_kernels.cu; T's I/O: g2_kernels.cu through
-// g2_rows.cuh): one thread owns one lane of (..., L, B) limb arrays (16-bit
-// limbs in 32-bit words, lane batch last); T is (3, 2, L, B).
+// Launch helpers shared by the pairing kernel sources (miller_split_kernels.cu,
+// check_kernels.cu, fexp_split_kernels.cu): the tower constants, passed to
+// a kernel by value, and the L dispatch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,27 +8,20 @@
 #include <cstdint>
 
 #include "fp_rows.cuh"
-#include "tower_rows.cuh"
 
 namespace mlt {
 
-template <int NW>
-__device__ __forceinline__ void load_T(G2Proj<NW>& T, const uint32_t* src, int64_t n, int64_t i) {
-  for (int c = 0; c < 2; ++c) {
-    load_fp<NW>(T.x.c[c], src, 0 * 2 + c, n, i);
-    load_fp<NW>(T.y.c[c], src, 1 * 2 + c, n, i);
-    load_fp<NW>(T.z.c[c], src, 2 * 2 + c, n, i);
-  }
-}
-
-template <int NW>
-__device__ __forceinline__ void store_T(uint32_t* dst, const G2Proj<NW>& T, int64_t n, int64_t i) {
-  for (int c = 0; c < 2; ++c) {
-    store_fp<NW>(dst, T.x.c[c], 0 * 2 + c, n, i);
-    store_fp<NW>(dst, T.y.c[c], 1 * 2 + c, n, i);
-    store_fp<NW>(dst, T.z.c[c], 2 * 2 + c, n, i);
-  }
-}
+// Per-curve tower constants, passed by value as a kernel parameter.
+struct TowerConsts {
+  int n;        // beta = -n: u^2 = -n
+  int xi0;      // xi = xi0 + u
+  int twist_m;  // 1: M-twist line placement, 0: D-twist
+  int conj_end;  // conjugate f after the loop (loop parameter < 0)
+  int bn_tail;   // BN: two Frobenius chord lines after the loop
+  // BN tail: Q1 = (conj(Qx) cx1, conj(Qy) cy1), Q2 = (Qx cx2, -Qy cy2),
+  // Montgomery form, [cx1, cy1, cx2, cy2][c0/c1][word]
+  uint32_t tail[4][2][kMaxWords];
+};
 
 inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int nw) {
   // ints: n, xi0, twist_m, conj_end, bn_tail; tail: [4][2][nw] words

@@ -172,7 +172,8 @@ class G2Ctx:
         return torch.stack(weier.add_complete(self.F, self._unstack(P), self._unstack(Q)), dim=-4)
 
     def add_select(self, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
-        """select(sel, P + Q, Q): one kernel on the gated curves."""
+        """select(sel, P + Q, Q): one kernel on the gated curves (the add's
+        half of the G2 ladder's step, the select at its store)."""
         if self.rows is not None:
             return g2_cuda.addsel(self.rows, P, Q, sel)
         return self.select(sel, self.add(P, Q), Q)

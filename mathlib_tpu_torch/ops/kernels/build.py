@@ -66,9 +66,10 @@ SIGNATURES = {
     # P, Q, sel, neg, out, n, L, consts, b3, stream
     "mlt_g1_addselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     "mlt_g1_maddselneg": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-    # (csrc/g2_smul_kernels.cu; addsel in csrc/g2_kernels.cu) P, [Q, [sel,]] out, n,
-    # L, consts, b3.c0, b3.c1, stream; the ladders Q, scalars, S, nbits / Q, bits,
-    # nbits, then out, n, L, consts, b3.c0, b3.c1, stream
+    # (csrc/g2_point_kernels.cu, g2_dblsel_kernels.cu) P, [Q, [sel,]] out, n, L,
+    # consts, b3.c0, b3.c1, stream; (csrc/g2_smul_kernels.cu) the ladders Q,
+    # scalars, S, nbits / Q, bits, nbits, then out, n, L, consts, b3.c0, b3.c1,
+    # stream
     "mlt_g2_add": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_double": [_P, _P, _I, _I, _P, _I, _I, _P],
     "mlt_g2_addsel": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P],

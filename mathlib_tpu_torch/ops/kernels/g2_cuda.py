@@ -1,15 +1,17 @@
 """G2 group-law kernels for Hopper (port of ``mathlib_tpu/ops/kernels/g2_pallas.py``).
 
-Six kernels, CUDA C++: ``addsel`` in ``csrc/g2_kernels.cu`` (one lane a
-thread, over the point formula of ``csrc/g2_rows.cuh``), and in
-``csrc/g2_smul_kernels.cu`` the two ladders (one ladder body,
-``g2_ladder_kernel``, whose bit's base-field products are spread over a
-block's 18 warps, with Q, the accumulator and the products in shared memory
-for all bits), the add and the doubling (``g2_add_kernel``,
-``g2_double_kernel``: one half of that ladder's bit each, in one launch) and
-``dblsel`` (``g2_dblsel_kernel``: one whole bit with acc read from P, in one
-launch); 16 lanes a block up to 16 lanes an SM, 2,112 on an H100, 32 above.
-Each is behind a wrapper here:
+Six kernels, CUDA C++, on one step: each spreads a G2 ladder bit's
+base-field products over a block's warps (``csrc/g2_step.cuh``: one half of
+a bit, the doubling or the add, is ``half_bit``, with Q, the points and the
+products in shared memory).  ``csrc/g2_smul_kernels.cu`` has the two
+ladders (one body, ``g2_ladder_kernel``, over 18 warps for all bits);
+``csrc/g2_point_kernels.cu`` the add and ``addsel`` (one body,
+``add_body<.., SEL>``: the add's half over 18 warps, ``addsel``'s result
+sel ? P + Q : Q selected lane by lane where it is stored) and the doubling
+(the doubling's half over 12 warps), one launch each;
+``csrc/g2_dblsel_kernels.cu`` ``dblsel`` (one whole bit with acc read from
+P, in one launch).  16 lanes a block up to 16 lanes an SM, 2,112 on an
+H100, 32 above.  Each is behind a wrapper here:
 
 ===============  ==============================  ==================================================
 wrapper          computes                        replaces (TPU kernel)
@@ -259,7 +261,8 @@ def double(F: Row2Adapter, P: Tensor) -> Tensor:
 
 
 def addsel(F: Row2Adapter, P: Tensor, Q: Tensor, sel: Tensor) -> Tensor:
-    """select(sel, P + Q, Q), sel a (..., B) bool tensor."""
+    """select(sel, P + Q, Q), sel a (..., B) bool tensor: the add's half and
+    the select in one launch (a block with no lane selected runs no add)."""
     if P.device.type == "cpu":
         return addsel_plain(F, P, Q, sel)
     P, Q = torch.broadcast_tensors(P, Q)

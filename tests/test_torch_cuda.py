@@ -1187,10 +1187,33 @@ def test_g2_dblsel_on_edge_lanes_blocks_and_batch_dims(g2_edge_lanes, n):
     assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_dblsel": 2}
 
 
+@pytest.mark.parametrize("n", [100, 4097])
+def test_g2_addsel_on_edge_lanes_and_blocks(g2_edge_lanes, n):
+    """addsel (the G2 add's half with a lane-by-lane select) against
+    addsel_plain, bit for bit, on the edge lanes (P = Q, P = -Q, infinity on
+    either side) and on their relaxed sums, in the launcher's 16-lane blocks
+    (100 lanes) and 32-lane blocks (4,097: past 16 lanes an SM on an H100),
+    15/16 of the lanes selected, lanes 32-63 unselected (a 32-lane block, or
+    two 16-lane ones, that stores Q and adds nowhere) and 64-95 all
+    selected.  One launch a call."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    g2, P, Q = g2_edge_lanes
+    F = g2.rows
+    p, q = P[..., :n].contiguous(), Q[..., :n].contiguous()
+    rng = np.random.default_rng(n + 1)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(p.device)
+    sel[32:64], sel[64:96] = False, True
+    g2_cuda.reset_launches()
+    for a in (p, g2_cuda.add_plain(F, p, q)):
+        assert torch.equal(g2_cuda.addsel(F, a, q, sel), g2_cuda.addsel_plain(F, a, q, sel))
+    assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_addsel": 2}
+
+
 def test_g2_block_kernels_compile_without_stack_or_spill():
-    """ptxas' report for the G2 ladders and the add, doubling and dblsel
-    kernels on their steps, at 16- and 32-lane blocks: at most 96 registers,
-    no stack, no spill."""
+    """ptxas' report for the G2 ladders and the add, doubling, addsel and
+    dblsel kernels on their steps, at 16- and 32-lane blocks: at most 96
+    registers, no stack, no spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from chip_smoke import g2_ladder_ptxas, no_stack_or_spill
@@ -1198,9 +1221,10 @@ def test_g2_block_kernels_compile_without_stack_or_spill():
 
     build.load()
     entries = g2_ladder_ptxas(build.BUILD_LOG)
-    assert len(entries) == 10, entries
+    assert len(entries) == 12, entries
     for name in ("g2_add_kernel<12,16>", "g2_add_kernel<12,32>", "g2_double_kernel<12,16>",
-                 "g2_double_kernel<12,32>", "g2_dblsel_kernel<12,16>", "g2_dblsel_kernel<12,32>"):
+                 "g2_double_kernel<12,32>", "g2_dblsel_kernel<12,16>", "g2_dblsel_kernel<12,32>",
+                 "g2_addsel_kernel<12,16>", "g2_addsel_kernel<12,32>"):
         assert any(e.startswith(name + ":") for e in entries), (name, entries)
     for entry in entries:
         assert int(entry.split(": ")[1].split()[0]) <= 96, entry

@@ -1,9 +1,12 @@
 """The G2 ladder body behind ``g2_cuda.smul`` and ``g2_cuda.smul_static``
 (``g2_ladder_kernel`` in ``csrc/g2_smul_kernels.cu``), and the add,
-doubling and dblsel kernels on its steps behind ``g2_cuda.add``,
-``g2_cuda.double`` and ``g2_cuda.dblsel`` (``g2_add_kernel``,
-``g2_double_kernel``, ``g2_dblsel_kernel``, same source), modelled on Python
-integers in the kernels' order of operations and on their slot layouts.
+doubling, addsel and dblsel kernels on its steps behind ``g2_cuda.add``,
+``g2_cuda.double``, ``g2_cuda.addsel`` and ``g2_cuda.dblsel``
+(``g2_add_kernel``, ``g2_double_kernel``, ``g2_addsel_kernel`` in
+``csrc/g2_point_kernels.cu``, ``g2_dblsel_kernel`` in
+``csrc/g2_dblsel_kernels.cu``; the step code they share in
+``csrc/g2_step.cuh``), modelled on Python integers in the kernels' order of
+operations and on their slot layouts.
 
 The CUDA kernels run only on a card (``tests/test_torch_cuda.py`` holds them
 to the plain versions there).  Here their schedule is checked without one:
@@ -24,7 +27,10 @@ full length, and limb for limb against ``add_plain`` and ``double_plain``
 ``tests/test_torch_g2.py``); the dblsel kernel (``g2_dblsel_kernel``: P
 and Q staged into the ladder's slots, one bit with acc read from P) limb
 for limb against ``dblsel_plain`` (held to ``_dblsel_kernel``'s body
-there).  Tolerance: exact.
+there); the addsel kernel (``g2_addsel_kernel``: the add's body with the
+select at its store, a block with no lane selected storing Q) limb for
+limb against ``addsel_plain`` (held to ``_addsel_kernel``'s body there).
+Tolerance: exact.
 """
 
 import random
@@ -81,7 +87,7 @@ def _field(p, L):
 
 
 class Slots(NamedTuple):
-    """Where a block's shared slots start (``Slots`` in the kernel source):
+    """Where a block's shared slots start (``Slots`` in ``csrc/g2_step.cuh``):
     the point buffers, Q, a layer's products K, the first layer's Fp2
     products F, the middle values M, and the slot count."""
 
@@ -94,7 +100,7 @@ class Slots(NamedTuple):
 
 
 LADDER = Slots(0, 12, 18, 36, 48, 60)  # acc and D, Q, K 18, F 12, M 12
-ADD = Slots(0, 6, 12, 30, 42, 54)  # P, Q, K 18, F 12, M 12
+ADD = Slots(0, 6, 12, 30, 42, 54)  # P, Q, K 18, F 12, M 12 (the add and addsel)
 DBL = Slots(0, 0, 6, 18, 26, 34)  # P, K 12, F 8, M 8 (no Q)
 
 
@@ -296,6 +302,35 @@ def _dblsel_model(P, Q, sel, p, L, b3, block):
     return out, skipped, added
 
 
+def _addsel_model(P, Q, sel, p, L, b3, block):
+    """``g2_addsel_kernel`` (the add's body with the select) on lanes of
+    Python ints: each lane's P and Q staged into the add's slots (``ADD``),
+    then per block of ``block`` lanes: none selected, every lane stores Q
+    after staging (no add); else the add's half, whose step 5 gives
+    sel ? A : Q, Q read back from its slots after the add's four steps.
+    Returns the points and how many blocks skipped the add and ran it."""
+    S = ADD
+    half = _HalfBit(p, L, b3, S)
+    out = [None] * len(P)
+    skipped = added = 0
+    for lo in range(0, len(P), block):
+        lanes = range(lo, min(lo + block, len(P)))
+        sms = {i: _lane_slots(S) for i in lanes}
+        for i in lanes:
+            sms[i][S.pt:S.pt + 6] = P[i]
+            sms[i][S.q:S.q + 6] = Q[i]
+        if not any(sel[i] for i in lanes):  # out = Q
+            skipped += 1
+            for i in lanes:
+                out[i] = sms[i][S.q:S.q + 6]
+            continue
+        added += 1
+        for i in lanes:
+            out[i] = half.run(sms[i], 1, S.pt, take=sel[i], keep=S.q)
+            assert len(sms[i]) == S.n  # no step wrote past the layout's slots
+    return out, skipped, added
+
+
 def _ints(t, L):
     """(3, 2, L, B) limbs -> per lane six Python ints, 2c + j."""
     v = t.to(torch.int64).reshape(6, L, -1).tolist()
@@ -450,3 +485,29 @@ def test_g2_dblsel_model_equals_dblsel_plain():
             for a, b, s in zip(A, B, sel)]
     assert g2.decode_points(want) == host
     assert any(c >= fp.p for lane in p + q for c in lane)  # relaxed limbs occur
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_g2_addsel_model_equals_addsel_plain(edge_lanes, flip):
+    """g2_addsel_kernel's one launch (P and Q staged into the add's slots,
+    the block shortcut that stores Q, the add's half storing sel ? A : Q)
+    limb for limb against addsel_plain on the edge lanes (P = Q, P = -Q,
+    infinity on either side, relaxed limbs in [p, 2p) among inputs and
+    outputs), each lane selected under one of the two selections: in 2-lane
+    blocks (blocks with no lane selected, and with both) and one 32-lane
+    block; and canonically against the host engine."""
+    eng, g2, P, Q, A, B = edge_lanes
+    fp = g2.fp
+    sel = [True, True, True, True, False, False, True, False, False, True]
+    if flip:
+        sel = [not s for s in sel]
+    want = g2_cuda.addsel_plain(g2.rows, P, Q, torch.tensor(sel))
+    p, q = _ints(P, fp.L), _ints(Q, fp.L)
+    for block, shortcut in ((2, 2 if flip else 1), (32, 0)):
+        got, skipped, added = _addsel_model(p, q, sel, fp.p, fp.L, g2.rows.b3, block)
+        assert got == _ints(want, fp.L), block
+        assert (skipped, added) == (shortcut, -(-len(sel) // block) - shortcut)
+    host = [eng.g2.add(a, b) if s else b for a, b, s in zip(A, B, sel)]
+    assert g2.decode_points(_limbs(got, fp.L)) == host
+    for lanes in (p, q, got):  # relaxed limbs occur
+        assert any(c >= fp.p for lane in lanes for c in lane)
