@@ -66,16 +66,15 @@ and the device final exponentiation of the reference's opt-in strategies:
      no spill allowed; add_step at most 64 registers); the kernels of
      pairing_batch (miller_ft, add_step, final_exp; and f12_pow and fp_pow,
      which BN254's final exp ran before it became one final_exp launch;
-     fp_pow is timed in phase 11, on its path)
+     fp_pow is timed in phase 11, f12_pow in phase 17, on their paths)
      against their plain PyTorch versions on the card, exact, on 64 lanes of
      BLS12-381, BN254 and BLS12-377 with full chains (final_exp over x on
      every curve and BN254's whole final exp; f12_pow over |x| on BLS12
      curves and over the first hard-part digit on BN254, with and without
      cyclotomic squaring, on a unitary base); then each at phase 9's shapes
      (BLS12-381 at 4,096 lanes: miller_ft, final_exp; BN254 at 1,024:
-     add_step, the whole final exp, the four digit chains of f12_pow, a
-     shape off every path now: the ``kernels`` line says so), checked
-     against the plain version and timed beside it; and
+     add_step, the whole final exp), checked against the plain version and
+     timed beside it; and
      final_exp at the strategies' 1,024 and 1 lanes (other blocks), against
      the plain version's first lanes;
   9. pairing_batch at full width: 4,096 BLS12-381 pairs (a g1, b g2), the
@@ -212,14 +211,37 @@ The row gathers and the one-launch pairing check:
      version; (d) ``bls_verify_batch`` on phase 13 (f)'s 4,096 messages
      under ``check``: True, and False with one signature replaced.
 
+The public API (``mathlib_tpu_torch.api``) and its Gt helpers:
+
+ 17. (a) ``Curves[CurveID.BLS12_381].MultiScalarMul`` on 2^16 ``G1`` and
+     ``Zr`` objects (1,024 distinct points repeated, a zero scalar and an
+     infinity point among them; the bridge on the card's kernels), and on
+     BN254 and BLS12-377 at 2^14, each equal to the host engine's MSM of the
+     scalars folded per distinct point, best of 3 (points/s) with the
+     maddsel, gather_rows_t, add and double launches a call; FP256BN_AMCL's
+     at n = 64 must raise the G1 kernels' ValueError; (b) the codec on the
+     card's curves: the public BLS12-381 generator bytes, and on all 8 IDs
+     G1, G2, Gt and Zr round trips (bytes, compressed, JSON) of 64 seeded
+     elements and of infinity, and ``Gt.Exp`` of 8 lanes against the
+     pure-Python host engine; (c) ``TowerCtx.f12_pow_bits`` on 4,096
+     BLS12-381 lanes with a 255-bit shared exponent: exactly one f12_pow
+     launch (general squaring) a call, equal word for word to the plain
+     version (one run) and on 8 lanes to the host tower's ``f12_pow``,
+     timed beside its bound (f12_pow's shape in the ``kernels`` line);
+     (d) ``TowerCtx.f12_pow_scalars`` on 64 lanes with per-lane 255-bit
+     scalars (tower ops over mont_mul), 8 lanes against the host tower, its
+     device ms and launches; (e) ``pairing_products_are_one([], [], 2)``
+     under ``MATHLIB_GROUP_FEXP=device`` and a 0-lane ``f12_final_exp``:
+     ``[]`` and a 0-lane tensor, no launch.
+
 Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
 ``np.random.default_rng(1)`` (phases 8-9), ``np.random.default_rng(2)``
 (phases 10-11), ``np.random.default_rng(3)`` (phases 12-13) and
-``np.random.default_rng(4)`` (phases 14-15) and ``np.random.default_rng(5)``
-(phase 16), the points
+``np.random.default_rng(4)`` (phases 14-15), ``np.random.default_rng(5)``
+(phase 16) and ``np.random.default_rng(17)`` (phase 17), the points
 from the port's C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
-launches on its main path; 0 for f12_pow, which no entry point runs), then
+launches on its main path), then
 as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises (exit code != 0) before that line.  Imports no JAX and
@@ -373,9 +395,6 @@ N_BRIDGE_BN = 1 << 14  # phase 11 (b): BN254 points
 N_G1_MSM = 1 << 16  # phase 11 (c): BatchEngine.g1_msm points
 N_LADDER_BITS = 64  # phase 10: bits of the dbl_add_select ladder
 MAIN_G1 = ("add", "double", "addsel", "smul", "gather_rows_t")  # the kernels of phase 5's path
-# no entry point runs f12_pow since BN's final exp became one final_exp
-# launch: phase 8 still holds it to its plain version, its launches are 0
-NO_PATH = ("f12_pow",)
 N_HASH = 4096  # phase 13: messages of one BLS12-381 call; phase 12: timed lanes
 N_HASH_CHECK = 1024  # phase 12: lanes of hash_g1 against its plain version
 N_HASH_RAGGED = 1001  # phase 12: and on their first 1,001 (a partial block)
@@ -389,6 +408,24 @@ N_G2_LADDER_BITS = 64  # phase 14: bits of the G2Ctx.dbl_add_select ladder
 G2_RAGGED = 250  # phase 14: a ladder lane count that leaves a partial block
 HASH_G2_DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 BLS_SK = 0x2B1E5F0D3C7A9B4E6D8F1A3C5E7B9D2F4A6C8E1B3D5F7A9C2E4B6D8F1A3C5E7B
+N_API = 1 << 16  # phase 17 (a): G1 and Zr objects of one BLS12-381 MultiScalarMul
+N_API_SMALL = 1 << 14  # phase 17 (a): BN254 and BLS12-377
+N_API_BASE = 1024  # phase 17 (a): distinct points among them
+N_CODEC = 64  # phase 17 (b): seeded elements a curve ID of each round trip
+N_GT_EXP = 8  # phase 17 (b): Gt.Exp lanes held to the pure-Python host engine
+N_POW = 4096  # phase 17 (c): lanes of TowerCtx.f12_pow_bits
+N_POW_SAMPLED = 8  # phase 17 (c), (d): lanes held to the host tower's f12_pow
+N_POW_SCALARS = 64  # phase 17 (d): lanes of TowerCtx.f12_pow_scalars
+# the public BLS12-381 generator encodings (ZCash / IETF BLS ciphersuite)
+G1_GEN_COMPRESSED = bytes.fromhex(
+    "97f1d3a73197d7942695638c4fa9ac0fc3688c4f9774b905a14e3a3f171bac58"
+    "6c55e83ff97a1aeffb3af00adb22c6bb"
+)
+G2_GEN_COMPRESSED = bytes.fromhex(
+    "93e02b6052719f607dacd3a088274f65596bd0d09920b61ab5da61bbdc7f5049"
+    "334cf11213945d57e5ac7d055d042b7e024aa2b2f08f0a91260805272dc51051"
+    "c6e47ad4fa403b02b4510b647ae3d1770bac0326a805bbefd48056c8c121bdb8"
+)
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM at
 # 3.35 TB/s, and 32-bit integer multiply-adds on 64 INT32 lanes per SM
@@ -1388,7 +1425,7 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
     from mathlib_tpu_torch.host import get_engine
     from mathlib_tpu_torch.ops.kernels import fp_cuda, pairing_cuda as pc
     from mathlib_tpu_torch.ops.kernels.tower_rows import (
-        f12_pow_mults, final_exp_bn_mults, final_exp_mults, mults_per_step)
+        final_exp_bn_mults, final_exp_mults, mults_per_step)
 
     rng = np.random.default_rng(1)
 
@@ -1452,10 +1489,9 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
             add_step_block=pc.add_shape(cfg, N_LANES_CHECK))
 
     # the same kernels at phase 9's shapes, timed beside their plain versions:
-    # BLS12-381 at 4,096 lanes (miller_ft, final_exp), BN254 at 1,024 (add_step;
-    # the four digit chains of f12_pow, which BN's pairing_batch ran before
-    # its final exp became one launch: a shape off every path now).  fp_pow
-    # is timed at its path's shape in phase 11
+    # BLS12-381 at 4,096 lanes (miller_ft, final_exp), BN254 at 1,024
+    # (add_step).  fp_pow is timed at its path's shape in phase 11, f12_pow at
+    # its path's (TowerCtx.f12_pow_bits) in phase 17
     bls, bn = get_spec("BLS12_381"), get_spec("BN254")
     be_bls, be_bn = BatchEngine(bls, dev), BatchEngine(bn, dev)
     args_bls = be_bls._pair_split_mont(be_bls._encode_pairs(*random_pairs(get_engine(bls), bls, N_BATCH)))
@@ -1463,17 +1499,12 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
     c_bls, k_bls, c_bn, k_bn = be_bls.pair.cfg, be_bls.tw.kcfg, be_bn.pair.cfg, be_bn.tw.kcfg
     f_bls = pc.miller_ft(c_bls, *args_bls)[0]
     f_bn, T_bn = pc.miller_ft(c_bn, *args_bn)
-    u_bn = unitary(be_bn.tw, f_bn)
-    digits = [pc.msb_bits(d) for d in hard_digits(bn)]
     xP_bn, yP_bn, Qx_bn, Qy_bn = args_bn
     n_bn = mults_per_step(k_bn.tower.n, bn.twist)
 
     def joined(fn):
         """The (f, T) pair of a kernel as one (18 * L, lanes) tensor."""
         return lambda *a: torch.cat([x.reshape(-1, x.shape[-1]) for x in fn(*a)])
-
-    def four_digits(fn):
-        return lambda base: torch.cat([fn(k_bn, base, d, True) for d in digits])
 
     Lx, Lb = be_bls.fp.L, be_bn.fp.L
     row = 4  # bytes per limb word
@@ -1498,12 +1529,6 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
             lambda: joined(lambda: pc.add_step_plain(c_bn, f_bn, T_bn, Qx_bn, Qy_bn, xP_bn, yP_bn))(),
             (12 + 6 + 4 + 2 + 12 + 6) * Lb * row * N_BATCH_BN,
             N_BATCH_BN * (n_bn["add_step"] + n_bn["f12_sparse_mul"]), Lb),
-        "f12_pow": (
-            f"{N_BATCH_BN} lanes, {len(digits)} digits",
-            lambda: four_digits(pc.f12_pow)(u_bn),
-            lambda: four_digits(pc.f12_pow_plain)(u_bn),
-            len(digits) * 2 * 12 * Lb * row * N_BATCH_BN,
-            N_BATCH_BN * sum(f12_pow_mults(1, bn.twist, d, True) for d in digits), Lb),
     }
     for name, (what, kern, plain, nbytes, fp_muls, limbs) in shapes.items():
         ms, got = cuda_ms(kern, reps=3)
@@ -1514,10 +1539,7 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
         del got, want
         b = bound(nbytes, wide_mads(fp_muls, limbs))
         results[name].update(ms=ms, plain_ms=plain_ms, **b)
-        if name == "f12_pow":
-            results[name]["timed_off_path"] = f"BN254, {what}"
         block = {"final_exp": lambda: pc.fexp_shape(k_bls, name, N_BATCH),
-                 "f12_pow": lambda: pc.fexp_shape(k_bn, name, N_BATCH_BN),
                  "add_step": lambda: pc.add_shape(c_bn, N_BATCH_BN)}.get(name)
         log("time", kernel=name, shape=repr(what), equal=True, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
@@ -1546,7 +1568,7 @@ def pairing_batch_phases(dev, smi: str, results: dict, checks: dict) -> dict:
     log("time", kernel="final_exp", curve="BN254", shape=repr(f"{N_BATCH_BN} lanes"), equal=True,
         block=pc.fexp_shape(k_bn, "final_exp_bn", N_BATCH_BN), ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.2f}", bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
-    del f_bls, f_bn, T_bn, u_bn, args_bls, args_bn, fexp_want, got, want, f_l
+    del f_bls, f_bn, T_bn, args_bls, args_bn, fexp_want, got, want, f_l
 
     # ---- 9. pairing_batch at full width through BatchEngine, then the two
     # opt-in device final-exp strategies beside their defaults
@@ -2818,6 +2840,187 @@ def gather_check_phase(dev, smi: str, results: dict, main: dict, checks: dict) -
     return launches
 
 
+def api_phase(dev, smi: str, results: dict) -> dict:
+    """Phase 17; fills ``results`` for f12_pow at its path's shape and
+    returns its launch count on that path (``TowerCtx.f12_pow_bits``)."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.api import G1, G2, Gt, CurveID, Curves, Zr
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host.engine import HostEngine
+    from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, gather_cuda, pairing_cuda as pc
+    from mathlib_tpu_torch.ops.kernels.tower_rows import f12_pow_mults
+    from mathlib_tpu_torch.ops.tower import TowerCtx
+
+    rng = np.random.default_rng(17)
+    t_phase = time.perf_counter()
+
+    def draw(r, count):
+        return [int.from_bytes(rng.bytes(32), "big") % r for _ in range(count)]
+
+    def kernel_counts():
+        return {k: v for k, v in {**g1_cuda.launches(), **gather_cuda.launches(),
+                                  **fp_cuda.launches()}.items() if v}
+
+    # ---- (a) Curves[...].MultiScalarMul on G1 and Zr objects, n >= 64: the
+    # bridge on the card's kernels; N_API_BASE distinct points repeated, a
+    # zero scalar and an infinity point among them; the oracle is the host
+    # engine's MSM of the scalars folded per distinct point
+    for cid, n in ((CurveID.BLS12_381, N_API), (CurveID.BN254, N_API_SMALL),
+                   (CurveID.BLS12_377_GURVY, N_API_SMALL)):
+        c = Curves[cid]
+        spec, eng = c.spec, c.engine
+        if c.device.type != "cuda":
+            raise AssertionError(f"Curves[{cid.name}] is not on the card: {c.device}")
+        base = [eng.g1.mul(eng.gen_g1, k) for k in draw(spec.r, N_API_BASE)]
+        ks = draw(spec.r, n)
+        ks[3] = 0
+        g1s = [G1(base[i % N_API_BASE], cid, c) for i in range(n)]
+        g1s[7] = c.NewG1()
+        zrs = [c.NewZrFromInt(k) for k in ks]
+        folded = [0] * N_API_BASE
+        for i, k in enumerate(ks):
+            if i != 7:
+                folded[i % N_API_BASE] += k
+        want = eng.g1.msm(base, [f % spec.r for f in folded])
+        for mod in (g1_cuda, gather_cuda, fp_cuda):
+            mod.reset_launches()
+        _, secs = best_of_3(lambda: c.MultiScalarMul(g1s, zrs).point, want)
+        got = kernel_counts()
+        missing = [k for k in ("maddsel", "gather_rows_t", "add", "double") if k not in got]
+        if missing:
+            raise AssertionError(f"MultiScalarMul on {cid.name}: kernels not launched: {missing}")
+        log("api_msm", curve=cid.name, n=n, distinct_points=N_API_BASE,
+            equals_folded_host_oracle=True, seconds=[round(x, 4) for x in secs],
+            points_per_s=f"{n / min(secs):.1f}", card=repr(smi))
+        log("api_msm_launches", curve=cid.name, per_call={k: v / 4 for k, v in got.items()})
+    f = Curves[CurveID.FP256BN_AMCL]
+    try:
+        f.MultiScalarMul([f.GenG1] * 64, [f.NewZrFromInt(3)] * 64)
+    except ValueError as e:
+        log("api_msm_fp256bn", n=64, raises="ValueError", message=repr(str(e)))
+    else:
+        raise AssertionError("FP256BN MultiScalarMul at n >= 64 did not raise the kernels' error")
+
+    # ---- (b) the codec on the card's curves: the public BLS12-381 generator
+    # bytes; G1, G2, Gt and Zr round trips of N_CODEC seeded elements an ID
+    # (bytes, compressed, JSON), infinity included; Gt.Exp against the
+    # pure-Python host engine
+    t0 = time.perf_counter()
+    bls = Curves[CurveID.BLS12_381]
+    if (bls.GenG1.Compressed(), bls.GenG2.Compressed()) != (G1_GEN_COMPRESSED, G2_GEN_COMPRESSED):
+        raise AssertionError("the BLS12-381 generators do not encode to their public bytes")
+    for cid in CurveID:
+        c = Curves[cid]
+        for k in draw(c.spec.r, N_CODEC):
+            z = c.NewZrFromInt(k)
+            g1, g2, gt = c.GenG1.Mul(z), c.GenG2.Mul(z), c.GenGt.Exp(z)
+            backs = [c.NewG1FromBytes(g1.Bytes()), c.NewG1FromCompressed(g1.Compressed()),
+                     c.NewG2FromBytes(g2.Bytes()), c.NewG2FromCompressed(g2.Compressed()),
+                     c.NewGtFromBytes(gt.Bytes())]
+            if any(err is not None for _, err in backs) or not all(
+                    v.Equals(w) for (v, _), w in zip(backs, (g1, g1, g2, g2, gt))):
+                raise AssertionError(f"{cid.name}: a byte round trip differs")
+            if not (Zr.UnmarshalJSON(z.MarshalJSON()).Equals(z)
+                    and c.NewZrFromBytes(z.Bytes()).Equals(z)
+                    and G1.UnmarshalJSON(g1.MarshalJSON()).Equals(g1)
+                    and G2.UnmarshalJSON(g2.MarshalJSON()).Equals(g2)
+                    and Gt.UnmarshalJSON(gt.MarshalJSON()).Equals(gt)):
+                raise AssertionError(f"{cid.name}: a JSON round trip differs")
+        inf1, inf2 = c.NewG1(), c.NewG2()
+        if not (c.NewG1FromBytes(inf1.Bytes())[0].IsInfinity()
+                and c.NewG1FromCompressed(inf1.Compressed())[0].IsInfinity()
+                and c.NewG2FromBytes(inf2.Bytes())[0].point is None):
+            raise AssertionError(f"{cid.name}: infinity does not round-trip")
+    py = HostEngine(bls.spec)
+    for k in draw(bls.spec.r, N_GT_EXP):
+        if bls.GenGt.Exp(bls.NewZrFromInt(k)).val != py.gt_exp(bls.GenGt.val, k):
+            raise AssertionError("Gt.Exp differs from the host engine's gt_exp")
+    log("api_codec", ids=len(CurveID), elements_per_id=N_CODEC, g1_g2_gt_zr_round_trips=True,
+        bls12_381_generator_bytes=True, gt_exp_lanes=N_GT_EXP, gt_exp_equals_host=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- (c) TowerCtx.f12_pow_bits, the Gt power with one shared exponent:
+    # one f12_pow launch (general squaring) on N_POW BLS12-381 lanes with a
+    # 255-bit exponent, equal word for word to the plain version, 8 lanes to
+    # the host tower's f12_pow; timed beside its plain version and its bound
+    spec = get_spec("BLS12_381")
+    tw = TowerCtx(spec, dev)
+    coeffs = np.array(draw(spec.p, 12 * N_POW), dtype=object).reshape(2, 3, 2, N_POW)
+    a = tw.fp.encode(coeffs)
+    e = draw(spec.r, 1)[0] | (1 << 254)
+    bits_le = np.array([(e >> i) & 1 for i in range(e.bit_length())], dtype=np.uint8)
+    msb = np.ascontiguousarray(bits_le[::-1])
+    pc.reset_launches()
+    got = tw.f12_pow_bits(a, bits_le)  # the path's run: its launches counted alone
+    torch.cuda.synchronize()
+    path_launches = pc.launches()
+    if path_launches.get("f12_pow") != 1 or sum(path_launches.values()) != 1:
+        raise AssertionError(f"f12_pow_bits is not one f12_pow launch: {path_launches}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = pc.f12_pow_plain(tw.kcfg, a, msb, False)  # one run: ~10 s of plain ops
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    check_equal(results, "f12_pow", got, want)
+    vals = tw.f12_decode(a[..., :N_POW_SAMPLED])
+    if tw.f12_decode(got[..., :N_POW_SAMPLED]) != [tw.host.f12_pow(v, e) for v in vals]:
+        raise AssertionError("f12_pow_bits differs from the host tower's f12_pow")
+    del want
+    ms, again = cuda_ms(lambda: tw.f12_pow_bits(a, bits_le), reps=5)
+    if not torch.equal(again, got):
+        raise AssertionError("f12_pow_bits is not deterministic")
+    L = tw.fp.L
+    fp_muls = N_POW * f12_pow_mults(tw.kcfg.tower.n, spec.twist, msb, False)
+    b = bound(2 * 12 * L * 4 * N_POW, wide_mads(fp_muls, L))
+    results["f12_pow"].update(ms=ms, plain_ms=plain_ms, lanes=N_POW, **b)
+    log("time", kernel="f12_pow", path="TowerCtx.f12_pow_bits", shape=repr(
+        f"{N_POW} lanes, {len(msb)}-bit exponent, cyclo=False"), equal=True,
+        host_tower_lanes=N_POW_SAMPLED, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+        speedup=f"{plain_ms / ms:.1f}x", bound_ms=f"{b['bound_ms']:.4f}",
+        bound_by=b["bound_by"], fp_muls=fp_muls, block=pc.fexp_shape(tw.kcfg, "f12_pow", N_POW),
+        launches_per_call=1, card=repr(smi))
+
+    # ---- (d) TowerCtx.f12_pow_scalars (per-lane 255-bit scalars): tower
+    # glue over mont_mul, recorded for a later kernel
+    a64 = a[..., :N_POW_SCALARS].contiguous()
+    ks = draw(spec.r, N_POW_SCALARS)
+    S = torch.from_numpy(np.ascontiguousarray(
+        np.array([[(k >> (16 * j)) & 0xFFFF for k in ks] for j in range(16)], dtype=np.int32))).to(dev)
+    fp_cuda.reset_launches()
+    pc.reset_launches()
+    ev[0].record()
+    out = tw.f12_pow_scalars(a64, S)
+    ev[1].record()
+    torch.cuda.synchronize()
+    scal_launches = {k: v for k, v in {**fp_cuda.launches(), **pc.launches()}.items() if v}
+    lanes8 = tw.f12_decode(a64[..., :N_POW_SAMPLED])
+    if tw.f12_decode(out[..., :N_POW_SAMPLED]) != [
+            tw.host.f12_pow(v, k) for v, k in zip(lanes8, ks)]:
+        raise AssertionError("f12_pow_scalars differs from the host tower's f12_pow")
+    log("f12_pow_scalars", lanes=N_POW_SCALARS, nbits=spec.r.bit_length(),
+        host_tower_lanes=N_POW_SAMPLED, device_ms=f"{ev[0].elapsed_time(ev[1]):.2f}",
+        launches=scal_launches, card=repr(smi))
+
+    # ---- (e) the empty calls on the card: no groups, no lanes, no launch
+    be = BatchEngine(spec, dev)
+    pc.reset_launches()
+    try:
+        os.environ["MATHLIB_GROUP_FEXP"] = "device"
+        verdicts = be.pairing_products_are_one([], [], 2)
+    finally:
+        os.environ.pop("MATHLIB_GROUP_FEXP", None)
+    empty = be.tw.f12_final_exp(be.tw.f12_one[..., :0])
+    torch.cuda.synchronize()
+    if verdicts != [] or empty.shape != (2, 3, 2, L, 0) or any(pc.launches().values()):
+        raise AssertionError(f"the empty calls: {verdicts}, {tuple(empty.shape)}, {pc.launches()}")
+    log("api_empty", grouped_checks=verdicts, final_exp_shape=tuple(empty.shape), launches=0)
+    log("phase17", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"f12_pow": path_launches["f12_pow"]}
+
+
 def time_msm(repo: str) -> int:
     """Phase 5's 2^20 MSM alone, with the ``mathlib_tpu_torch`` of the
     checkout at ``repo`` (built there at first use): the same inputs, one
@@ -4007,7 +4210,10 @@ def main() -> int:
 
     # ---- 16. the row gathers and the one-launch pairing check
     launches.update(gather_check_phase(dev, smi, results, hash_main, checks))
-    missing = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0 and k not in NO_PATH]
+
+    # ---- 17. the public API (MultiScalarMul, the codec) and the Gt helpers
+    launches.update(api_phase(dev, smi, results))
+    missing = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
 
@@ -4027,8 +4233,7 @@ def main() -> int:
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
          # no single PyTorch call computes any of the others
-         "library_ms": results[name].get("library_ms"),
-         **({"timed_off_path": results[name]["timed_off_path"]} if name in NO_PATH else {})}
+         "library_ms": results[name].get("library_ms")}
         for name, (src, replaces) in KERNEL_INFO.items()
     ]
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -14,13 +14,17 @@ that do not use JAX: ``curves/params.py`` (curve constants) and ``host/``
 pairing checks on the host).  Nothing here imports ``jax`` or
 ``mathlib_tpu``.  Every entry point runs on the CUDA card unless the caller
 passes ``device="cpu"``.
+
+The public surface, as in the reference, is ``mathlib_tpu_torch.api``: the
+mathlib-compatible ``Curves`` registry indexed by ``CurveID`` (exported here
+too), with ``api.curves("cpu")`` for the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .curves.params import CurveSpec, get_spec  # noqa: F401
+from .curves.params import CurveID, CurveSpec, get_spec  # noqa: F401
 
 
 def device(kind=None) -> torch.device:

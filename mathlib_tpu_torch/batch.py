@@ -198,6 +198,8 @@ class BatchEngine:
             ]
         if group_size > MAX_GROUP:
             raise ValueError(f"a power-of-two group_size must be <= {MAX_GROUP}")
+        if n == 0:  # no groups, no device work: the reference's []
+            return []
         packed = self._encode_pairs(g1_points, g2_points)
         prods = self.pair.products_miller(*self._pair_split_mont(packed), group_size)
         if os.environ.get("MATHLIB_GROUP_FEXP") == "device" and self.pair.supports_fused_check:

@@ -1,8 +1,9 @@
 // Native host pairing engine (C++): the port's own copy of the repository's
 // native/engine.cpp, built with g++ by mathlib_tpu_torch/host/native.py.
 //
-// The port's host finisher and oracle: G1/G2 group law and scalar mul, host
-// Pippenger MSM, Miller loop + final exponentiation, Gt (Fp12)
+// The port's host finisher and oracle: G1/G2 group law and scalar mul (and
+// the joint multiplications behind the API's GLV/GLS splits), host Pippenger
+// MSM, Miller loop + final exponentiation, Gt (Fp12)
 // exponentiation.  The pairing-product check finishes its single unreduced
 // device product here (one final exponentiation and a unity test).
 //
@@ -1645,6 +1646,75 @@ void mlt_g2_mul(int32_t h, const uint8_t *P, const uint8_t *k, int32_t klen,
   Aff<Fp2E> r = to_aff<Fp2E>(c, jac_mul<Fp2E>(c, a, k, klen));
   wr_g2(c, r, out);
 }
+void mlt_g1_mul2(int32_t h, const uint8_t *P, const uint8_t *e, int32_t elen,
+                 const uint8_t *Q, const uint8_t *f, int32_t flen, uint8_t *out) {
+  // Joint (Strauss-Shamir) [e]P + [f]Q with shared doublings — the
+  // reference's JointScalarMultiplication seam
+  // (driver/gurvy/bls12381/bls12-381.go:869-937); also the combiner for
+  // the GLV-split scalar mul (mathlib_tpu_torch/host/native.py).
+  Ctx &c = ctx(h);
+  Aff<FpE> a, b;
+  rd_g1(c, P, a);
+  rd_g1(c, Q, b);
+  Aff<FpE> ab = aff_add<FpE>(c, a, b); // one inversion; mixed adds after
+  auto bit = [](const uint8_t *k, int klen, int i) -> int {
+    if (i >= klen * 8) return 0;
+    return (k[i / 8] >> (i % 8)) & 1;
+  };
+  int top = 8 * (elen > flen ? elen : flen) - 1;
+  while (top >= 0 && !bit(e, elen, top) && !bit(f, flen, top)) top--;
+  Jac<FpE> R;
+  jac_inf<FpE>(c, R);
+  for (int i = top; i >= 0; i--) {
+    R = jac_double<FpE>(c, R);
+    int be = bit(e, elen, i), bf = bit(f, flen, i);
+    if (be && bf) R = jac_madd<FpE>(c, R, ab);
+    else if (be) R = jac_madd<FpE>(c, R, a);
+    else if (bf) R = jac_madd<FpE>(c, R, b);
+  }
+  Aff<FpE> ra = to_aff<FpE>(c, R);
+  wr_g1(c, ra, out);
+}
+void mlt_g2_muln(int32_t h, int32_t m, const uint8_t *Ps, const uint8_t *ks,
+                 int32_t klen, uint8_t *out) {
+  // Joint multi-scalar sum_i [k_i] P_i (m <= 4) with shared doublings and
+  // a (2^m - 1)-entry subset table — the combiner for the 4-dim GLS G2
+  // decomposition (mathlib_tpu_torch/host/native.py), also usable standalone.
+  Ctx &c = ctx(h);
+  int fb = 8 * c.m.L;
+  int psz = 1 + 4 * fb;
+  Aff<Fp2E> pts[4];
+  for (int i = 0; i < m; i++) rd_g2(c, Ps + i * psz, pts[i]);
+  Jac<Fp2E> table[16];
+  jac_inf<Fp2E>(c, table[0]);
+  for (int s = 1; s < (1 << m); s++) {
+    int low = s & -s;
+    int li = __builtin_ctz(s);
+    table[s] = jac_madd<Fp2E>(c, table[s ^ low], pts[li]);
+  }
+  auto bit = [&](int i, int j) -> int { // bit j of scalar i
+    if (j >= klen * 8) return 0;
+    return (ks[i * klen + j / 8] >> (j % 8)) & 1;
+  };
+  int top = klen * 8 - 1;
+  while (top >= 0) {
+    int any = 0;
+    for (int i = 0; i < m; i++) any |= bit(i, top);
+    if (any) break;
+    top--;
+  }
+  Jac<Fp2E> R;
+  jac_inf<Fp2E>(c, R);
+  for (int j = top; j >= 0; j--) {
+    R = jac_double<Fp2E>(c, R);
+    int s = 0;
+    for (int i = 0; i < m; i++) s |= bit(i, j) << i;
+    if (s) R = jac_add<Fp2E>(c, R, table[s]);
+  }
+  Aff<Fp2E> ra = to_aff<Fp2E>(c, R);
+  wr_g2(c, ra, out);
+}
+
 void mlt_g1_msm(int32_t h, int64_t n, const uint8_t *Ps, const uint8_t *ks,
                 int32_t klen, uint8_t *out) {
   Ctx &c = ctx(h);

@@ -2,11 +2,11 @@
 
 The PyTorch port keeps its own copy of the curve constants so that it never
 imports the JAX package.  ``tests/test_torch_host.py`` holds every field of
-every spec here equal to the reference's.  The curve-ID registry
-(``CurveID``, ``CURVE_ID_SPEC``) is copied for ``BatchEngine.for_curve``;
-left out of the copy: the wire formats and the serialized sizes, which only
-the reference's API and codecs use (so ``FP256BN_MIRACL``, which differs
-from ``FP256BN`` only in its wire format, is the same curve here).
+every spec here equal to the reference's, the wire format (``SerFormat``,
+read by ``host/serialize.py``) and the serialized sizes (read by ``api.py``)
+included.  The curve-ID registry (``CurveID``, ``CURVE_ID_SPEC``) is the
+API's and ``BatchEngine.for_curve``'s.  ``FP256BN_MIRACL`` is ``FP256BN``
+under the miracl-core wire format.
 
 Four curves, all derived from the family polynomials and the group orders
 pinned by the upstream IBM/mathlib test suite (math_test.go:261-270):
@@ -35,6 +35,15 @@ class Family(enum.Enum):
     BN = "bn"
 
 
+class SerFormat(enum.Enum):
+    """Wire formats of the upstream backends (see host/serialize.py)."""
+
+    ZCASH = "zcash"  # BLS12-381: 3 flag bits in MSB of x (kilic & gnark agree)
+    GNARK = "gnark"  # BN254 / BLS12-377: gnark 2-bit flag scheme
+    AMCL = "amcl"  # FP256BN legacy: 0x04/0x02/0x03 G1 prefix, bare 128-B G2
+    AMCL_MIRACL = "amcl_miracl"  # FP256BN miracl-core: prefixed G2, 129/65 B
+
+
 @dataclass(frozen=True)
 class CurveSpec:
     name: str
@@ -53,6 +62,7 @@ class CurveSpec:
     g1_gen: Tuple[int, int]
     g2_gen: Tuple[Fp2Int, Fp2Int]
     fp_bytes: int  # size of one Fp coordinate on the wire
+    ser_format: SerFormat
     # final-exponentiation hard-part multiplier: the de-facto wire convention
     # is Gt = f^(easy * fexp_factor * (p^4 - p^2 + 1)/r). BLS12 backends use the
     # Hayashida-Hayasaka-Teruya chain (factor 3, eprint 2020/875); gnark's BN254
@@ -75,6 +85,40 @@ class CurveSpec:
     @property
     def final_exp(self) -> int:
         return self.easy_exp * self.hard_part_exp
+
+    @property
+    def _amcl_like(self) -> bool:
+        return self.ser_format in (SerFormat.AMCL, SerFormat.AMCL_MIRACL)
+
+    @property
+    def g1_uncompressed_size(self) -> int:
+        return 2 * self.fp_bytes + (1 if self._amcl_like else 0)
+
+    @property
+    def g1_compressed_size(self) -> int:
+        return self.fp_bytes + (1 if self._amcl_like else 0)
+
+    @property
+    def g2_uncompressed_size(self) -> int:
+        if self.ser_format == SerFormat.AMCL_MIRACL:
+            return 4 * self.fp_bytes + 1  # fp256bn_miracl.go:118-121
+        return 4 * self.fp_bytes
+
+    @property
+    def g2_compressed_size(self) -> int:
+        if self.ser_format == SerFormat.AMCL:
+            return 4 * self.fp_bytes  # AMCL has no compressed G2 (fp256bn.go:119-121)
+        if self.ser_format == SerFormat.AMCL_MIRACL:
+            return 2 * self.fp_bytes + 1  # fp256bn_miracl.go:123-125
+        return 2 * self.fp_bytes
+
+    @property
+    def gt_size(self) -> int:
+        return 12 * self.fp_bytes
+
+    @property
+    def scalar_bytes(self) -> int:
+        return 32  # driver/common/big.go:23
 
 
 def hard_part_digits(spec) -> Tuple[int, ...]:
@@ -382,6 +426,7 @@ def _make_bls12_381() -> CurveSpec:
         g1_gen=g1_gen,
         g2_gen=g2_gen,
         fp_bytes=48,
+        ser_format=SerFormat.ZCASH,
         fexp_factor=3,
         g2_derived=derived,
     )
@@ -417,6 +462,7 @@ def _make_bls12_377() -> CurveSpec:
         g1_gen=g1_gen,
         g2_gen=g2_gen,
         fp_bytes=48,
+        ser_format=SerFormat.GNARK,
         fexp_factor=3,
         g2_derived=derived,
     )
@@ -449,6 +495,7 @@ def _make_bn254() -> CurveSpec:
         g1_gen=(1, 2),
         g2_gen=g2_gen,
         fp_bytes=32,
+        ser_format=SerFormat.GNARK,
         fexp_factor=fexp_factor,
         g2_derived=derived,
     )
@@ -477,6 +524,7 @@ def _make_fp256bn() -> CurveSpec:
         g1_gen=(1, 2),
         g2_gen=g2_gen,
         fp_bytes=32,
+        ser_format=SerFormat.AMCL,
         fexp_factor=1,
         g2_derived=derived,
     )
@@ -484,10 +532,13 @@ def _make_fp256bn() -> CurveSpec:
 
 def _make_fp256bn_miracl() -> CurveSpec:
     """The miracl-core flavour of FP256BN: the same curve arithmetic under
-    another wire format and hash-to-point."""
+    the miracl-core wire format (prefixed G2, 129/65 B; fp256bn_miracl.go:
+    110-125) and the standards-track hash-to-point (driver/amcl/custom.go)."""
     import dataclasses
 
-    return dataclasses.replace(get_spec("FP256BN"), name="FP256BN_MIRACL")
+    return dataclasses.replace(
+        get_spec("FP256BN"), name="FP256BN_MIRACL", ser_format=SerFormat.AMCL_MIRACL
+    )
 
 
 @lru_cache(maxsize=None)

@@ -1,8 +1,11 @@
 """ctypes binding for the port's C++ host engine (``csrc/host/engine.cpp``).
 
-The port's own copy of the parts of ``mathlib_tpu/host/native.py`` that it
-calls: the byte codec, the per-curve context, the G1 group law and MSM, the
-G2 scalar mul, the Miller loop, the final exponentiation and the Fp12 ops.
+The port's own copy of ``mathlib_tpu/host/native.py`` without its
+pure-Python fallback: the byte codec, the per-curve context, the G1 group
+law and MSM, the G2 scalar mul, the Miller loop, the final exponentiation
+and the Fp12 ops, and the API's scalar muls: GLV on G1 and GLS on BLS12
+G2 (``mul``), each finished by a joint multiplication of the library
+(``mlt_g1_mul2``, ``mlt_g2_muln``), and ``mul2``.
 ``NativeEngine`` keeps the ``HostEngine`` interface, and the pure-Python
 ``HostEngine`` stays the exact oracle (``tests/test_torch_host.py`` holds the
 two equal).
@@ -44,6 +47,8 @@ SIGNATURES = {
     "mlt_final_exp": [_I32, _S, _S],
     "mlt_g1_mul": [_I32, _S, _S, _I32, _S],
     "mlt_g2_mul": [_I32, _S, _S, _I32, _S],
+    "mlt_g1_mul2": [_I32, _S, _S, _I32, _S, _S, _I32, _S],
+    "mlt_g2_muln": [_I32, _I32, _S, _S, _I32, _S],
     "mlt_g1_msm": [_I32, _I64, _S, _S, _I32, _S],
     "mlt_miller": [_I32, _I32, _S, _S, _S],
     "mlt_f12_pow": [_I32, _S, _S, _I32, _I32, _S],
@@ -182,6 +187,112 @@ def _build_cfg(spec: CurveSpec, tower) -> bytes:
     return b"".join(parts)
 
 
+def _glv_constants(spec: CurveSpec):
+    """Candidate (lam, beta) cube roots of unity for the GLV endomorphism
+    [lam]P == (beta * x, y) on G1 (matching pair selected empirically on
+    the generator by NativeEngine), or None."""
+    p, r = spec.p, spec.r
+    if r % 3 != 1 or p % 3 != 1:
+        return None
+
+    def cube_roots(m):
+        # roots of z^2 + z + 1: (-1 +- sqrt(-3)) / 2 mod m
+        s = _sqrt_mod(m - 3, m)
+        if s is None:
+            return []
+        inv2 = pow(2, -1, m)
+        return [((-1 + s) * inv2) % m, ((-1 - s) * inv2) % m]
+
+    lams = cube_roots(r)
+    betas = cube_roots(p)
+    if not lams or not betas:
+        return None
+    return lams, betas
+
+
+def _glv_lattice(r: int, lam: int):
+    """Short lattice basis for the GLV split (GLV 2001, extended Euclid).
+
+    Returns (v1, v2, det) with v = (a, b) satisfying a + b*lam = 0 mod r
+    and |a|, |b| ~ sqrt(r); det = v1[0]*v2[1] - v1[1]*v2[0] (= +-r).
+    The naive divmod split only balances when r = lam^2 + lam + 1 as
+    INTEGERS (BLS12); BN-family roots are ~0.75 r bits, so the lattice
+    reduction is what actually delivers ~sqrt(r) halves there.
+    """
+    import math
+
+    sq = math.isqrt(r)
+    # EEA rows: r_i = s_i*r + t_i*lam
+    r0, t0 = r, 0
+    r1, t1 = lam, 1
+    rows = [(r0, t0), (r1, t1)]
+    while rows[-1][0] != 0:
+        q = rows[-2][0] // rows[-1][0]
+        rows.append((rows[-2][0] - q * rows[-1][0], rows[-2][1] - q * rows[-1][1]))
+    l = next(i for i in range(len(rows)) if rows[i][0] < sq)
+    # v = (r_i, -t_i) is in {(x, y) : x + y*lam = 0 mod r}
+    cands = [(rows[i][0], -rows[i][1]) for i in (l - 1, l, min(l + 1, len(rows) - 1))]
+    cands.sort(key=lambda v: max(abs(v[0]), abs(v[1])))
+    v1, v2 = cands[0], cands[1]
+    det = v1[0] * v2[1] - v1[1] * v2[0]
+    if det == 0:
+        v2 = cands[2]
+        det = v1[0] * v2[1] - v1[1] * v2[0]
+    return v1, v2, det
+
+
+def _rnd_div(a: int, b: int) -> int:
+    """round(a / b) to nearest (b may be negative)."""
+    if b < 0:
+        a, b = -a, -b
+    return (2 * a + b) // (2 * b)
+
+
+def _sqrt_mod(a: int, m: int):
+    """Tonelli-Shanks square root mod prime m (None if non-residue)."""
+    a %= m
+    if a == 0:
+        return 0
+    if pow(a, (m - 1) // 2, m) != 1:
+        return None
+    if m % 4 == 3:
+        return pow(a, (m + 1) // 4, m)
+    q, s = m - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    z = 2
+    while pow(z, (m - 1) // 2, m) != m - 1:
+        z += 1
+    c = pow(z, q, m)
+    x = pow(a, (q + 1) // 2, m)
+    t = pow(a, q, m)
+    while t != 1:
+        i, tt = 0, t
+        while tt != 1:
+            tt = tt * tt % m
+            i += 1
+        b = pow(c, 1 << (s - i - 1), m)
+        x = x * b % m
+        t = t * b * b % m
+        c = b * b % m
+        s = i
+    return x
+
+
+def _psi_constants(spec: CurveSpec):
+    """(cx, cy): psi(x, y) = (conj(x)*cx, conj(y)*cy) on the twist —
+    untwist-Frobenius-retwist, eigenvalue p = x mod r on BLS12 G2."""
+    from .fields import get_tower
+
+    t = get_tower(spec)
+    fw2 = t.f2_sqr(t.frob_w)
+    fw3 = t.f2_mul(fw2, t.frob_w)
+    if spec.twist == "M":
+        return t.f2_inv(fw2), t.f2_inv(fw3)
+    return fw2, fw3
+
+
 class _NativeGroup:
     """WeierstrassCurve facade backed by the C++ library; anything not
     implemented there falls through to the exact Python curve."""
@@ -197,6 +308,8 @@ class _NativeGroup:
         self._dec = co.un_g2 if g2 else co.un_g1
         self._fadd = lib.mlt_g2_add if g2 else lib.mlt_g1_add
         self._fmul = lib.mlt_g2_mul if g2 else lib.mlt_g1_mul
+        self._glv = None  # (lam, beta, v1, v2, det), set by NativeEngine for G1
+        self._gls = None  # (x_abs, x_neg, psi), set by NativeEngine for BLS12 G2
 
     def __getattr__(self, name):
         return getattr(self._py, name)
@@ -215,18 +328,70 @@ class _NativeGroup:
     def double(self, P):
         return self.add(P, P)
 
-    def mul(self, P, k: int):
-        """[k]P by the library's ladder; any k, any point on the curve."""
+    def mul_any(self, P, k: int):
+        """Endomorphism-free scalar mul — correct for any twist/curve
+        point, not just the r-torsion (see WeierstrassCurve.mul_any)."""
         if k < 0:
-            return self.mul(self.neg(P), -k)
+            return self.mul_any(self.neg(P), -k)
         if P is None or k == 0:
             return None
-        kb = k.to_bytes((k.bit_length() + 7) // 8, "little")
+        kb = self._co.scalar(k) if k < self._co.r else k.to_bytes(
+            (k.bit_length() + 7) // 8, "little"
+        )
         out = ctypes.create_string_buffer(self._psz)
         self._fmul(self._h, self._enc(P), kb, len(kb), out)
         return self._dec(out.raw)
 
-    mul_any = mul
+    def mul(self, P, k: int):
+        if k < 0:
+            return self.mul(self.neg(P), -k)
+        if self._gls is not None and P is not None and 0 < k < self._co.r:
+            # 4-dim GLS: k = sum k_i |x|^i (digits base |x| of k < r <= x^4),
+            # [x^i]Q = psi^i(Q), so [k]Q = sum [k_i] (sgn^i) psi^i(Q)
+            x_abs, x_neg, psi = self._gls
+            digits, kk = [], k
+            pts, cur = [], P
+            for i in range(4):
+                kk, d = divmod(kk, x_abs)
+                digits.append(d)
+                pts.append(self._py.neg(cur) if (x_neg and i % 2) else cur)
+                cur = psi(cur)
+            klen = (x_abs.bit_length() + 7) // 8
+            ks = b"".join(d.to_bytes(klen, "little") for d in digits)
+            ps = b"".join(self._enc(q) for q in pts)
+            out = ctypes.create_string_buffer(self._psz)
+            self._lib.mlt_g2_muln(self._h, 4, ps, ks, klen, out)
+            return self._dec(out.raw)
+        if self._glv is not None and P is not None and 0 < k < self._co.r:
+            # Babai round-off against the short lattice basis:
+            # (k1, k2) = (k, 0) - b1 v1 - b2 v2, |k_i| ~ sqrt(r), signed
+            lam, beta, v1, v2, det = self._glv
+            b1 = _rnd_div(k * v2[1], det)
+            b2 = _rnd_div(-k * v1[1], det)
+            k1 = k - b1 * v1[0] - b2 * v2[0]
+            k2 = -b1 * v1[1] - b2 * v2[1]
+            phiP = (P[0] * beta % self._co.p, P[1])  # [lam]P
+            P1 = self._py.neg(P) if k1 < 0 else P
+            P2 = self._py.neg(phiP) if k2 < 0 else phiP
+            return self.mul2(P1, abs(k1), P2, abs(k2), _plain=True)
+        return self.mul_any(P, k)
+
+    def mul2(self, P, e: int, Q, f: int, _plain: bool = False):
+        if self._g2 or e < 0 or f < 0:
+            return self.add(self.mul(P, e), self.mul(Q, f))
+        if not _plain and self._glv is not None and P is not None and Q is not None:
+            # GLV both halves: one 4-way joint mul beats two 2-way ones,
+            # but two joint calls keep the C seam simple and still halve
+            # the doublings.
+            return self.add(self.mul(P, e), self.mul(Q, f))
+        blen = (max(e, f, 1).bit_length() + 7) // 8
+        eb = e.to_bytes(blen, "little")
+        fb_ = f.to_bytes(blen, "little")
+        out = ctypes.create_string_buffer(self._psz)
+        self._lib.mlt_g1_mul2(
+            self._h, self._enc(P), eb, len(eb), self._enc(Q), fb_, len(fb_), out
+        )
+        return self._dec(out.raw)
 
     def msm(self, points, scalars):
         if self._g2:
@@ -254,6 +419,46 @@ class NativeEngine(HostEngine):
         self._h = h
         self.g1 = _NativeGroup(lib, h, self._co, self.g1, g2=False)
         self.g2 = _NativeGroup(lib, h, self._co, self.g2, g2=True)
+        # GLV: find the (lam, beta) pairing that matches on the generator,
+        # then build the short lattice basis and self-check the split
+        roots = _glv_constants(spec)
+        if roots:
+            lams, betas = roots
+            G = spec.g1_gen
+            for lam in lams:
+                want = self.g1.mul(G, lam)  # plain path (_glv still None)
+                beta = next(
+                    (b for b in betas if want == (G[0] * b % spec.p, G[1])),
+                    None,
+                )
+                if beta is not None:
+                    v1, v2, det = _glv_lattice(spec.r, lam)
+                    # sanity: decomposition is exact and short for a probe k
+                    k = (spec.r * 2) // 3 + 12345
+                    b1 = _rnd_div(k * v2[1], det)
+                    b2 = _rnd_div(-k * v1[1], det)
+                    k1 = k - b1 * v1[0] - b2 * v2[0]
+                    k2 = -b1 * v1[1] - b2 * v2[1]
+                    half = 1 << (spec.r.bit_length() // 2 + 3)
+                    if (k1 + k2 * lam - k) % spec.r == 0 and abs(k1) < half and abs(k2) < half:
+                        self.g1._glv = (lam, beta, v1, v2, det)
+                    break
+        # GLS on G2 (BLS12 only: psi eigenvalue is exactly the parameter x)
+        if spec.family == Family.BLS12:
+            from .fields import get_tower
+
+            t = get_tower(spec)
+            cx, cy = _psi_constants(spec)
+
+            def psi(Q, _t=t, _cx=cx, _cy=cy):
+                return (
+                    _t.f2_mul(_t.f2_conj(Q[0]), _cx),
+                    _t.f2_mul(_t.f2_conj(Q[1]), _cy),
+                )
+
+            G2g = spec.g2_gen
+            if self.g2.mul(G2g, spec.x % spec.r) == psi(G2g):
+                self.g2._gls = (abs(spec.x), spec.x < 0, psi)
 
     def _f12_out(self, fn, *args):
         out = ctypes.create_string_buffer(12 * self._co.fb)

@@ -21,6 +21,7 @@ reference) is default-off there and not ported.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List
 
 import torch
@@ -55,12 +56,12 @@ class MulBatch:
 
     def run(self) -> List[Tensor]:
         L, B = self.pairs[0][0].shape[-2:]
-        A = torch.cat([a.reshape(-1, L, B) for a, _ in self.pairs])
-        Bm = torch.cat([b.reshape(-1, L, B) for _, b in self.pairs])
+        counts = [math.prod(a.shape[:-2]) for a, _ in self.pairs]  # B = 0 too
+        A = torch.cat([a.reshape(k, L, B) for k, (a, _) in zip(counts, self.pairs)])
+        Bm = torch.cat([b.reshape(k, L, B) for k, (_, b) in zip(counts, self.pairs)])
         flat = self.fp._mont_mul64(A, Bm)
         out, lo = [], 0
-        for a, _ in self.pairs:
-            k = a.numel() // (L * B)
+        for k, (a, _) in zip(counts, self.pairs):
             out.append(flat[lo : lo + k].reshape(a.shape))
             lo += k
         self.pairs = []

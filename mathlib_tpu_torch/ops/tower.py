@@ -19,11 +19,18 @@ BLS12 curves' factor-3 chain, and on BN curves the easy part, one cyclotomic
 chain per base-p digit of the hard exponent and their Frobenius products,
 the whole of what the reference runs on a TPU as XLA ops around its
 ``fp_pow`` kernel and one ``f12_pow`` kernel a digit.
+
+The Gt helpers: ``f12_zero``, ``f12_add``, ``f12_sub``, ``f12_neg`` and
+``f12_select`` are the reference's one-liners; ``f12_pow_bits`` (a shared,
+static exponent) is one ``f12_pow`` kernel launch with general squaring,
+where the reference runs an XLA scan; ``f12_pow_scalars`` (per-lane
+scalars) runs the reference's scan on these tower ops.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -245,8 +252,25 @@ class TowerCtx:
     def f12_one(self) -> Tensor:
         return self.f12_encode(self.host.F12_ONE)
 
+    @property
+    def f12_zero(self) -> Tensor:
+        return self.f12_encode(self.host.F12_ZERO)
+
     def _h(self, a, i):
         return a[..., i, :, :, :, :]
+
+    def f12_add(self, a, b):
+        return self.fp.add(*torch.broadcast_tensors(a, b))
+
+    def f12_sub(self, a, b):
+        return self.fp.sub(*torch.broadcast_tensors(a, b))
+
+    def f12_neg(self, a):
+        return self.fp.neg(a)
+
+    def f12_select(self, mask, a, b):
+        """mask (..., B) ? a : b over (..., 2, 3, 2, L, B) elements."""
+        return torch.where(mask[..., None, None, None, None, :], a, b)
 
     def f12_conj(self, a):
         return _stack([self._h(a, 0), self.f6_neg(self._h(a, 1))], -5)
@@ -295,6 +319,43 @@ class TowerCtx:
         diff = self.fp.sub(*torch.broadcast_tensors(a, self.f12_one))
         zero = (diff == 0).all(dim=-2) | (diff == self.fp.p_limbs.to(torch.int32)).all(dim=-2)
         return zero.all(dim=-2).all(dim=-2).all(dim=-2)
+
+    # ----------------------------------------------------------------- Gt --
+    def f12_pow_bits(self, a, bits):
+        """a^e for one shared, static exponent e, its bits little-endian (the
+        reference's order): one ``f12_pow`` kernel launch with general
+        squaring, its plain version on the CPU.  Leading dimensions before
+        (2, 3, 2, L, B) ride along as lanes."""
+        msb = np.ascontiguousarray(np.asarray(bits, dtype=np.uint8)[::-1])
+        shape, k = a.shape, math.prod(a.shape[:-5])
+        cols = shape[-5:-1] + (k, shape[-1])  # explicit sizes: B = 0 too
+        lanes = a.reshape((k,) + shape[-5:]).movedim(0, -2).reshape(shape[-5:-1] + (k * shape[-1],))
+        out = pairing_cuda.f12_pow(self.kcfg, lanes.contiguous(), msb, cyclo=False)
+        return out.reshape(cols).movedim(-2, 0).reshape(shape)
+
+    def f12_pow_scalars(self, a, scalars, nbits: Optional[int] = None):
+        """a^k with per-lane scalars (..., S, B) of plain 16-bit limbs (the
+        Gt.Exp surface): the reference's fixed trip count of ``nbits``
+        (default: r's bit length) squarings, each followed by a multiply
+        kept where the lane's bit is set, on this context's tower ops."""
+        nbits = nbits or self.spec.r.bit_length()
+        acc = torch.broadcast_to(self.f12_one, a.shape)
+        for idx in range(nbits - 1, -1, -1):
+            word = scalars.select(-2, idx // LIMB_BITS)
+            bit = ((word >> (idx % LIMB_BITS)) & 1).bool()
+            acc = self.f12_sqr(acc)
+            acc = self.f12_select(bit, self.f12_mul(acc, a), acc)
+        return acc
+
+    def _f12_exp_pos(self, a, e: int):
+        """a^e for a static positive int, unrolled square-and-multiply (no
+        masked multiplies; e = 0 gives a, as the reference's does)."""
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = self.f12_sqr(acc)
+            if bit == "1":
+                acc = self.f12_mul(acc, a)
+        return acc
 
     # ------------------------------------------------------------ final exp --
     def f12_final_exp(self, f):

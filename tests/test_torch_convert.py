@@ -167,7 +167,8 @@ def test_port_imports_no_jax():
         "assert 'mathlib_tpu_torch.batch' in names and len(names) > 15, names\n"
         "new = {'mathlib_tpu_torch.' + m for m in ('ops.hash', 'ops.xmd', 'ops.kernels.hash_cuda',\n"
         "                                        'host.hash_to_curve', 'curves.isogeny_data',\n"
-        "                                        'ops.g2', 'ops.kernels.g2_cuda')}\n"
+        "                                        'ops.g2', 'ops.kernels.g2_cuda', 'api',\n"
+        "                                        'host.serialize')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
@@ -193,6 +194,8 @@ def test_port_sources_import_nothing_of_the_reference():
     for root, _, names in os.walk(os.path.join(REPO, "mathlib_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for name in ("api.py", os.path.join("host", "serialize.py")):
+        assert os.path.join(REPO, "mathlib_tpu_torch", name) in files, name
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "mathlib_tpu"), (path, mod)

@@ -1260,3 +1260,47 @@ def test_g2_entry_points_on_the_card(g2_ctx):
     fp_cuda.reset_launches()
     assert BatchEngine(bn).g2_scalar_mul(pts, [11, 3]) == [eng_bn.g2.mul(pts[0], 11), None]
     assert fp_cuda.launches()["mont_mul"] > 0
+
+
+def test_gt_pow_and_the_api_msm_on_the_card():
+    """``TowerCtx.f12_pow_bits`` is one ``f12_pow`` launch equal to its plain
+    version at a ragged lane count; ``Curves[...].MultiScalarMul`` at 64 and
+    65 points runs the bridge's kernels and equals the host fold; FP256BN's
+    raises the G1 kernels' ValueError (no host fallback)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mathlib_tpu_torch.api import CurveID, Curves
+    from mathlib_tpu_torch.ops.kernels import gather_cuda
+    from mathlib_tpu_torch.ops.tower import TowerCtx
+
+    spec = get_spec("BLS12_381")
+    eng = get_engine(spec)
+    tw = TowerCtx(spec)
+    rng = np.random.default_rng(21)
+    vals = [eng.gt_exp(eng.gen_gt(), int(k)) for k in rng.integers(1, 1 << 62, 37)]
+    a = torch.cat([tw.f12_encode(v) for v in vals], dim=-1)
+    e = int.from_bytes(rng.bytes(32), "big") % spec.r
+    bits = np.array([(e >> i) & 1 for i in range(e.bit_length())], dtype=np.uint8)
+    pairing_cuda.reset_launches()
+    got = tw.f12_pow_bits(a, bits)
+    assert pairing_cuda.launches()["f12_pow"] == 1
+    want = pairing_cuda.f12_pow_plain(tw.kcfg, a, bits[::-1].copy(), False)
+    assert torch.equal(got, want)
+    assert tw.f12_decode(got[..., :3]) == [tw.host.f12_pow(v, e) for v in vals[:3]]
+
+    c = Curves[CurveID.BLS12_381]
+    for n in (64, 65):
+        g1s = [c.GenG1.Mul(c.NewZrFromInt(i % 19 + 1)) for i in range(n)]
+        zrs = [c.NewZrFromInt(int(k)) for k in rng.integers(0, 1 << 62, n)]
+        zrs[3] = c.NewZrFromInt(0)
+        g1s[7] = c.NewG1()
+        acc = c.NewG1()
+        for g, z in zip(g1s, zrs):
+            acc.Add(g.Mul(z))
+        g1_cuda.reset_launches()
+        gather_cuda.reset_launches()
+        assert c.MultiScalarMul(g1s, zrs).Equals(acc)
+        assert g1_cuda.launches()["maddsel"] > 0 and gather_cuda.launches()["gather_rows_t"] > 0
+    f = Curves[CurveID.FP256BN_AMCL]
+    with pytest.raises(ValueError, match="L = 16 or 24"):
+        f.MultiScalarMul([f.GenG1] * 64, [f.NewZrFromInt(3)] * 64)

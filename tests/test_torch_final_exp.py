@@ -304,14 +304,15 @@ def test_row_tower_counts_the_products_of_the_new_chains(curve):
 
 
 # ----------------------------------------------------------------- slice ---
-def _ref_spec(spec, ser_format=ref_params.SerFormat.ZCASH):
+def _ref_spec(spec):
     """The reference's ``CurveSpec`` holding the port's values, which
     tests/test_torch_host.py holds field for field to the ones the
     reference computes (computing them anew costs seconds of cofactor
-    search); the port keeps no wire format, and the pairing reads none."""
+    search); the port's enums map to the reference's by name."""
     vals = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     vals["family"] = ref_params.Family[spec.family.name]
-    return ref_params.CurveSpec(ser_format=ser_format, **vals)
+    vals["ser_format"] = ref_params.SerFormat[spec.ser_format.name]
+    return ref_params.CurveSpec(**vals)
 
 
 def test_pairing_batch_equals_the_reference_host_pairing():

@@ -14,7 +14,6 @@ reference's final exp is not jitted.  The kernel itself runs on the card:
 import numpy as np
 import torch
 
-import mathlib_tpu.curves.params as ref_params
 import mathlib_tpu.host.fields as ref_fields
 from mathlib_tpu_torch import get_spec
 from mathlib_tpu_torch.host import get_engine
@@ -39,7 +38,7 @@ def test_final_exp_bn_equals_the_reference_host_final_exp():
     f = torch.cat([tw.f12_encode(v) for v in vals], dim=-1)
     pc.reset_launches()
     got = tw.f12_final_exp(f)
-    ref = ref_fields.Tower(_ref_spec(spec, ref_params.SerFormat.GNARK))
+    ref = ref_fields.Tower(_ref_spec(spec))
     assert tw.f12_decode(got) == [ref.f12_final_exp(v) for v in vals]
     assert set(pc.launches().values()) == {0}  # the CPU runs the plain version
     kcfg, p, L = tw.kcfg, spec.p, tw.fp.L

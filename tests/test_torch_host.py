@@ -23,18 +23,25 @@ from mathlib_tpu_torch.host import HostEngine, NativeEngine, get_engine, native
 CURVES = ["BLS12_381", "BN254", "BLS12_377", "FP256BN"]
 
 
-@pytest.mark.parametrize("curve", CURVES)
+ENUM_FIELDS = ("family", "ser_format")  # the port's own enums: compared by name and value
+SIZES = ("g1_uncompressed_size", "g1_compressed_size", "g2_uncompressed_size",
+         "g2_compressed_size", "gt_size", "scalar_bytes")
+
+
+@pytest.mark.parametrize("curve", CURVES + ["FP256BN_MIRACL"])
 def test_every_spec_field_equals_the_reference(curve):
+    """Every field, the wire format and every serialized size included."""
     spec, ref = get_spec(curve), ref_get_spec(curve)
     assert isinstance(spec, CurveSpec)
     for f in dataclasses.fields(spec):
         got, want = getattr(spec, f.name), getattr(ref, f.name)
-        if f.name == "family":
+        if f.name in ENUM_FIELDS:
             assert (got.name, got.value) == (want.name, want.value)
         else:
             assert got == want, f.name
-    for prop in ("hard_part_exp", "easy_exp"):
-        assert getattr(spec, prop) == getattr(ref, prop)
+    assert [f.name for f in dataclasses.fields(spec)] == [f.name for f in dataclasses.fields(ref)]
+    for prop in ("hard_part_exp", "easy_exp") + SIZES:
+        assert getattr(spec, prop) == getattr(ref, prop), prop
 
 
 def test_curve_id_registry_equals_the_reference():
@@ -47,8 +54,9 @@ def test_curve_id_registry_equals_the_reference():
         c.name: v for c, v in ref_params.CURVE_ID_SPEC.items()}
     spec, ref = get_spec("FP256BN_MIRACL"), ref_get_spec("FP256BN_MIRACL")
     for f in dataclasses.fields(spec):
-        if f.name != "family":
+        if f.name not in ENUM_FIELDS:
             assert getattr(spec, f.name) == getattr(ref, f.name), f.name
+    assert spec.ser_format.name == ref.ser_format.name == "AMCL_MIRACL"
 
 
 @pytest.mark.parametrize("curve", CURVES)
@@ -75,6 +83,40 @@ def test_native_and_python_engines_equal_the_reference_engine(curve):
     assert py.final_exp(f) == e == nat.final_exp(f)
     assert nat.final_exp(nat.miller_loop([(P, Q)])) == e
     assert nat.gt_is_one(nat.final_exp(nat.miller_loop([(P, Q), (ref.g1.neg(P), Q)])))
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_glv_gls_mul_mul2_and_mul_any_equal_the_reference_native_engine(curve):
+    """The API's scalar muls: ``mul`` (GLV on G1, GLS on BLS12 G2, each
+    finished by a joint multiplication of the library), ``mul2`` and
+    ``mul_any``, against the reference's native engine on seeded points and
+    scalars, k = 0, 1, r - 1, negative k, k >= r and infinity among them."""
+    from mathlib_tpu.host.engine import get_engine as ref_get_engine
+
+    spec = get_spec(curve)
+    ref, nat = ref_get_engine(ref_get_spec(curve)), get_engine(spec)
+    assert type(ref).__name__ == "NativeEngine"  # not the reference's Python fallback
+    assert (nat.g1._glv is None) == (ref.g1._glv is None)
+    assert nat.g1._glv == ref.g1._glv
+    assert (nat.g2._gls is None) == (ref.g2._gls is None) == (curve not in ("BLS12_381", "BLS12_377"))
+    rng = random.Random("glv-" + curve)
+    r = spec.r
+    ks = [0, 1, 2, r - 1, r, r + 5, -1, -rng.randrange(r)] + [rng.randrange(r) for _ in range(3)]
+    P = ref.g1.mul(ref.gen_g1, rng.randrange(1, r))
+    Q = ref.g2.mul(ref.gen_g2, rng.randrange(1, r))
+    for k in ks:
+        for group, pt in ((nat.g1, P), (nat.g2, Q)):
+            want_group = ref.g1 if group is nat.g1 else ref.g2
+            for fn in ("mul", "mul_any"):
+                assert getattr(group, fn)(pt, k) == getattr(want_group, fn)(pt, k), (fn, k)
+            assert group.mul(None, k) is None
+    pairs = [(0, 0), (1, 0), (0, r - 1), (r - 1, r - 1), (-3, 5)] + [
+        (rng.randrange(r), rng.randrange(r)) for _ in range(3)]
+    P2 = ref.g1.mul(ref.gen_g1, rng.randrange(1, r))
+    for e, f in pairs:
+        for A, B in ((P, P2), (P, P), (P, ref.g1.neg(P)), (None, P2), (P, None)):
+            assert nat.g1.mul2(A, e, B, f) == ref.g1.mul2(A, e, B, f), (e, f)
+        assert nat.g2.mul2(Q, e, None, f) == ref.g2.mul2(Q, e, None, f)
 
 
 def test_isogeny_data_and_the_host_hasher_equal_the_reference():

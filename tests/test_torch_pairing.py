@@ -28,7 +28,7 @@ from mathlib_tpu.curves.params import get_spec as ref_get_spec
 from mathlib_tpu.host.engine import HostEngine as RefHostEngine
 from mathlib_tpu.ops.pairing import PairingCtx as RefPairingCtx
 from mathlib_tpu_torch import get_spec
-from mathlib_tpu_torch.batch import BatchEngine
+from mathlib_tpu_torch.batch import BatchEngine, get_batch_engine
 from mathlib_tpu_torch.host import get_engine
 from mathlib_tpu_torch.ops.kernels import pairing_cuda as pc
 from mathlib_tpu_torch.ops.field import ints_to_limbs
@@ -209,6 +209,26 @@ def test_empty_pairing_batch_returns_an_empty_list(curve):
     assert be.pairing_batch([], []) == []
     with pytest.raises(ValueError):
         be.pairing_batch([], [be.spec.g2_gen])
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381", "BN254"])
+@pytest.mark.parametrize("strategy", [None, "device"])
+@pytest.mark.parametrize("group_size", [1, 2])
+def test_empty_grouped_checks_return_an_empty_list(curve, strategy, group_size, monkeypatch):
+    """No pairs give no verdicts, as the reference's ``pairing_products_are_one``
+    gives (G = 0 groups), under both ``MATHLIB_GROUP_FEXP`` strategies."""
+    if strategy is None:
+        monkeypatch.delenv("MATHLIB_GROUP_FEXP", raising=False)
+    else:
+        monkeypatch.setenv("MATHLIB_GROUP_FEXP", strategy)
+    be = get_batch_engine(get_spec(curve), "cpu")
+    assert be.pairing_products_are_one([], [], group_size) == []
+
+
+def test_final_exp_of_no_lanes_is_a_zero_lane_tensor():
+    tw = TowerCtx(get_spec("BLS12_381"), "cpu")
+    empty = tw.f12_final_exp(tw.f12_one[..., :0])
+    assert empty.shape == (2, 3, 2, tw.fp.L, 0) and empty.dtype == torch.int32
 
 
 def test_pairing_kernels_refuse_what_they_do_not_take():
