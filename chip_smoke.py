@@ -216,10 +216,11 @@ The public API (``mathlib_tpu_torch.api``) and its Gt helpers:
  17. (a) ``Curves[CurveID.BLS12_381].MultiScalarMul`` on 2^16 ``G1`` and
      ``Zr`` objects (1,024 distinct points repeated, a zero scalar and an
      infinity point among them; the bridge on the card's kernels), and on
-     BN254 and BLS12-377 at 2^14, each equal to the host engine's MSM of the
-     scalars folded per distinct point, best of 3 (points/s) with the
-     maddsel, gather_rows_t, add and double launches a call; FP256BN_AMCL's
-     at n = 64 must raise the G1 kernels' ValueError; (b) the codec on the
+     BN254, BLS12-377, FP256BN_AMCL and FP256BN_AMCL_MIRACL at 2^14 (the
+     last two on the kernels at nine words: their contexts hold L = 18 on
+     the card), each equal to the host engine's MSM of the scalars folded
+     per distinct point, best of 3 (points/s) with the maddsel,
+     gather_rows_t, add and double launches a call; (b) the codec on the
      card's curves: the public BLS12-381 generator bytes, and on all 8 IDs
      G1, G2, Gt and Zr round trips (bytes, compressed, JSON) of 64 seeded
      elements and of infinity, and ``Gt.Exp`` of 8 lanes against the
@@ -234,11 +235,51 @@ The public API (``mathlib_tpu_torch.api``) and its Gt helpers:
      under ``MATHLIB_GROUP_FEXP=device`` and a 0-lane ``f12_final_exp``:
      ``[]`` and a 0-lane tensor, no launch.
 
+FP256BN on the card (``BatchEngine(get_spec("FP256BN"))``: its base field
+at L = 18, nine 32-bit words, on the kernels the twins ``csrc/*_nw9.cu``
+build):
+
+ 18. (a) the ptxas lines of every kernel at nine words (no stack, no
+     spill); each kernel at nine words against its plain version at L = 18
+     on the card, bit for bit: the G1 kernels on 4,097 edge lanes (P =
+     lift(Q), P = -lift(Q), infinity; a 32-lane block that adds nowhere and
+     one that adds everywhere; dbladd with Q = inf, 2P, -2P), the ladder on
+     256 and 250 lanes (k = 0, 1, r - 1, a block of zero scalars), mont_mul
+     and fp_pow on the edge values 0, 1, p - 1, p, 2p - 1 (ragged 4,097 and
+     1,001 lanes), gather_rows_t at 54-word rows, miller_lanes on 64 lanes
+     with 61 real, f12_pow over the first hard-part digit (both squarings),
+     the BN final exp on a ragged 1,001 lanes, the product tree with seg 2,
+     the G2 kernels on 4,097 edge lanes (P = Q, P = -Q, infinity; dblsel
+     with Q = 2P, -2P) and the G2 ladder on 256 and 250 lanes; then each
+     timed at the phase's shapes beside one run of its plain version, with
+     its bound at nine words (the G1 kernels at 2^16 lanes, the ladders,
+     mont_mul, fp_pow, miller_ft, add_step, the final exp, f12_pow and the
+     G2 kernels at 1,024, miller_lanes and the tree at 4,096); (b)
+     ``BatchEngine.g1_msm`` on 2^16 host points (1,024 distinct, an
+     infinity and a zero scalar) against the folded host oracle,
+     ``g1_msm_device`` on points at the reference's L = 17 (the edge
+     conversions), ``g1_scalar_mul`` on 1,024 lanes; (c) ``pairing_batch``
+     on 1,024 pairs, 8 lanes against the host pairing, one final_exp a call
+     and no fp_pow or f12_pow; (d) a 4,096-pair check True and its twin
+     False under the default and under ``MATHLIB_PAIR_FUSED=split``, 1,024
+     grouped two-pair checks (half corrupted); (e) ``bls_sign_batch`` and
+     ``bls_verify_batch`` on 1,024 messages (the host hasher), True and
+     False with a signature replaced; (f) ``g2_scalar_mul`` on 1,024 lanes
+     (k = 0 and infinity among them) against the host; each a warm-up and 3
+     timed calls, the launch counts set to 0 just before and read just
+     after; then the drives of the kernels no entry point reaches by
+     default (the signed and mixed MSMs, dbl_add_select ladders of G1 and
+     G2, G2Ctx's add, double and add_select, ``TowerCtx.f12_pow_bits``),
+     each against the host.  Every kernel at nine words must have launched
+     on a path (maddsel on phase 17 (a)'s), and the ``kernels`` line lists
+     them with the suffix ``_nw9``.
+
 Inputs come from ``np.random.default_rng(0)`` (phases 1-7),
 ``np.random.default_rng(1)`` (phases 8-9), ``np.random.default_rng(2)``
 (phases 10-11), ``np.random.default_rng(3)`` (phases 12-13) and
 ``np.random.default_rng(4)`` (phases 14-15), ``np.random.default_rng(5)``
-(phase 16) and ``np.random.default_rng(17)`` (phase 17), the points
+(phase 16), ``np.random.default_rng(17)`` (phase 17) and
+``np.random.default_rng(18)`` (phase 18), the points
 from the port's C++ host engine (built with g++ at first use).  Prints the card's name and
 power limit, one JSON line of per-kernel results (time, plain time, bound,
 launches on its main path), then
@@ -504,7 +545,8 @@ def ptxas_entries(path: str) -> list:
         if "Compiling entry function" in ln:
             if name:
                 out.append(f"{name}: {regs} registers, {frame}")
-            m = re.search(r"_ZN3mlt\d+(\w+?)I((?:L[ib]\d+E)+)E", ln)
+            # the kernels' namespace: mlt, or mlt_nw9 in a nine-word twin
+            m = re.search(r"_ZN(?:3mlt|7mlt_nw9)\d+(\w+?)I((?:L[ib]\d+E)+)E", ln)
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
             name = f"{m.group(1)}<{args}>" if m else ln.split("'")[1]
             regs = frame = None
@@ -1010,7 +1052,8 @@ def static_ptxas(path: str) -> list:
 
 
 def no_stack_or_spill(entry: str) -> bool:
-    return entry.endswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+    # the comma: a frame of 200 bytes also ends in "0 bytes stack frame"
+    return entry.endswith(", 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
 
 
 def mont_design(build) -> str:
@@ -2366,7 +2409,9 @@ def g2_phases(dev, smi: str, results: dict) -> dict:
         if regs > 96 or not no_stack_or_spill(entry):
             raise AssertionError(f"G2 block kernel over 96 registers, or with a stack or a "
                                  f"spill: {entry}")
-    if len(g2_block) != 12:  # both ladders, add, double, addsel, dblsel, at 16 and 32 lanes
+    # both ladders, add, double, addsel, dblsel, at 16 and 32 lanes; at nine
+    # words (phase 18) all but the static ladder
+    if len(g2_block) != 12 + 10:
         raise AssertionError(f"the G2 block kernels' ptxas lines are missing: {g2_block}")
     pool = [eng.g2.mul(eng.gen_g2, rand_k()) for _ in range(256)] + [None]
     n = N_CHECK
@@ -2849,12 +2894,14 @@ def api_phase(dev, smi: str, results: dict) -> dict:
     from mathlib_tpu_torch.api import G1, G2, Gt, CurveID, Curves, Zr
     from mathlib_tpu_torch.batch import BatchEngine
     from mathlib_tpu_torch.host.engine import HostEngine
+    from mathlib_tpu_torch.ops.g1 import get_g1_ctx
     from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, gather_cuda, pairing_cuda as pc
     from mathlib_tpu_torch.ops.kernels.tower_rows import f12_pow_mults
     from mathlib_tpu_torch.ops.tower import TowerCtx
 
     rng = np.random.default_rng(17)
     t_phase = time.perf_counter()
+    nw9: dict = {}  # FP256BN_AMCL's launches at nine words (its bridge is maddsel's path there)
 
     def draw(r, count):
         return [int.from_bytes(rng.bytes(32), "big") % r for _ in range(count)]
@@ -2868,7 +2915,8 @@ def api_phase(dev, smi: str, results: dict) -> dict:
     # zero scalar and an infinity point among them; the oracle is the host
     # engine's MSM of the scalars folded per distinct point
     for cid, n in ((CurveID.BLS12_381, N_API), (CurveID.BN254, N_API_SMALL),
-                   (CurveID.BLS12_377_GURVY, N_API_SMALL)):
+                   (CurveID.BLS12_377_GURVY, N_API_SMALL), (CurveID.FP256BN_AMCL, N_API_SMALL),
+                   (CurveID.FP256BN_AMCL_MIRACL, N_API_SMALL)):
         c = Curves[cid]
         spec, eng = c.spec, c.engine
         if c.device.type != "cuda":
@@ -2891,17 +2939,13 @@ def api_phase(dev, smi: str, results: dict) -> dict:
         missing = [k for k in ("maddsel", "gather_rows_t", "add", "double") if k not in got]
         if missing:
             raise AssertionError(f"MultiScalarMul on {cid.name}: kernels not launched: {missing}")
-        log("api_msm", curve=cid.name, n=n, distinct_points=N_API_BASE,
+        L = get_g1_ctx(spec, c.device).fp.L
+        if cid == CurveID.FP256BN_AMCL:
+            nw9 = {k + "_nw9": v for k, v in got.items() if k in NW9_KERNELS}
+        log("api_msm", curve=cid.name, L=L, n=n, distinct_points=N_API_BASE,
             equals_folded_host_oracle=True, seconds=[round(x, 4) for x in secs],
             points_per_s=f"{n / min(secs):.1f}", card=repr(smi))
         log("api_msm_launches", curve=cid.name, per_call={k: v / 4 for k, v in got.items()})
-    f = Curves[CurveID.FP256BN_AMCL]
-    try:
-        f.MultiScalarMul([f.GenG1] * 64, [f.NewZrFromInt(3)] * 64)
-    except ValueError as e:
-        log("api_msm_fp256bn", n=64, raises="ValueError", message=repr(str(e)))
-    else:
-        raise AssertionError("FP256BN MultiScalarMul at n >= 64 did not raise the kernels' error")
 
     # ---- (b) the codec on the card's curves: the public BLS12-381 generator
     # bytes; G1, G2, Gt and Zr round trips of N_CODEC seeded elements an ID
@@ -3018,7 +3062,549 @@ def api_phase(dev, smi: str, results: dict) -> dict:
         raise AssertionError(f"the empty calls: {verdicts}, {tuple(empty.shape)}, {pc.launches()}")
     log("api_empty", grouped_checks=verdicts, final_exp_shape=tuple(empty.shape), launches=0)
     log("phase17", seconds=f"{time.perf_counter() - t_phase:.1f}")
-    return {"f12_pow": path_launches["f12_pow"]}
+    return {"f12_pow": path_launches["f12_pow"], **nw9}
+
+
+
+# phase 18: FP256BN on the card, its contexts at L = 18 (nine 32-bit words)
+FP_SPEC = "FP256BN"
+N_FP_MSM = 1 << 16  # (b): BatchEngine.g1_msm points; the G1 kernels' timed lanes
+N_FP = 1024  # (b) g1_scalar_mul, (c) pairing_batch, (e) sign/verify, (f) g2_scalar_mul lanes
+N_FP_PAIRS = 4096  # (d): pairs of one product check
+N_FP_GROUPS = 1024  # (d): grouped two-pair checks
+N_FP_DISTINCT = 1024  # (b): distinct points among the MSM's
+N_FP_LADDER_BITS = 16  # the dbl_add_select ladders that drive dbladd and g2_dblsel
+FP_DST = b"FP256BN-SIG-PHASE18"
+# the kernels built again at nine words (csrc/*_nw9.cu): their names in the
+# JSON line carry the launchers' suffix
+NW9_KERNELS = ("add", "double", "addsel", "smul", "dbladd", "addselneg", "maddsel", "maddselneg",
+               "mont_mul", "miller_lanes", "f12_seg_product", "miller_ft", "add_step", "f12_pow",
+               "final_exp", "fp_pow", "g2_add", "g2_double", "g2_addsel", "g2_dblsel", "g2_smul")
+
+
+def nw9_source(src: str) -> str:
+    """The twin source that builds ``src``'s kernels at nine words."""
+    return src[: -len(".cu")] + "_nw9.cu"
+
+
+def fp256bn_phase(dev, smi: str, results: dict) -> dict:
+    """Phase 18: FP256BN on the card at L = 18.  Fills ``results`` under
+    each NW = 9 kernel's name with the suffix ``_nw9`` and returns, under
+    the same names, each kernel's launches in the run of the first entry
+    point that launches it (a warm-up and 3 calls, the counts set to 0 just
+    before), or, for a kernel that no entry point reaches, in its drive's."""
+    import numpy as np
+    import torch
+    from mathlib_tpu_torch import get_spec
+    from mathlib_tpu_torch.batch import BatchEngine
+    from mathlib_tpu_torch.host import get_engine
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+    from mathlib_tpu_torch.ops import msm as M
+    from mathlib_tpu_torch.ops.g1 import G1Ctx
+    from mathlib_tpu_torch.ops.kernels import build, fp_cuda, g1_cuda, g2_cuda, gather_cuda
+    from mathlib_tpu_torch.ops.kernels import pairing_cuda as pc
+    from mathlib_tpu_torch.ops.kernels.tower_rows import (f12_pow_mults, final_exp_bn_mults,
+                                                          mults_per_step)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    spec = get_spec(FP_SPEC)
+    eng, be = get_engine(spec), BatchEngine(spec, dev)
+    g1, g2, tw, fp = be.g1, be.g2, be.tw, be.fp
+    cfg, kcfg = be.pair.cfg, be.tw.kcfg
+    L, r, p = fp.L, spec.r, spec.p
+    if {L, g1.fp.L, g2.fp.L, cfg.fp.L} != {18} or g2.rows is None:
+        raise AssertionError("FP256BN's contexts on the card do not hold L = 18 with the G2 kernels")
+    mods = (g1_cuda, g2_cuda, fp_cuda, gather_cuda, pc)
+
+    def rand_k(count, mod=r):
+        return [int.from_bytes(rng.bytes(40), "big") % mod for _ in range(count)]
+
+    def rand_nz(count):
+        return [k + 1 for k in rand_k(count, r - 1)]
+
+    def check(name, got, want):
+        check_equal(results, name + "_nw9", got, want)
+
+    def reset():
+        for mod in mods:
+            mod.reset_launches()
+
+    def counts():
+        out = {}
+        for mod in mods:
+            out.update({k: v for k, v in mod.launches().items() if v})
+        return out
+
+    def timed(name, lanes, kern, plain, nbytes, fp_muls, reps=20, **extra):
+        """kern against plain at the phase's shape, timed beside it, into
+        results[name_nw9] with the bound at nine words; returns the plain
+        version's output."""
+        ms, got = cuda_ms(kern, reps=reps)
+        plain_ms, want = cuda_ms(plain, reps=1)
+        check(name, got, want)
+        b = bound(nbytes, wide_mads(fp_muls, L))
+        results[name + "_nw9"].update(ms=ms, plain_ms=plain_ms, lanes=lanes, **b)
+        log("time", kernel=name + "_nw9", curve=FP_SPEC, lanes=lanes, equal=True, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.2f}", speedup=f"{plain_ms / ms:.1f}x",
+            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"], over_bound=
+            f"{ms / b['bound_ms']:.2f}x", fp_muls=fp_muls, card=repr(smi), **extra)
+        return want
+
+    # ---- (a) the ptxas lines at nine words (phases 3, 6, 8 and 14 hold them
+    # to their budgets with the others): no spill, and no stack but where
+    # the kernel has one at 8 and 12 words too (the one-thread fp_pow body,
+    # PERF.md section 6 row 21), which is logged as such
+    entries = ptxas_entries(build.BUILD_LOG)
+    nine = [e for e in entries if "<9" in e.split(":")[0]]
+    for entry in nine:
+        kern = entry.split("<")[0]
+        wider = [e for e in entries if e.startswith(kern + "<") and e not in nine]
+        stack_as_wider = bool(wider) and not any(no_stack_or_spill(e) for e in wider)
+        log("ptxas_nw9", entry=repr(entry), **({"stack_as_at_8_and_12_words": True}
+                                              if stack_as_wider else {}))
+        spill = not entry.endswith(", 0 bytes spill stores, 0 bytes spill loads")
+        if spill or not (no_stack_or_spill(entry) or stack_as_wider):
+            raise AssertionError(f"a kernel at nine words has a spill or a new stack: {entry}")
+    if len(nine) < len(NW9_KERNELS):
+        raise AssertionError(f"kernels at nine words are missing from the build log: {nine}")
+
+    # ---- (a) the G1 kernels against their plain versions (exact) on N_CHECK
+    # edge lanes: P = lift(Q), P = -lift(Q), infinity; a 32-lane block that
+    # adds nowhere and one that adds everywhere, neg mixed
+    pool = [eng.g1.mul(eng.gen_g1, k) for k in rand_nz(257)]
+    n = N_CHECK
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        A[i] = B[i]
+    for i in range(3, n, 17):
+        A[i] = eng.g1.neg(B[i])
+    for i in range(5, n, 11):
+        A[i] = None
+    F = g1.F
+    Q, Qa = g1.encode_points(B), g1.encode_points_affine(B)
+    P = g1_cuda.add_plain(F, g1.encode_points(A), Q)  # relaxed [0, 2p)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(dev)
+    neg = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    sel[32:64], sel[64:96] = False, True
+    check("add", g1_cuda.add(F, P, Q), g1_cuda.add_plain(F, P, Q))
+    for m in (1, 16, 33, n):
+        Pm = P[..., :m].contiguous()
+        check("double", g1_cuda.double(F, Pm), g1_cuda.double_plain(F, Pm))
+    check("addsel", g1_cuda.addsel(F, P, Q, sel), g1_cuda.addsel_plain(F, P, Q, sel))
+    check("addselneg", g1_cuda.addselneg(F, P, Q, sel, neg),
+          g1_cuda.addselneg_plain(F, P, Q, sel, neg))
+    check("maddsel", g1_cuda.maddsel(F, P, Qa, sel), g1_cuda.maddsel_plain(F, P, Qa, sel))
+    check("maddselneg", g1_cuda.maddselneg(F, P, Qa, sel, neg),
+          g1_cuda.maddselneg_plain(F, P, Qa, sel, neg))
+    Pd, Qd = P.clone(), Q.clone()  # dbladd's own edges: Q = inf, Q = 2P, Q = -2P
+    Qd[..., 1::13] = g1.inf
+    D = g1_cuda.double_plain(F, Pd)
+    Qd[..., 2::7] = D[..., 2::7]
+    Qd[..., 4::17] = g1.neg(D)[..., 4::17]
+    check("dbladd", g1_cuda.dbladd(F, Pd, Qd, sel), g1_cuda.dbladd_plain(F, Pd, Qd, sel))
+    ks = [0, 1, r - 1] + rand_k(N_SMUL - 3)
+    ks[32:64] = [0] * len(ks[32:64])  # a block that never adds
+    K256 = g1.encode_scalars(ks)
+    want = g1_cuda.smul_plain(F, P[..., :N_SMUL], K256, g1.nbits)
+    for m in (N_SMUL, G2_RAGGED):
+        check("smul", g1_cuda.smul(F, P[..., :m].contiguous(), K256[..., :m], g1.nbits),
+              want[..., :m])
+    del Pd, Qd, D, want
+    log("fp256bn_g1_kernels_vs_plain", L=L, lanes=n, smul_lanes=[N_SMUL, G2_RAGGED], equal=True)
+
+    # at the phase's shapes: the combiners, add, double and dbladd on N_FP_MSM
+    # lanes, the ladder on N_FP lanes (g1_scalar_mul's and sign's)
+    reps = -(-N_FP_MSM // n)
+    Pb = P.repeat(1, 1, reps)[..., :N_FP_MSM].contiguous()
+    Qb = Q.repeat(1, 1, reps)[..., :N_FP_MSM].contiguous()
+    Qab = Qa.repeat(1, 1, reps)[..., :N_FP_MSM].contiguous()
+    selb = torch.from_numpy(rng.random(N_FP_MSM) < 15 / 16).to(dev)
+    negb = torch.from_numpy(rng.random(N_FP_MSM) < 0.5).to(dev)
+    nb, ns = N_FP_MSM, int(selb.sum())
+    pt, af = 3 * L * 4, 2 * L * 4
+    Kf_ints = rand_k(N_FP)
+    Kf = g1.encode_scalars(Kf_ints)
+    Pf = Pb[..., :N_FP].contiguous()
+    ones = sum(bin(k).count("1") for k in Kf_ints)
+    for name, kern, plain, nbytes, muls in (
+            ("add", lambda: g1_cuda.add(F, Pb, Qb), lambda: g1_cuda.add_plain(F, Pb, Qb),
+             3 * pt * nb, 12 * nb),
+            ("double", lambda: g1_cuda.double(F, Pb), lambda: g1_cuda.double_plain(F, Pb),
+             2 * pt * nb, 8 * nb),
+            ("addsel", lambda: g1_cuda.addsel(F, Pb, Qb, selb),
+             lambda: g1_cuda.addsel_plain(F, Pb, Qb, selb), (3 * pt + 1) * nb, 12 * ns),
+            ("addselneg", lambda: g1_cuda.addselneg(F, Pb, Qb, selb, negb),
+             lambda: g1_cuda.addselneg_plain(F, Pb, Qb, selb, negb), (3 * pt + 2) * nb, 12 * ns),
+            ("maddsel", lambda: g1_cuda.maddsel(F, Pb, Qab, selb),
+             lambda: g1_cuda.maddsel_plain(F, Pb, Qab, selb), (2 * pt + af + 1) * nb, 11 * ns),
+            ("maddselneg", lambda: g1_cuda.maddselneg(F, Pb, Qab, selb, negb),
+             lambda: g1_cuda.maddselneg_plain(F, Pb, Qab, selb, negb), (2 * pt + af + 2) * nb,
+             11 * ns),
+            ("dbladd", lambda: g1_cuda.dbladd(F, Pb, Qb, selb),
+             lambda: g1_cuda.dbladd_plain(F, Pb, Qb, selb), (3 * pt + 1) * nb, 8 * nb + 12 * ns),
+            ("smul", lambda: g1_cuda.smul(F, Pf, Kf, g1.nbits),
+             lambda: g1_cuda.smul_plain(F, Pf, Kf, g1.nbits), (2 * pt + 4 * Kf.shape[-2]) * N_FP,
+             8 * g1.nbits * N_FP + 12 * ones)):
+        timed(name, N_FP if name == "smul" else nb, kern, plain, nbytes, muls,
+              reps=3 if name == "smul" else 20)
+    del Pb, Qb, Qab, selb, negb
+
+    # the base-field kernels: mont_mul on the edge values 0, 1, p - 1, p,
+    # 2p - 1 (elementwise on a ragged (2, L, 4,097), and by one (L, 1)
+    # constant), timed at pairing_batch's Montgomery entry (6, L, N_FP) by R^2;
+    # fp_pow of p - 2 on a ragged (2, L, 1,001) and at g1_scalar_mul's
+    # batch_inv chain (L, N_FP)
+    def edge_rows(rows, lanes):
+        vals = [int.from_bytes(rng.bytes(2 * L), "little") % (2 * p) for _ in range(rows * lanes)]
+        vals[:5] = [0, 1, p - 1, p, 2 * p - 1][: len(vals)]
+        limbs = np.array([[(v >> (16 * k)) & 0xFFFF for k in range(L)] for v in vals], np.int32)
+        return torch.from_numpy(limbs.reshape(rows, lanes, L).transpose(0, 2, 1).copy()).to(dev)
+
+    a, b = edge_rows(2, n), edge_rows(2, n).flip(-1)
+    r2 = fp.r2_limbs.to(dev, torch.int32)
+    for other in (b, r2):
+        check("mont_mul", fp_cuda.mont_mul(fp, a, other), fp_cuda.mont_mul_plain(fp, a, other))
+    inv_bits = [int(x) for x in bin(p - 2)[2:]]
+    a1001 = edge_rows(2, 1001)
+    check("fp_pow", fp_cuda.fp_pow(fp, a1001, inv_bits), fp_cuda.fp_pow_plain(fp, a1001, inv_bits))
+    a6 = edge_rows(6, N_FP)
+    timed("mont_mul", 6 * N_FP, lambda: fp_cuda.mont_mul(fp, a6, r2),
+          lambda: fp_cuda.mont_mul_plain(fp, a6, r2), 2 * 6 * L * 4 * N_FP, 6 * N_FP, reps=50)
+    z = edge_rows(1, N_FP)[0]
+    timed("fp_pow", N_FP, lambda: fp_cuda.fp_pow(fp, z, inv_bits),
+          lambda: fp_cuda.fp_pow_plain(fp, z, inv_bits), 2 * L * 4 * N_FP,
+          N_FP * (len(inv_bits) + sum(inv_bits)), reps=5)
+
+    # the scan's row gather at FP256BN's 54-word rows: gather_rows_t against
+    # table[idx].T.contiguous() (not a kernel of its own at nine words)
+    table = torch.from_numpy(rng.integers(0, 1 << 16, (N_FP_MSM, 3 * L), dtype=np.int32)).to(dev)
+    for m in (1 << 14, 4097):
+        idx = torch.from_numpy(rng.integers(0, N_FP_MSM, m)).to(dev)
+        got = gather_cuda.gather_rows_t(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, table[idx].T.contiguous()):
+            raise AssertionError(f"gather_rows_t at {3 * L}-word rows disagrees ({m} rows)")
+    log("fp256bn_gather_rows_t", row_words=3 * L, rows=[1 << 14, 4097], equal=True)
+    del table, a, b, a1001, a6, z
+
+    # ---- (a) the pairing kernels at nine words against their plain versions:
+    # miller_lanes on 64 lanes with 61 real (3 pad lanes); at the phase's
+    # shapes miller_ft, add_step and the BN final exp (the 4 base-p digits)
+    # on N_FP lanes, miller_lanes and the product tree on N_FP_PAIRS, the tree
+    # with seg 2 on 2 N_FP_GROUPS; f12_pow through TowerCtx.f12_pow_bits
+    def random_pairs(count):
+        g1s = [eng.g1.mul(eng.gen_g1, k) for k in rand_nz(count)]
+        g2s = [eng.g2.mul(eng.gen_g2, k) for k in rand_nz(count)]
+        return g1s, g2s
+
+    small = be._pair_split_mont(be._encode_pairs(*random_pairs(N_LANES_CHECK)))
+    check("miller_lanes", pc.miller_lanes(cfg, *small, N_VALID_CHECK),
+          pc.miller_lanes_plain(cfg, *small, N_VALID_CHECK))
+    f64 = pc.miller_ft(cfg, *small)[0]
+    u = unitary(tw, f64)
+    digit = pc.msb_bits(hard_digits(spec)[0])
+    for cyclo in (True, False):
+        check("f12_pow", pc.f12_pow(kcfg, u, digit, cyclo), pc.f12_pow_plain(kcfg, u, digit, cyclo))
+    args = be._pair_split_mont(be._encode_pairs(*random_pairs(N_FP)))
+    xP, yP, Qx, Qy = args
+    f, T = pc.miller_ft(cfg, *args)
+    n_step = mults_per_step(kcfg.tower.n, spec.twist)
+    row = 4
+
+    def joined(fn):
+        return lambda *a: torch.cat([x.reshape(-1, x.shape[-1]) for x in fn(*a)])
+
+    timed("miller_ft", N_FP, lambda: joined(lambda *a: pc.miller_ft(cfg, *a))(*args),
+          lambda: joined(lambda *a: pc.miller_ft_plain(cfg, *a))(*args),
+          (6 + 12 + 6) * L * row * N_FP, miller_fp_muls(cfg, N_FP), reps=3,
+          block=pc.miller_shape(cfg, N_FP))
+    timed("add_step", N_FP, lambda: joined(lambda: pc.add_step(cfg, f, T, Qx, Qy, xP, yP))(),
+          lambda: joined(lambda: pc.add_step_plain(cfg, f, T, Qx, Qy, xP, yP))(),
+          (12 + 6 + 4 + 2 + 12 + 6) * L * row * N_FP,
+          N_FP * (n_step["add_step"] + n_step["f12_sparse_mul"]), reps=5,
+          block=pc.add_shape(cfg, N_FP))
+    want = timed("final_exp", N_FP, lambda: pc.final_exp(kcfg, f),
+          lambda: pc.final_exp_bn_plain(kcfg, f, kcfg.inv_bits, kcfg.digit_bits),
+          2 * 12 * L * row * N_FP, N_FP * final_exp_bn_mults(
+              kcfg.tower.n, spec.twist, kcfg.inv_bits, kcfg.digit_bits), reps=3,
+          digits=len(kcfg.digits), block=pc.fexp_shape(kcfg, "final_exp_bn", N_FP))
+    f_r = f[..., :1001].contiguous()  # a ragged lane count: the first lanes of the plain run
+    check("final_exp", pc.final_exp(kcfg, f_r), want[..., :1001])
+    bits_le = np.array([(int(e) >> i) & 1 for e in rand_k(1) for i in range(254)], np.uint8)
+    bits_le[-1] = 1
+    msb = np.ascontiguousarray(bits_le[::-1])
+    fu = unitary(tw, f)
+    timed("f12_pow", N_FP, lambda: tw.f12_pow_bits(fu, bits_le),
+          lambda: pc.f12_pow_plain(kcfg, fu, msb, False), 2 * 12 * L * row * N_FP,
+          N_FP * f12_pow_mults(kcfg.tower.n, spec.twist, msb, False), reps=3)
+    del f, T, fu, f_r, args, xP, yP, Qx, Qy, want
+    big = be._pair_split_mont(be._encode_pairs(*random_pairs(N_FP_PAIRS)))
+    timed("miller_lanes", N_FP_PAIRS, lambda: pc.miller_lanes(cfg, *big, N_FP_PAIRS),
+          lambda: chunked(lambda *a: pc.miller_lanes_plain(cfg, *a, PLAIN_PAIR_CHUNK),
+                          N_FP_PAIRS, *big, step=PLAIN_PAIR_CHUNK),
+          (6 + 12) * L * row * N_FP_PAIRS, miller_fp_muls(cfg, N_FP_PAIRS), reps=3,
+          block=pc.miller_shape(cfg, N_FP_PAIRS))
+    fl = pc.miller_lanes(cfg, *big, N_FP_PAIRS)
+    del big
+    timed("f12_seg_product", N_FP_PAIRS, lambda: pc.f12_seg_product(cfg, fl, N_FP_PAIRS),
+          lambda: pc.f12_seg_product_plain(cfg, fl, N_FP_PAIRS), 12 * L * row * (N_FP_PAIRS + 1),
+          seg_product_fp_muls(cfg, N_FP_PAIRS, N_FP_PAIRS), reps=5)
+    f2 = fl[..., : 2 * N_FP_GROUPS].contiguous()
+    check("f12_seg_product", pc.f12_seg_product(cfg, f2, 2), pc.f12_seg_product_plain(cfg, f2, 2))
+    del fl, f2, f64, u
+    log("fp256bn_pairing_kernels_vs_plain", L=L, lanes=N_LANES_CHECK, valid=N_VALID_CHECK,
+        digits=len(kcfg.digits), digit_bits=[len(d) for d in kcfg.digit_bits], equal=True)
+
+    # ---- (a) the G2 kernels at nine words on N_CHECK edge lanes (P = Q,
+    # P = -Q, infinity on either side; dblsel also with Q = 2P and -2P),
+    # addsel and dblsel in a block that adds nowhere and one that adds
+    # everywhere; the ladder on 256 and 250 lanes (k = 0, 1, r - 1, a block
+    # of zeros); each at N_FP lanes timed beside its plain version
+    F2 = g2.rows
+    pool2 = [eng.g2.mul(eng.gen_g2, k) for k in rand_nz(63)] + [None]
+    A2 = [pool2[i] for i in rng.integers(0, len(pool2), n)]
+    B2 = [pool2[i] for i in rng.integers(0, len(pool2), n)]
+    for i in range(0, n, 7):
+        B2[i] = A2[i]
+    for i in range(3, n, 17):
+        B2[i] = eng.g2.neg(A2[i]) if A2[i] else None
+    Q2 = g2.encode_points(B2)
+    P2 = g2_cuda.add_plain(F2, g2.encode_points(A2), g2.encode_points([None] * n))
+    check("g2_add", g2_cuda.add(F2, P2, Q2), g2_cuda.add_plain(F2, P2, Q2))
+    check("g2_double", g2_cuda.double(F2, P2), g2_cuda.double_plain(F2, P2))
+    check("g2_addsel", g2_cuda.addsel(F2, P2, Q2, sel), g2_cuda.addsel_plain(F2, P2, Q2, sel))
+    D2 = g2_cuda.double_plain(F2, P2)
+    Qd2 = Q2.clone()
+    Qd2[..., 2::7] = D2[..., 2::7]
+    Qd2[..., 4::17] = g2.neg(D2)[..., 4::17]
+    check("g2_dblsel", g2_cuda.dblsel(F2, P2, Qd2, sel), g2_cuda.dblsel_plain(F2, P2, Qd2, sel))
+    K2 = g2.encode_scalars(ks)
+    want = g2_cuda.smul_plain(F2, P2[..., :N_SMUL], K2, g2.nbits)
+    for m in (N_SMUL, G2_RAGGED):
+        check("g2_smul", g2_cuda.smul(F2, P2[..., :m].contiguous(), K2[..., :m], g2.nbits),
+              want[..., :m])
+    del D2, Qd2, want
+    Pt, Qt, st = (t[..., :N_FP].contiguous() for t in (P2, Q2, sel))
+    K2f = g2.encode_scalars(Kf_ints)
+    pt2, nsel = 3 * 2 * L * 4, int(st.sum())
+    for name, kern, plain, nbytes, muls in (
+            ("g2_add", lambda: g2_cuda.add(F2, Pt, Qt), lambda: g2_cuda.add_plain(F2, Pt, Qt),
+             3 * pt2 * N_FP, 36 * N_FP),
+            ("g2_double", lambda: g2_cuda.double(F2, Pt), lambda: g2_cuda.double_plain(F2, Pt),
+             2 * pt2 * N_FP, 24 * N_FP),
+            ("g2_addsel", lambda: g2_cuda.addsel(F2, Pt, Qt, st),
+             lambda: g2_cuda.addsel_plain(F2, Pt, Qt, st), (3 * pt2 + 1) * N_FP, 36 * nsel),
+            ("g2_dblsel", lambda: g2_cuda.dblsel(F2, Pt, Qt, st),
+             lambda: g2_cuda.dblsel_plain(F2, Pt, Qt, st), (3 * pt2 + 1) * N_FP,
+             24 * N_FP + 36 * nsel),
+            ("g2_smul", lambda: g2_cuda.smul(F2, Pt, K2f, g2.nbits),
+             lambda: g2_cuda.smul_plain(F2, Pt, K2f, g2.nbits),
+             *g2_smul_work(pt2, K2f.shape[-2], g2.nbits, N_FP))):
+        timed(name, N_FP, kern, plain, nbytes, muls, reps=3 if name == "g2_smul" else 50)
+    del P2, Q2, Pt, Qt, P, Q, Qa
+    log("fp256bn_kernels", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+    # ---- (b)-(f) the entry points at full width, a warm-up and 3 timed calls
+    # each; the counts set to 0 just before each and read just after; a
+    # kernel's count is the run of the first entry that launches it
+    launches: dict = {}
+
+    def keep(got):
+        for k, v in got.items():
+            launches.setdefault(k, v)
+
+    def entry(what, run, want_out, kernels, **kv):
+        reset()
+        _, secs = best_of_3(run, want_out)
+        got = counts()
+        missing = [k for k in kernels if k not in got]
+        if missing:
+            raise AssertionError(f"FP256BN {what}: kernels not launched: {missing} ({got})")
+        keep(got)
+        log("fp256bn_entry", what=repr(what), seconds=[round(x, 4) for x in secs],
+            per_s=f"{kv.pop('items') / min(secs):.1f}", launches_a_call={
+                k: v / 4 for k, v in got.items()}, card=repr(smi), **kv)
+
+    t_entry = time.perf_counter()
+    # (b) g1_msm on N_FP_MSM host points (N_FP_DISTINCT distinct, an infinity
+    # and a zero scalar among them), against the host MSM of the scalars
+    # folded per distinct point; g1_msm_device on the reference's L = 17
+    base = [eng.g1.mul(eng.gen_g1, k) for k in rand_nz(N_FP_DISTINCT)]
+    pts = [base[i % N_FP_DISTINCT] for i in range(N_FP_MSM)]
+    pts[7] = None
+    ks = rand_k(N_FP_MSM)
+    ks[3] = 0
+    folded = [0] * N_FP_DISTINCT
+    for i, k in enumerate(ks):
+        if i != 7:
+            folded[i % N_FP_DISTINCT] += k
+    want = eng.g1.msm(base, [x % r for x in folded])
+    entry("BatchEngine.g1_msm", lambda: be.g1_msm(pts, ks), want, ("addsel", "add", "double"),
+          items=N_FP_MSM, n=N_FP_MSM, c=M.auto_window(N_FP_MSM, g1.nbits))
+    g17 = G1Ctx(spec, "cpu")
+    P17, S17 = g17.encode_points(pts).to(dev), g17.encode_scalars(ks).to(dev)
+    entry("BatchEngine.g1_msm_device (L = 17 in and out)",
+          lambda: g17.decode_point(be.g1_msm_device(P17, S17)), want, ("addsel", "mont_mul"),
+          items=N_FP_MSM)
+    del P17, S17
+    sp = [eng.g1.mul(eng.gen_g1, k) for k in rand_nz(N_FP)]
+    sp[5] = None
+    sk_ = rand_k(N_FP)
+    sk_[6] = 0
+    entry("BatchEngine.g1_scalar_mul", lambda: be.g1_scalar_mul(sp, sk_),
+          [None if Pp is None else eng.g1.mul(Pp, k) for Pp, k in zip(sp, sk_)],
+          ("smul", "fp_pow", "mont_mul"), items=N_FP)
+    # (c) pairing_batch on N_FP pairs, N_SAMPLED lanes against the host pairing
+    g1s, g2s = random_pairs(N_FP)
+    reset()
+    out, secs = best_of_3(lambda: be.pairing_batch(g1s, g2s))
+    got = counts()
+    if out[:N_SAMPLED] != [eng.pairing(a_, b_) for a_, b_ in zip(g1s[:N_SAMPLED], g2s)]:
+        raise AssertionError("FP256BN pairing_batch differs from the host pairing")
+    if {k for k in ("mont_mul", "miller_ft", "add_step", "final_exp") if k not in got} or (
+            got.get("final_exp") != 4 or "fp_pow" in got or "f12_pow" in got):
+        raise AssertionError(f"FP256BN pairing_batch's launches: {got}")
+    keep(got)
+    log("fp256bn_entry", what=repr("BatchEngine.pairing_batch"), pairs=N_FP,
+        host_lanes=N_SAMPLED, seconds=[round(x, 4) for x in secs],
+        per_s=f"{N_FP / min(secs):.1f}", launches_a_call={k: v / 4 for k, v in got.items()},
+        card=repr(smi))
+    # (d) N_FP_PAIRS pairs (a g1, b g2) beside (-ab g1, g2): True, and False
+    # with one scalar changed, under the default and under split (BN curves
+    # keep the default there); N_FP_GROUPS two-pair checks, half corrupted
+    c1, c2 = [], []
+    for a_, b_ in zip(rand_nz(N_FP_PAIRS // 2), rand_nz(N_FP_PAIRS // 2)):
+        c1 += [eng.g1.mul(eng.gen_g1, a_), eng.g1.mul(eng.gen_g1, -a_ * b_ % r)]
+        c2 += [eng.g2.mul(eng.gen_g2, b_), eng.gen_g2]
+    bad1 = c1[:-1] + [eng.g1.add(c1[-1], eng.gen_g1)]
+    for strat in (None, "split"):
+        if strat:
+            os.environ["MATHLIB_PAIR_FUSED"] = strat
+        try:
+            for name, g1l, verdict in (("true", c1, True), ("false", bad1, False)):
+                entry(f"pairing_product_is_one ({name}, {strat or 'default'})",
+                      lambda: be.pairing_product_is_one(g1l, c2), verdict,
+                      ("mont_mul", "miller_lanes", "f12_seg_product"), items=N_FP_PAIRS)
+        finally:
+            os.environ.pop("MATHLIB_PAIR_FUSED", None)
+    hs = rand_nz(N_FP_GROUPS)
+    corrupt = set(int(i) for i in rng.permutation(N_FP_GROUPS)[: N_FP_GROUPS // 2])
+    v1, v2, verdicts = [], [], []
+    for k, h in enumerate(hs):
+        H = eng.g1.mul(eng.gen_g1, h)
+        v1 += [eng.g1.add(H, eng.gen_g1) if k in corrupt else H, eng.g1.neg(H)]
+        v2 += [eng.gen_g2, eng.gen_g2]
+        verdicts.append(k not in corrupt)
+    entry("pairing_products_are_one (group_size=2)",
+          lambda: be.pairing_products_are_one(v1, v2, 2), verdicts,
+          ("mont_mul", "miller_lanes", "f12_seg_product"), items=N_FP_GROUPS)
+    # (e) bls_sign_batch and bls_verify_batch on N_FP messages (the host
+    # hasher: FP256BN is outside the device hash's gate)
+    msgs = [b"fp256bn-%d" % i for i in range(N_FP)]
+    sk = BLS_SK % r
+    pk = eng.g2.mul(eng.gen_g2, sk)
+    hasher = get_hasher(spec)
+    want_sigs = [eng.g1.mul(hasher.hash_to_g1(m, FP_DST), sk) for m in msgs[:N_HASH_SAMPLED]]
+    reset()
+    sigs, secs = best_of_3(lambda: be.bls_sign_batch(sk, msgs, FP_DST))
+    got = counts()
+    if sigs[:N_HASH_SAMPLED] != want_sigs or "smul" not in got:
+        raise AssertionError(f"FP256BN bls_sign_batch differs from the host or missed smul: {got}")
+    keep(got)
+    log("fp256bn_entry", what=repr("bls_sign_batch"), messages=N_FP, host_lanes=N_HASH_SAMPLED,
+        seconds=[round(x, 4) for x in secs], per_s=f"{N_FP / min(secs):.1f}",
+        launches_a_call={k: v / 4 for k, v in got.items()}, card=repr(smi))
+    entry("bls_verify_batch (true)", lambda: be.bls_verify_batch(pk, sigs, msgs, FP_DST), True,
+          ("addsel", "miller_lanes", "f12_seg_product"), items=N_FP)
+    bad_sigs = sigs[:-1] + [sigs[0]]
+    if be.bls_verify_batch(pk, bad_sigs, msgs, FP_DST) is not False:
+        raise AssertionError("FP256BN bls_verify_batch passed a replaced signature")
+    # (f) g2_scalar_mul on N_FP lanes: k = 0 and infinity lanes, N_G2_SAMPLED
+    # lanes against the host engine
+    q2 = [eng.g2.mul(eng.gen_g2, k) for k in rand_nz(N_FP)]
+    q2[3] = None
+    k2 = rand_k(N_FP)
+    k2[4] = 0
+    reset()
+    out, secs = best_of_3(lambda: be.g2_scalar_mul(q2, k2))
+    got = counts()
+    idx = list(range(N_G2_SAMPLED)) + [N_FP - 1]
+    if [out[i] for i in idx] != [None if q2[i] is None else eng.g2.mul_any(q2[i], k2[i])
+                                 for i in idx] or got.get("g2_smul") != 4:
+        raise AssertionError(f"FP256BN g2_scalar_mul differs from the host or its launches: {got}")
+    keep(got)
+    log("fp256bn_entry", what=repr("BatchEngine.g2_scalar_mul"), lanes=N_FP,
+        host_lanes=len(idx), seconds=[round(x, 4) for x in secs],
+        per_s=f"{N_FP / min(secs):.1f}", launches_a_call={k: v / 4 for k, v in got.items()},
+        card=repr(smi))
+    log("fp256bn_entries", seconds=f"{time.perf_counter() - t_entry:.1f}")
+
+    # ---- the drives of the kernels that no entry point reaches by default
+    # (as phases 10, 14 and 17 drive them at the other word counts), each
+    # with the counts set to 0 just before it: the signed and mixed MSMs
+    # (addselneg, maddselneg), a dbl_add_select ladder of G1 (dbladd) and
+    # of G2 (g2_dblsel) and G2Ctx's add, double and add_select, and
+    # TowerCtx.f12_pow_bits (f12_pow)
+    def drive(what, run):
+        reset()
+        run()
+        got = counts()
+        keep(got)
+        log("fp256bn_drive", what=repr(what), launches=got)
+
+    Pm = g1.encode_points(pts[:N_FP])
+    Pam = g1.encode_points_affine(pts[:N_FP])
+    zk = [0 if Pp is None else k for Pp, k in zip(pts[:N_FP], ks[:N_FP])]
+    wsub = eng.g1.msm([Pp for Pp in pts[:N_FP] if Pp], [k for Pp, k in zip(pts[:N_FP], ks) if Pp])
+
+    def signed_msms():
+        for points, scal in ((Pm, ks[:N_FP]), (Pam, zk)):
+            tot = M.msm_totals(g1, points, g1.encode_scalars(scal), c=8, K=16, signed=True)
+            if M.horner_host(g1, tot, 8) != wsub:
+                raise AssertionError("FP256BN's signed MSM differs from the host")
+
+    def g1_ladder():
+        K16 = g1.encode_scalars([k >> (r.bit_length() - N_FP_LADDER_BITS) for k in ks[:N_FP]])
+        acc = g1.inf.expand(Pm.shape)
+        for i in range(N_FP_LADDER_BITS - 1, -1, -1):
+            acc = g1.dbl_add_select(acc, Pm, g1_cuda.scalar_bit(K16, i))
+        if not bool(g1.eq(acc, g1.scalar_mul(Pm, K16)).all()):
+            raise AssertionError("FP256BN's dbl_add_select ladder disagrees with scalar_mul")
+
+    def g2_ladder():
+        Q2m = g2.encode_points(q2)
+        acc2 = g2.inf.expand(Q2m.shape)
+        K2m = g2.encode_scalars([k >> (r.bit_length() - N_FP_LADDER_BITS) for k in k2])
+        for i in range(N_FP_LADDER_BITS - 1, -1, -1):
+            acc2 = g2.dbl_add_select(acc2, Q2m, g2_cuda.scalar_bit(K2m, i))
+        hosts = g2.decode_points(g2.add_select(g2.double(acc2), g2.add(acc2, Q2m), sel[:N_FP]))
+        for i in range(N_G2_SAMPLED):
+            x = None if q2[i] is None else eng.g2.mul_any(
+                q2[i], k2[i] >> (r.bit_length() - N_FP_LADDER_BITS))
+            xq = eng.g2.add(x, q2[i])
+            if hosts[i] != (eng.g2.add(eng.g2.double(x), xq) if bool(sel[i]) else xq):
+                raise AssertionError("FP256BN's G2 ladder or G2Ctx ops differ from the host")
+
+    def gt_pow():
+        vals = [eng.gt_exp(eng.gen_gt(), k) for k in rand_nz(N_SAMPLED)]
+        ga = torch.cat([tw.f12_encode(v) for v in vals], dim=-1)
+        e = rand_k(1)[0]
+        eb = np.array([(e >> i) & 1 for i in range(e.bit_length())], dtype=np.uint8)
+        if tw.f12_decode(tw.f12_pow_bits(ga, eb)) != [tw.host.f12_pow(v, e) for v in vals]:
+            raise AssertionError("FP256BN's f12_pow_bits differs from the host tower")
+
+    drive("msm_totals signed=True, projective and affine points", signed_msms)
+    drive("G1Ctx.dbl_add_select ladder", g1_ladder)
+    drive("G2Ctx.dbl_add_select ladder, add_select, double, add", g2_ladder)
+    drive("TowerCtx.f12_pow_bits", gt_pow)
+    # maddsel's path is the API's bridge: phase 17 (a) counts it
+    missing = [k for k in NW9_KERNELS if k != "maddsel" and launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"FP256BN: kernels at nine words not launched on a path: {missing}")
+    log("phase18", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {k + "_nw9": launches[k] for k in NW9_KERNELS if k in launches}
 
 
 def time_msm(repo: str) -> int:
@@ -4087,8 +4673,9 @@ def main() -> int:
         if regs > 128 or not entry.endswith(
                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
             raise AssertionError(f"split G1 kernel over its register budget: {entry}")
-    # at 8 and 12 words; the ladder twice (smul, and smul_static: STATIC)
-    if len(split_ptxas(build.BUILD_LOG)) != 2 * (len(SPLIT_KERNELS) + 1):
+    # at 8 and 12 words, the ladder twice (smul, and smul_static: STATIC); at
+    # 9 words once (no static ladder: phase 18)
+    if len(split_ptxas(build.BUILD_LOG)) != 2 * (len(SPLIT_KERNELS) + 1) + len(SPLIT_KERNELS):
         raise AssertionError("the split G1 kernels' ptxas lines are missing from the build log")
     for entry in mont_ptxas(build.BUILD_LOG):
         log("ptxas_mont_mul", entry=repr(entry))
@@ -4213,7 +4800,12 @@ def main() -> int:
 
     # ---- 17. the public API (MultiScalarMul, the codec) and the Gt helpers
     launches.update(api_phase(dev, smi, results))
-    missing = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
+
+    # ---- 18. FP256BN on the card: the kernels at nine words and its entry points
+    for k, v in fp256bn_phase(dev, smi, results).items():
+        launches.setdefault(k, v)  # maddsel_nw9: phase 17 (a)'s FP256BN_AMCL run
+    missing = [k for k in list(KERNEL_INFO) + [k + "_nw9" for k in NW9_KERNELS]
+               if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
 
@@ -4235,6 +4827,15 @@ def main() -> int:
          # no single PyTorch call computes any of the others
          "library_ms": results[name].get("library_ms")}
         for name, (src, replaces) in KERNEL_INFO.items()
+    ] + [
+        # the kernels at nine words (FP256BN on the card), from phases 17 (a)
+        # and 18
+        {"name": name + "_nw9", "route": "cuda", "source": nw9_source(KERNEL_INFO[name][0]),
+         "replaces": KERNEL_INFO[name][1], "launches": launches[name + "_nw9"],
+         **{k: results[name + "_nw9"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by")},
+         "library_ms": None}
+        for name in NW9_KERNELS
     ]
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi_line())

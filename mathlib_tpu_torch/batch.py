@@ -49,7 +49,7 @@ from . import device as _device
 from .curves.params import CURVE_ID_SPEC, CurveID, CurveSpec, get_spec
 from .host import get_engine
 from .host.hash_to_curve import get_hasher
-from .ops.field import ints_to_limbs
+from .ops.field import ints_to_limbs, narrow_limbs, widen_limbs
 from .ops.g1 import G1Ctx
 from .ops.msm import auto_glv, auto_window, msm
 from .ops.pairing import PairingCtx
@@ -60,15 +60,17 @@ MAX_GROUP = 1024  # the reference's cap on pairs per grouped check
 
 
 class BatchEngine:
-    """Batched device engine for one curve, on the card unless ``device="cpu"``."""
+    """Batched device engine for one curve, on the card unless ``device="cpu"``,
+    its base field at ``base_limbs`` (L = 18 for FP256BN on a card; a CPU
+    caller may ask for the card's limbs with ``L``)."""
 
-    def __init__(self, spec: CurveSpec, device=None):
+    def __init__(self, spec: CurveSpec, device=None, L: Optional[int] = None):
         self.spec = spec
         self.device = _device(device)
-        self.pair = PairingCtx(spec, self.device)
+        self.pair = PairingCtx(spec, self.device, L)
         self.tw = self.pair.tw
         self.fp = self.tw.fp
-        self.g1 = G1Ctx(spec, self.device)
+        self.g1 = G1Ctx(spec, self.device, L)
         self.g2 = self.pair.g2c
         self.host = get_engine(spec)
 
@@ -95,9 +97,14 @@ class BatchEngine:
     def g1_msm_device(self, P: Tensor, S: Tensor, c: Optional[int] = None,
                       glv: Optional[bool] = None) -> Tensor:
         """MSM over device tensors: (3, L, N) points, (S, N) scalar limbs ->
-        one (3, L, 1) point."""
+        one (3, L, 1) point.  Points at the reference's L where the engine
+        holds more limbs (FP256BN on a card: 17 against 18) enter by
+        ``widen_limbs`` and the result leaves at their L by
+        ``narrow_limbs``."""
         c, glv = self._msm_params(P.shape[-1], c, glv)
-        return msm(self.g1, P, S, c=c, glv=glv)
+        Lin = P.shape[-2]
+        out = msm(self.g1, widen_limbs(self.g1.fp, P), S, c=c, glv=glv)
+        return narrow_limbs(self.g1.fp, out, Lin)
 
     def g1_scalar_mul(self, points, scalars) -> List:
         """[k_i] P_i for host lists, as affine host points: the ladder in one

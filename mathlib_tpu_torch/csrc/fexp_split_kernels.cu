@@ -227,9 +227,10 @@ using namespace mlt;
 
 // The program and its host meta (G, K, slots, words a slot) come last; the
 // script's RUN rows hold the programs' phase ranges.
-extern "C" int mlt_f12_pow(const uint32_t* base, const int32_t* script, int nsteps,
-                           uint32_t* out, int lanes, int L, const uint32_t* consts,
-                           const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_f12_pow, const uint32_t* base, const int32_t* script, int nsteps, uint32_t* out,
+             int lanes, int L, const uint32_t* consts, const int32_t* prog, const int32_t* meta,
+             cudaStream_t stream) {
+  MLT_TO_NW9(mlt_f12_pow, base, script, nsteps, out, lanes, L, consts, prog, meta, stream)
   const ProgMeta m = prog_meta(meta, 0);
   MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
@@ -242,10 +243,12 @@ extern "C" int mlt_f12_pow(const uint32_t* base, const int32_t* script, int nste
   }))
 }
 
-extern "C" int mlt_final_exp(const uint32_t* f_in, const int32_t* script, int nsteps,
-                             const uint8_t* inv_bits, int inv_nbits, const uint32_t* gammas,
-                             uint32_t* out, int lanes, int L, const uint32_t* consts,
-                             const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_final_exp, const uint32_t* f_in, const int32_t* script, int nsteps,
+             const uint8_t* inv_bits, int inv_nbits, const uint32_t* gammas, uint32_t* out,
+             int lanes, int L, const uint32_t* consts, const int32_t* prog, const int32_t* meta,
+             cudaStream_t stream) {
+  MLT_TO_NW9(mlt_final_exp, f_in, script, nsteps, inv_bits, inv_nbits, gammas, out, lanes, L,
+             consts, prog, meta, stream)
   const ProgMeta m = prog_meta(meta, 0);
   MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
@@ -261,9 +264,10 @@ extern "C" int mlt_final_exp(const uint32_t* f_in, const int32_t* script, int ns
 
 // lanes: the input's; its lanes >> levels products go to out.  The tree
 // runs in 8-lane blocks only (pairing_cuda.tree_shape).
-extern "C" int mlt_f12_tree(const uint32_t* in, uint32_t* out, int lanes, int levels,
-                            const int32_t* script, int nsteps, int L, const uint32_t* consts,
-                            const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_f12_tree, const uint32_t* in, uint32_t* out, int lanes, int levels,
+             const int32_t* script, int nsteps, int L, const uint32_t* consts, const int32_t* prog,
+             const int32_t* meta, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_f12_tree, in, out, lanes, levels, script, nsteps, L, consts, prog, meta, stream)
   constexpr int G = kTreeGroup;
   const ProgMeta m = prog_meta(meta, 0);
   if (m.group != G || m.workers < kTreeState || levels < 1 || (1 << levels) > 2 * G ||

@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "fp_group.cuh"
+#include "words.cuh"
 
 namespace mlt {
 
@@ -92,6 +93,7 @@ template <int NW, int G>
 __global__ void mont_mul_group_kernel(const uint32_t* __restrict__ a,
                                       const uint32_t* __restrict__ b, int b_step,
                                       uint32_t* __restrict__ out, int n, FieldConsts k) {
+  static_assert(NW % G == 0, "a group holds whole slices of an element");
   constexpr int K = NW / G;
   const int g = threadIdx.x & (G - 1);
   const int i = blockIdx.x * (kMontThreads / G) + threadIdx.x / G;
@@ -139,6 +141,7 @@ template <int NW, int G>
 __global__ void __launch_bounds__(kPowGroupThreads)
     fp_pow_group_kernel(const uint32_t* __restrict__ a, const uint8_t* __restrict__ bits,
                         int nbits, uint32_t* __restrict__ out, int rows, int n, FieldConsts k) {
+  static_assert(NW % G == 0, "a group holds whole slices of an element");
   constexpr int K = NW / G;
   const int g = threadIdx.x & (G - 1);
   const int64_t e = (int64_t)blockIdx.x * (kPowGroupThreads / G) + threadIdx.x / G;
@@ -165,73 +168,61 @@ __global__ void __launch_bounds__(kPowGroupThreads)
 using namespace mlt;
 
 // group: threads an element, 1 (mont_mul_kernel) or kMontGroup; rows go
-// to the grid's y, 65,535 a launch
+// to the grid's y, 65,535 a launch.  Nine words (FP256BN) do not split
+// into four slices, so there the one-thread body runs whatever the group.
 template <int NW>
 static void mont_launch(const uint32_t* a, const uint32_t* b, int b_step, uint32_t* out, int rows,
                         int n, const FieldConsts& k, int group, cudaStream_t stream) {
+  if constexpr (NW % kMontGroup != 0) group = 1;
   const int per_block = kMontThreads / group;
   const int64_t row = (int64_t)2 * NW * n;
   for (int q = 0; q < rows; q += 65535) {
     const dim3 grid((unsigned)(((int64_t)n + per_block - 1) / per_block),
                     (unsigned)(rows - q < 65535 ? rows - q : 65535));
     const uint32_t* bq = b_step ? b + q * row : b;
-    if (group == 1) {
-      mont_mul_kernel<NW><<<grid, kMontThreads, 0, stream>>>(a + q * row, bq, b_step,
-                                                             out + q * row, n, k);
-    } else {
-      mont_mul_group_kernel<NW, kMontGroup><<<grid, kMontThreads, 0, stream>>>(
-          a + q * row, bq, b_step, out + q * row, n, k);
+    if constexpr (NW % kMontGroup == 0) {
+      if (group != 1) {
+        mont_mul_group_kernel<NW, kMontGroup><<<grid, kMontThreads, 0, stream>>>(
+            a + q * row, bq, b_step, out + q * row, n, k);
+        continue;
+      }
     }
+    mont_mul_kernel<NW><<<grid, kMontThreads, 0, stream>>>(a + q * row, bq, b_step,
+                                                           out + q * row, n, k);
   }
 }
 
-extern "C" int mlt_fp_mont_mul(const uint32_t* a, const uint32_t* b, int b_step, uint32_t* out,
-                               int rows, int n, int L, const uint32_t* consts, int group,
-                               cudaStream_t stream) {
+MLT_LAUNCHER(mlt_fp_mont_mul, const uint32_t* a, const uint32_t* b, int b_step, uint32_t* out,
+             int rows, int n, int L, const uint32_t* consts, int group, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_fp_mont_mul, a, b, b_step, out, rows, n, L, consts, group, stream)
   if (group != 1 && group != kMontGroup) return -1;
-  switch (L) {
-    case 16:
-      mont_launch<8>(a, b, b_step, out, rows, n, make_consts(consts, 8), group, stream);
-      break;
-    case 24:
-      mont_launch<12>(a, b, b_step, out, rows, n, make_consts(consts, 12), group, stream);
-      break;
-    default:
-      return -1;
-  }
+  MLT_WORDS(L, mont_launch<NW>(a, b, b_step, out, rows, n, make_consts(consts, NW), group, stream))
   return (int)cudaGetLastError();
 }
 
 // group: threads an element, 1 (fp_pow_kernel) or kMontGroup
-// (fp_pow_group_kernel)
+// (fp_pow_group_kernel; at nine words the one-thread body, as mont_launch)
 template <int NW>
 static void pow_launch(const uint32_t* a, const uint8_t* bits, int nbits, uint32_t* out, int rows,
                        int n, const FieldConsts& k, int group, cudaStream_t stream) {
   const int64_t elements = (int64_t)rows * n;
-  if (group == 1) {
-    const dim3 grid((unsigned)((elements + kPowThreads - 1) / kPowThreads));
-    fp_pow_kernel<NW><<<grid, kPowThreads, 0, stream>>>(a, bits, nbits, out, rows, n, k);
-  } else {
-    const int per_block = kPowGroupThreads / kMontGroup;
-    const dim3 grid((unsigned)((elements + per_block - 1) / per_block));
-    fp_pow_group_kernel<NW, kMontGroup><<<grid, kPowGroupThreads, 0, stream>>>(a, bits, nbits,
-                                                                              out, rows, n, k);
+  if constexpr (NW % kMontGroup == 0) {
+    if (group != 1) {
+      const int per_block = kPowGroupThreads / kMontGroup;
+      const dim3 grid((unsigned)((elements + per_block - 1) / per_block));
+      fp_pow_group_kernel<NW, kMontGroup><<<grid, kPowGroupThreads, 0, stream>>>(
+          a, bits, nbits, out, rows, n, k);
+      return;
+    }
   }
+  const dim3 grid((unsigned)((elements + kPowThreads - 1) / kPowThreads));
+  fp_pow_kernel<NW><<<grid, kPowThreads, 0, stream>>>(a, bits, nbits, out, rows, n, k);
 }
 
-extern "C" int mlt_fp_pow(const uint32_t* a, const uint8_t* bits, int nbits, uint32_t* out,
-                          int rows, int n, int L, const uint32_t* consts, int group,
-                          cudaStream_t stream) {
+MLT_LAUNCHER(mlt_fp_pow, const uint32_t* a, const uint8_t* bits, int nbits, uint32_t* out, int rows,
+             int n, int L, const uint32_t* consts, int group, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_fp_pow, a, bits, nbits, out, rows, n, L, consts, group, stream)
   if (group != 1 && group != kMontGroup) return -1;
-  switch (L) {
-    case 16:
-      pow_launch<8>(a, bits, nbits, out, rows, n, make_consts(consts, 8), group, stream);
-      break;
-    case 24:
-      pow_launch<12>(a, bits, nbits, out, rows, n, make_consts(consts, 12), group, stream);
-      break;
-    default:
-      return -1;
-  }
+  MLT_WORDS(L, pow_launch<NW>(a, bits, nbits, out, rows, n, make_consts(consts, NW), group, stream))
   return (int)cudaGetLastError();
 }

@@ -92,6 +92,7 @@
 #include <cstdint>
 
 #include "g1_rows.cuh"
+#include "words.cuh"
 
 namespace mlt {
 
@@ -804,68 +805,59 @@ inline dim3 split_grid(int n) { return dim3((unsigned)((n + kSplitLanes - 1) / k
 
 using namespace mlt;
 
-// instantiate for L = 16 (BN254's p) and L = 24 (BLS12-381's and BLS12-377's p)
-#define MLT_DISPATCH(L, ...)             \
-  switch (L) {                           \
-    case 16: {                           \
-      constexpr int NW = 8;              \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    case 24: {                           \
-      constexpr int NW = 12;             \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    default:                             \
-      return -1;                         \
-  }                                      \
+// L = 16 (BN254's p) and L = 24 (BLS12-381's and BLS12-377's p) here; L = 18
+// (FP256BN's p on the card) in the twin g1_split_kernels_nw9.cu (words.cuh)
+#define MLT_DISPATCH(L, ...) \
+  MLT_WORDS(L, __VA_ARGS__)  \
   return (int)cudaGetLastError();
 
-extern "C" int mlt_g1_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
-                          const uint32_t* consts, int b3, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_add, const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
+             const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_add, P, Q, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_add_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_addsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                             uint32_t* out, int n, int L, const uint32_t* consts, int b3,
-                             cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_addsel, const uint32_t* P, const uint32_t* Q, const uint8_t* sel, uint32_t* out,
+             int n, int L, const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_addsel, P, Q, sel, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_addsel_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_addselneg(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                                const uint8_t* neg, uint32_t* out, int n, int L,
-                                const uint32_t* consts, int b3, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_addselneg, const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
+             const uint8_t* neg, uint32_t* out, int n, int L, const uint32_t* consts, int b3,
+             cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_addselneg, P, Q, sel, neg, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_addselneg_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_maddsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                              uint32_t* out, int n, int L, const uint32_t* consts, int b3,
-                              cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_maddsel, const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
+             uint32_t* out, int n, int L, const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_maddsel, P, Q, sel, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_maddsel_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_maddselneg(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                                 const uint8_t* neg, uint32_t* out, int n, int L,
-                                 const uint32_t* consts, int b3, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_maddselneg, const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
+             const uint8_t* neg, uint32_t* out, int n, int L, const uint32_t* consts, int b3,
+             cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_maddselneg, P, Q, sel, neg, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_maddselneg_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, neg, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_dbladd(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                             uint32_t* out, int n, int L, const uint32_t* consts, int b3,
-                             cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_dbladd, const uint32_t* P, const uint32_t* Q, const uint8_t* sel, uint32_t* out,
+             int n, int L, const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_dbladd, P, Q, sel, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_dbladd_kernel<NW><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       P, Q, sel, out, n, make_consts(consts, NW), b3))
 }
 
-extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L,
-                           int S, int nbits, const uint32_t* consts, int b3,
-                           cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_smul, const uint32_t* Q, const uint32_t* s, uint32_t* out, int n, int L, int S,
+             int nbits, const uint32_t* consts, int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_smul, Q, s, out, n, L, S, nbits, consts, b3, stream)
   if (nbits < 0 || nbits > 16 * S) return -1;
   const size_t limb_bytes = (size_t)((nbits + 15) / 16) * kSplitLanes * sizeof(uint32_t);
   MLT_DISPATCH(L, g1_smul_ladder_kernel<NW, false>
@@ -873,6 +865,9 @@ extern "C" int mlt_g1_smul(const uint32_t* Q, const uint32_t* s, uint32_t* out, 
                    Q, s, nullptr, out, n, nbits, make_consts(consts, NW), b3))
 }
 
+// the static ladder is the device hash's cofactor clearing (BLS12-381
+// only): no NW = 9 twin
+#ifndef MLT_NW9
 extern "C" int mlt_g1_smul_static(const uint32_t* Q, const uint8_t* bits, int nbits, uint32_t* out,
                                   int n, int L, const uint32_t* consts, int b3,
                                   cudaStream_t stream) {
@@ -880,9 +875,11 @@ extern "C" int mlt_g1_smul_static(const uint32_t* Q, const uint8_t* bits, int nb
   MLT_DISPATCH(L, g1_smul_ladder_kernel<NW, true><<<split_grid(n), kSplitThreads, 0, stream>>>(
                       Q, nullptr, bits, out, n, nbits, make_consts(consts, NW), b3))
 }
+#endif
 
-extern "C" int mlt_g1_double(const uint32_t* P, uint32_t* out, int n, int L,
-                             const uint32_t* consts, int b3, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g1_double, const uint32_t* P, uint32_t* out, int n, int L, const uint32_t* consts,
+             int b3, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g1_double, P, out, n, L, consts, b3, stream)
   MLT_DISPATCH(L, g1_double_kernel<NW><<<split_grid(n), kDblThreads, 0, stream>>>(
                       P, out, n, make_consts(consts, NW), b3))
 }

@@ -29,12 +29,13 @@
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return the CUDA error of reading the card's SM count,
 // of raising the kernel's dynamic shared memory cap (once per kernel and
-// device) or of the launch (or -1 for an L other than 24).
+// device) or of the launch (or -1 for an L other than 18 or 24).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "g2_step.cuh"
+#include "words.cuh"
 
 namespace mlt {
 
@@ -130,10 +131,11 @@ __global__ void __maxnreg__(kStepRegs)
 
 using namespace mlt;
 
-extern "C" int mlt_g2_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
-                          const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
-  return by_block_lanes(n, L, [&](auto lb) {
-    constexpr int NW = 12, LB = decltype(lb)::value;
+MLT_LAUNCHER(mlt_g2_add, const uint32_t* P, const uint32_t* Q, uint32_t* out, int n, int L,
+             const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g2_add, P, Q, out, n, L, consts, b3c0, b3c1, stream)
+  return by_block_lanes(n, L, [&](auto nw, auto lb) {
+    constexpr int NW = decltype(nw)::value, LB = decltype(lb)::value;
     static int raised[kMaxDevices] = {};
     return launch_blocks<NW, LB>(g2_add_kernel<NW, LB>, raised, kLadderWorkers, AddSlots::kN, 0,
                                  n, stream, P, Q, out, n, make_consts(consts, NW),
@@ -141,21 +143,22 @@ extern "C" int mlt_g2_add(const uint32_t* P, const uint32_t* Q, uint32_t* out, i
   });
 }
 
-extern "C" int mlt_g2_double(const uint32_t* P, uint32_t* out, int n, int L,
-                             const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
-  return by_block_lanes(n, L, [&](auto lb) {
-    constexpr int NW = 12, LB = decltype(lb)::value;
+MLT_LAUNCHER(mlt_g2_double, const uint32_t* P, uint32_t* out, int n, int L, const uint32_t* consts,
+             int b3c0, int b3c1, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g2_double, P, out, n, L, consts, b3c0, b3c1, stream)
+  return by_block_lanes(n, L, [&](auto nw, auto lb) {
+    constexpr int NW = decltype(nw)::value, LB = decltype(lb)::value;
     static int raised[kMaxDevices] = {};
     return launch_blocks<NW, LB>(g2_double_kernel<NW, LB>, raised, kDblWorkers, DblSlots::kN, 0,
                                  n, stream, P, out, n, make_consts(consts, NW), B3{b3c0, b3c1});
   });
 }
 
-extern "C" int mlt_g2_addsel(const uint32_t* P, const uint32_t* Q, const uint8_t* sel,
-                             uint32_t* out, int n, int L, const uint32_t* consts, int b3c0,
-                             int b3c1, cudaStream_t stream) {
-  return by_block_lanes(n, L, [&](auto lb) {
-    constexpr int NW = 12, LB = decltype(lb)::value;
+MLT_LAUNCHER(mlt_g2_addsel, const uint32_t* P, const uint32_t* Q, const uint8_t* sel, uint32_t* out,
+             int n, int L, const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g2_addsel, P, Q, sel, out, n, L, consts, b3c0, b3c1, stream)
+  return by_block_lanes(n, L, [&](auto nw, auto lb) {
+    constexpr int NW = decltype(nw)::value, LB = decltype(lb)::value;
     static int raised[kMaxDevices] = {};
     return launch_blocks<NW, LB>(g2_addsel_kernel<NW, LB>, raised, kLadderWorkers, AddSlots::kN,
                                  0, n, stream, P, Q, sel, out, n, make_consts(consts, NW),

@@ -35,13 +35,14 @@
 // The launchers run on the caller's stream, allocate nothing, never
 // synchronise, and return the CUDA error of reading the card's SM count,
 // of raising the kernel's dynamic shared memory cap (once per kernel and
-// device) or of the launch (or -1 for an L other than 24, or for more bits
+// device) or of the launch (or -1 for an L other than 18 or 24, or for more bits
 // than the scalar limbs hold).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "g2_step.cuh"
+#include "words.cuh"
 
 namespace mlt {
 
@@ -122,8 +123,8 @@ __global__ void __launch_bounds__(kLadderWorkers * LB, 32 / LB)
 template <bool STATIC>
 int ladder(const uint32_t* Q, const uint32_t* s, const uint8_t* bits, int nbits, uint32_t* out,
            int n, int L, const uint32_t* consts, B3 b3, cudaStream_t stream) {
-  return by_block_lanes(n, L, [&](auto lb) {
-    constexpr int NW = 12, LB = decltype(lb)::value;
+  return by_block_lanes(n, L, [&](auto nw, auto lb) {
+    constexpr int NW = decltype(nw)::value, LB = decltype(lb)::value;
     static int raised[kMaxDevices] = {};
     const int limbs = STATIC ? 0 : (nbits + 15) / 16;
     return launch_blocks<NW, LB>(g2_ladder_kernel<NW, LB, STATIC>, raised, kLadderWorkers,
@@ -136,15 +137,19 @@ int ladder(const uint32_t* Q, const uint32_t* s, const uint8_t* bits, int nbits,
 
 using namespace mlt;
 
-extern "C" int mlt_g2_smul(const uint32_t* Q, const uint32_t* s, int S, int nbits, uint32_t* out,
-                           int n, int L, const uint32_t* consts, int b3c0, int b3c1,
-                           cudaStream_t stream) {
+MLT_LAUNCHER(mlt_g2_smul, const uint32_t* Q, const uint32_t* s, int S, int nbits, uint32_t* out,
+             int n, int L, const uint32_t* consts, int b3c0, int b3c1, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_g2_smul, Q, s, S, nbits, out, n, L, consts, b3c0, b3c1, stream)
   if (nbits < 0 || nbits > 16 * S) return -1;
   return ladder<false>(Q, s, nullptr, nbits, out, n, L, consts, B3{b3c0, b3c1}, stream);
 }
 
+// the static ladders are hash-to-G2's cofactor clearing (BLS12-381 only):
+// no NW = 9 twin
+#ifndef MLT_NW9
 extern "C" int mlt_g2_smul_static(const uint32_t* Q, const uint8_t* bits, int nbits,
                                   uint32_t* out, int n, int L, const uint32_t* consts, int b3c0,
                                   int b3c1, cudaStream_t stream) {
   return ladder<true>(Q, nullptr, bits, nbits, out, n, L, consts, B3{b3c0, b3c1}, stream);
 }
+#endif

@@ -45,8 +45,8 @@
 // the reference kernel's.
 //
 // The kernels take the reference's gate: beta = -1 and a small twist
-// constant b3 = 3 b2 (B3), and only L = 24 (12 words: BLS12-381, the one
-// curve with an even limb count in the gate) is built.
+// constant b3 = 3 b2 (B3): L = 24 (12 words, BLS12-381) and L = 18 (9
+// words, FP256BN on the card) are built, the second in each source's twin.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -417,18 +417,31 @@ int launch_blocks(Kern kern, int* raised, int workers, int slots, int extra, int
   return (int)cudaGetLastError();
 }
 
-// the launchers' common head: -1 for an L other than 24, nothing to do for
-// n = 0, else launch(lb) with lb an std::integral_constant of the block's
-// lanes by ladder_lanes (or the CUDA error of reading the SM count)
+// the word count of the G2 launchers of a source: 12 (L = 24, BLS12-381),
+// or 9 (L = 18, FP256BN) in its NW = 9 twin, where this header's
+// namespace is mlt_nw9 (words.cuh).  BN254 and
+// BLS12-377 run the weier route, not these kernels, so there is no NW = 8.
+#ifdef MLT_NW9
+constexpr int kG2Words = 9;
+#else
+constexpr int kG2Words = 12;
+#endif
+
+// the launchers' common head: -1 for an L other than this source's
+// 2 kG2Words, nothing to do for n = 0, else launch(nw, lb) with nw and lb
+// std::integral_constants of the words an element and of the block's lanes
+// by ladder_lanes (or the CUDA error of reading the SM count).  Each
+// instantiation of a launcher's lambda keeps its own static cap array.
 template <class Launch>
 int by_block_lanes(int n, int L, const Launch& launch) {
-  if (L != 24) return -1;
+  if (L != 2 * kG2Words) return -1;
   if (n == 0) return 0;
   int lanes = 0;
   const cudaError_t err = ladder_lanes(n, &lanes);
   if (err != cudaSuccess) return (int)err;
-  if (lanes == 16) return launch(std::integral_constant<int, 16>{});
-  return launch(std::integral_constant<int, 32>{});
+  constexpr std::integral_constant<int, kG2Words> nw{};
+  if (lanes == 16) return launch(nw, std::integral_constant<int, 16>{});
+  return launch(nw, std::integral_constant<int, 32>{});
 }
 
 }  // namespace mlt

@@ -1,6 +1,6 @@
 // Launch helpers shared by the pairing kernel sources (miller_split_kernels.cu,
 // check_kernels.cu, fexp_split_kernels.cu): the tower constants, passed to
-// a kernel by value, and the L dispatch.
+// a kernel by value, and the L dispatch (words.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,6 +8,7 @@
 #include <cstdint>
 
 #include "fp_rows.cuh"
+#include "words.cuh"
 
 namespace mlt {
 
@@ -39,20 +40,7 @@ inline TowerConsts tower_consts(const int32_t* ints, const uint32_t* tail, int n
 
 }  // namespace mlt
 
-#define MLT_PAIR_DISPATCH(L, ...)        \
-  switch (L) {                           \
-    case 16: {                           \
-      constexpr int NW = 8;              \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    case 24: {                           \
-      constexpr int NW = 12;             \
-      __VA_ARGS__;                       \
-      break;                             \
-    }                                    \
-    default:                             \
-      return -1;                         \
-  }                                      \
+// L picks NW among this source's word counts (words.cuh)
+#define MLT_PAIR_DISPATCH(L, ...) \
+  MLT_WORDS(L, __VA_ARGS__)       \
   return (int)cudaGetLastError();
-

@@ -204,13 +204,12 @@ __global__ void __launch_bounds__(kProgMaxThreads)
 
 using namespace mlt;
 
-extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
-                                        const uint32_t* qx, const uint32_t* qy,
-                                        const uint8_t* bits, int nbits, int nvalid,
-                                        uint32_t* out, int lanes, int L, const uint32_t* consts,
-                                        const int32_t* tower_ints, const uint32_t* tail,
-                                        const int32_t* prog, const int32_t* meta,
-                                        cudaStream_t stream) {
+MLT_LAUNCHER(mlt_pairing_miller_lanes, const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
+             const uint32_t* qy, const uint8_t* bits, int nbits, int nvalid, uint32_t* out,
+             int lanes, int L, const uint32_t* consts, const int32_t* tower_ints,
+             const uint32_t* tail, const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_pairing_miller_lanes, xp, yp, qx, qy, bits, nbits, nvalid, out, lanes, L, consts,
+             tower_ints, tail, prog, meta, stream)
   const ProgMeta m = prog_meta(meta, 3);
   MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
@@ -224,12 +223,12 @@ extern "C" int mlt_pairing_miller_lanes(const uint32_t* xp, const uint32_t* yp,
   }))
 }
 
-extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
-                                     const uint32_t* qy, const uint8_t* bits, int nbits,
-                                     uint32_t* f_out, uint32_t* t_out, int lanes, int L,
-                                     const uint32_t* consts, const int32_t* tower_ints,
-                                     const uint32_t* tail, const int32_t* prog,
-                                     const int32_t* meta, cudaStream_t stream) {
+MLT_LAUNCHER(mlt_pairing_miller_ft, const uint32_t* xp, const uint32_t* yp, const uint32_t* qx,
+             const uint32_t* qy, const uint8_t* bits, int nbits, uint32_t* f_out, uint32_t* t_out,
+             int lanes, int L, const uint32_t* consts, const int32_t* tower_ints,
+             const uint32_t* tail, const int32_t* prog, const int32_t* meta, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_pairing_miller_ft, xp, yp, qx, qy, bits, nbits, f_out, t_out, lanes, L, consts,
+             tower_ints, tail, prog, meta, stream)
   const ProgMeta m = prog_meta(meta, 3);
   MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;
@@ -243,12 +242,12 @@ extern "C" int mlt_pairing_miller_ft(const uint32_t* xp, const uint32_t* yp, con
   }))
 }
 
-extern "C" int mlt_pairing_add_step(const uint32_t* f_in, const uint32_t* t_in,
-                                    const uint32_t* qx, const uint32_t* qy, const uint32_t* xp,
-                                    const uint32_t* yp, uint32_t* f_out, uint32_t* t_out,
-                                    int lanes, int L, const uint32_t* consts,
-                                    const int32_t* prog, const int32_t* meta,
-                                    cudaStream_t stream) {
+MLT_LAUNCHER(mlt_pairing_add_step, const uint32_t* f_in, const uint32_t* t_in, const uint32_t* qx,
+             const uint32_t* qy, const uint32_t* xp, const uint32_t* yp, uint32_t* f_out,
+             uint32_t* t_out, int lanes, int L, const uint32_t* consts, const int32_t* prog,
+             const int32_t* meta, cudaStream_t stream) {
+  MLT_TO_NW9(mlt_pairing_add_step, f_in, t_in, qx, qy, xp, yp, f_out, t_out, lanes, L, consts, prog,
+             meta, stream)
   const ProgMeta m = prog_meta(meta, 1);
   MLT_PAIR_DISPATCH(L, MLT_PROG_GROUPS(m.group, {
     dim3 grid, block;

@@ -6,6 +6,17 @@ Layout and value domain are the reference's: a batch of field elements is a
 ``[0, 2p)``.  Edge tensors are ``torch.int32``; the arithmetic runs in
 ``int64``, where every intermediate of a 16x16-bit schoolbook product fits.
 
+L is the reference's, the least count with ``4p <= R``, with one exception:
+a curve's base field on a CUDA device takes the next even count
+(``base_limbs``), since the kernels hold an element as L / 2 whole 32-bit
+words and run one Montgomery round a word (``R = 2**(32 * NW)``).  Only
+FP256BN changes: its p has its top bit set, so its least L is 17
+(``R = 2**272``), and on the card it holds L = 18 (nine words,
+``R = 2**288``).  Its device tensors then differ from the reference's limb
+for limb and agree with them canonically (decoded values);
+``widen_limbs`` and ``narrow_limbs`` move a tensor between the two.  Scalar-field contexts
+keep the least L everywhere (no kernel takes an Fr element).
+
 This is plain PyTorch and runs on any device.  Every result is a function of
 the input integers alone (``add``/``sub`` are fixed by ``a +- b`` and one
 conditional subtraction of 2p, ``mont_mul`` by ``(ab + m*p)/R`` with
@@ -25,7 +36,7 @@ carries are scheduled.  Design notes:
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -139,17 +150,35 @@ def _i32(x: Tensor) -> Tensor:
     return x.to(torch.int32)
 
 
+def least_limbs(p: int) -> int:
+    """The least L with 4p <= R = 2^(16L): headroom for the lazy [0, 2p)
+    value domain (the reference's L)."""
+    return -(-(p.bit_length() + 2) // LIMB_BITS)
+
+
+def base_limbs(p: int, device: torch.device, L: Optional[int] = None) -> int:
+    """The limbs of a curve's base-field context on ``device`` (a resolved
+    ``torch.device``): ``L`` where the caller asks for it (a CPU test
+    running the card's arithmetic asks for 18 on FP256BN), else
+    ``least_limbs(p)``, rounded up to an even count on a CUDA device, where
+    the kernels take whole 32-bit words."""
+    if L is not None:
+        return L
+    L = least_limbs(p)
+    return L + L % 2 if device.type == "cuda" else L
+
+
 class FpCtx:
     """All batched mod-p arithmetic for one prime ``p``, with its constants as
-    ``(L, 1)`` int64 tensors on ``device``."""
+    ``(L, 1)`` int64 tensors on ``device``; L is ``least_limbs(p)`` unless
+    given (at least that)."""
 
-    def __init__(self, p: int, device=None, name: str = "fp"):
+    def __init__(self, p: int, device=None, name: str = "fp", L: Optional[int] = None):
         self.p = p
         self.name = name
         self.device = _device(device)
         self.nbits = p.bit_length()
-        # pad so R >= 4p: headroom for the lazy [0, 2p) value domain
-        self.L = -(-(self.nbits + 2) // LIMB_BITS)
+        self.L = least_limbs(p) if L is None else L
         L = self.L
         self.R = 1 << (LIMB_BITS * L)
         if p % 2 == 0 or 4 * p > self.R:
@@ -370,3 +399,38 @@ class FpCtx:
         if self.sqrt_bits is None:
             raise ValueError(f"{self.name}: p % 4 != 3, no sqrt by one exponentiation")
         return self.pow_bits(a, self.sqrt_bits)
+
+
+
+# FP256BN's edge between the reference's L = 17 (R' = 2^272) and the card's
+# L = 18 (R = 2^288): one Montgomery product at fp's L each way, on
+# ``FpCtx.mont_mul`` (the kernel on a card, its plain version on the CPU)
+def widen_limbs(fp: FpCtx, a: Tensor) -> Tensor:
+    """A Montgomery tensor (..., L', B) at R' = 2^(16 L'), L' <= fp.L, ->
+    (..., fp.L, B) at fp.R: x R' padded with zero limbs, times R^2 / R' mod
+    p (2^304 for 17 -> 18) in one product, is x R, in [0, 2p)."""
+    Lin = a.shape[-2]
+    if Lin == fp.L:
+        return a
+    if Lin > fp.L:
+        raise ValueError(f"widen_limbs: {Lin} limbs are more than the context's {fp.L}")
+    c = fp.R * fp.R * pow(1 << (LIMB_BITS * Lin), -1, fp.p) % fp.p
+    return fp.mont_mul(_pad_top(a, fp.L - Lin), _limb_const(fp, c))
+
+
+def narrow_limbs(fp: FpCtx, a: Tensor, L: int) -> Tensor:
+    """``widen_limbs`` back: (..., fp.L, B) at fp.R -> (..., L, B) at R' =
+    2^(16 L), L <= fp.L with 4p <= R': x R times R' mod p in one product is
+    x R', in [0, 2p), and the limbs from L up, which that leaves zero, are
+    dropped."""
+    if L == fp.L:
+        return a
+    if L > fp.L or 4 * fp.p > 1 << (LIMB_BITS * L):
+        raise ValueError(f"narrow_limbs: {L} limbs do not hold [0, 2p) below fp's {fp.L}")
+    return fp.mont_mul(a, _limb_const(fp, (1 << (LIMB_BITS * L)) % fp.p))[..., :L, :]
+
+
+def _limb_const(fp: FpCtx, c: int) -> Tensor:
+    """c < p as an (L, 1) int32 limb column on fp's device (a constant
+    operand of ``mont_mul``)."""
+    return torch.from_numpy(int_to_limbs(c, fp.L).astype(np.int32)[:, None]).to(fp.device)

@@ -23,7 +23,7 @@ import torch
 from .. import device as _device
 from ..curves.params import CurveSpec
 from . import weier
-from .field import FpCtx, ints_to_limbs, limb_tensor
+from .field import FpCtx, base_limbs, ints_to_limbs, limb_tensor
 from .kernels import g1_cuda
 
 Tensor = torch.Tensor
@@ -67,12 +67,14 @@ class FpAdapter(weier.FieldAdapter):
 
 
 class G1Ctx:
-    """G1 over one curve, with its constant tensors on ``device``."""
+    """G1 over one curve, with its constant tensors on ``device``; its base
+    field at ``base_limbs`` (L = 18 for FP256BN on a card, or ``L`` where
+    given)."""
 
-    def __init__(self, spec: CurveSpec, device=None):
+    def __init__(self, spec: CurveSpec, device=None, L: Optional[int] = None):
         self.spec = spec
         self.device = _device(device)
-        self.fp = FpCtx(spec.p, self.device, spec.name)
+        self.fp = FpCtx(spec.p, self.device, spec.name, L=base_limbs(spec.p, self.device, L))
         self.fr = FpCtx(spec.r, self.device, spec.name + "_fr")
         self.F = FpAdapter(self.fp, spec.b)
         self.gen = self.encode_point(spec.g1_gen)  # (3, L, 1)

@@ -10,7 +10,7 @@ beta = -1 and a small twist constant b3 = 3 b2 (BLS12-381, b3 = (12, 12);
 FP256BN) send ``add``, ``double``, ``add_select``, ``dbl_add_select``,
 ``scalar_mul`` and the hash's static ladders to the kernel wrappers of
 ``kernels/g2_cuda.py`` (the CUDA kernels on a card, their plain versions on
-the CPU; FP256BN's odd limb count is refused on a card).  The other curves
+the CPU; FP256BN's at nine words, its contexts holding L = 18 on a card).  The other curves
 (BN254: b3 is not small; BLS12-377: beta = -5) run ``weier`` over
 ``Fp2Adapter``, whose products are ``TowerCtx.f2_mul`` (the ``mont_mul``
 kernel on a card), and their ``scalar_mul`` is the reference's scan of
@@ -70,12 +70,13 @@ class Fp2Adapter(weier.FieldAdapter):
 
 
 class G2Ctx:
-    """G2 over one curve, with its constant tensors on ``device``."""
+    """G2 over one curve, with its constant tensors on ``device``; its base
+    field is its tower's (``base_limbs``, or ``L`` where given)."""
 
-    def __init__(self, spec: CurveSpec, device=None):
+    def __init__(self, spec: CurveSpec, device=None, L: Optional[int] = None):
         self.spec = spec
         self.device = _device(device)
-        self.tw = TowerCtx(spec, self.device)
+        self.tw = TowerCtx(spec, self.device, L)
         self.fp: FpCtx = self.tw.fp
         self.fr = FpCtx(spec.r, self.device, spec.name + "_fr")
         self.host = get_tower(spec)

@@ -3,7 +3,11 @@
 Every ``mathlib_tpu_torch/csrc/*.cu`` compiles to an object file in its own
 ``nvcc`` process, all started together, and the objects link into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds to a minute):
+seconds to a minute).  The twins ``csrc/*_nw9.cu`` compile their sources
+again at nine 32-bit words (L = 18, FP256BN's field on the card), in
+processes of their own beside the others, so that a third word count does
+not lengthen the build's wall; each launcher hands L = 18 on to its twin's
+(``csrc/words.cuh``), so a kernel has one launcher:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
          -Xptxas -v -c -o build/mathlib_tpu_torch/obj/<name>.o csrc/<name>.cu
@@ -111,6 +115,9 @@ SIGNATURES = {
     # curve constants, sign mode, out, n, L, consts, b3, stream
     "mlt_hash_g1": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P],
 }
+# the limb counts the launchers take: 8, 9 and 12 32-bit words (the static
+# ladders, the device hash and the one-launch check refuse 18: csrc/words.cuh)
+KERNEL_LS = (16, 18, 24)
 
 
 def _nvcc() -> str:

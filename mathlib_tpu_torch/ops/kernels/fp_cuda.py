@@ -19,6 +19,10 @@ Two kernels, CUDA C++ in ``csrc/fp_kernels.cu``:
   threads share each product of an element's chain), from there
   ``fp_pow_kernel`` (one element a thread): ``pow_group``.
 
+Both take L = 16, 18 and 24 limbs (8, 9 and 12 32-bit words); nine words
+(FP256BN on the card) do not split into the group bodies' four slices, so
+there the launchers run the one-thread bodies whatever the group.
+
 On a CPU tensor each wrapper returns its plain version.  On a CUDA tensor it
 launches the kernel on the current stream, adds one to its ``launches``
 count, and raises if the launch fails; it never falls back.
@@ -61,8 +65,8 @@ def mont_mul(fp: FpCtx, a: Tensor, b: Tensor) -> Tensor:
     if a.device.type == "cpu":
         return mont_mul_plain(fp, a, b)
     L = fp.L
-    if L not in (16, 24):
-        raise ValueError(f"the CUDA mont_mul kernel takes L = 16 or 24 limbs, got L={L}")
+    if L not in build.KERNEL_LS:
+        raise ValueError(f"the CUDA mont_mul kernel takes L = 16, 18 or 24 limbs, got L={L}")
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"mont_mul runs on CPU (plain) or CUDA tensors, got {a.device}, {b.device}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
@@ -130,8 +134,8 @@ def fp_pow(fp: FpCtx, a: Tensor, bits) -> Tensor:
     if a.device.type == "cpu":
         return fp_pow_plain(fp, a, bits)
     L = fp.L
-    if L not in (16, 24):
-        raise ValueError(f"the CUDA fp_pow kernel takes L = 16 or 24 limbs, got L={L}")
+    if L not in build.KERNEL_LS:
+        raise ValueError(f"the CUDA fp_pow kernel takes L = 16, 18 or 24 limbs, got L={L}")
     if a.device.type != "cuda":
         raise ValueError(f"fp_pow runs on CPU (plain) or CUDA tensors, got {a.device}")
     if a.dtype != torch.int32:

@@ -37,6 +37,11 @@ axis before a launch and restored after, as ``g1_pallas._to_tiles`` does.
 contiguous (3, L, n) int32 tensor of the result's shape that overlaps no
 operand (the MSM scan's capture buffer, a step at a time).
 
+The kernels take L = 16, 18 and 24 limbs (8, 9 and 12 32-bit words; nine
+for FP256BN on the card, from ``csrc/g1_split_kernels_nw9.cu``); the static
+ladder (the device hash's cofactor, BLS12-381's) is not built at nine words,
+and its launcher refuses L = 18.
+
 The negation of the signed combiners is ``F.sub(0, Y)``, the relaxed
 subtraction (``p2`` added back below zero), not a canonical ``p - Y``.  The
 mixed add follows ``_madd_rows`` operation for operation (11 products), not
@@ -220,13 +225,13 @@ def smul_static_plain(F: weier.FieldAdapter, Q: Tensor, bits) -> Tensor:
 # ------------------------------------------------------------------ launches --
 def _check(F, *points: Tensor, scalars: Optional[Tensor] = None,
            affine: Optional[Tensor] = None) -> None:
-    """Refuse what the kernels do not take: a limb count other than 16 or 24,
+    """Refuse what the kernels do not take: a limb count other than 16, 18 or 24,
     points not shaped (..., 3, L, B) (affine: (..., 2, L, B)), dtypes other
     than int32, mixed devices."""
     L = F.fp.L
-    if L not in (16, 24):
+    if L not in build.KERNEL_LS:
         raise ValueError(
-            f"the CUDA G1 kernels take L = 16 or 24 limbs (8 or 12 32-bit words), got L={L}"
+            f"the CUDA G1 kernels take L = 16, 18 or 24 limbs (8, 9 or 12 32-bit words), got L={L}"
         )
     for t in points:
         if t.shape[-3:-1] != (3, L):

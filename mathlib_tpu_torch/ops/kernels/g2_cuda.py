@@ -36,9 +36,11 @@ fails; it never falls back.  Leading batch dims are folded into the lane
 axis before a launch and restored after, as ``g2_pallas._to_tiles`` does.
 
 The kernels take the reference's gate: beta = -1 and a small b3 (0 <= c <
-256, not both 0).  Only BLS12-381 (b3 = (12, 12)) passes it with an even
-limb count, so only L = 24 is built; FP256BN (L = 17) passes it too and runs
-the plain versions on the CPU, and is refused on the card.
+256, not both 0): BLS12-381 (b3 = (12, 12)) at L = 24, and FP256BN, whose
+contexts on the card hold L = 18 (``ops/field.py base_limbs``): nine words,
+built by the twins ``csrc/*_nw9.cu``.  The static ladders (hash-to-G2's
+cofactor, BLS12-381's) are not built at nine words: their launcher refuses
+L = 18.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ from .g1_cuda import scalar_bit
 
 Tensor = torch.Tensor
 
-KERNEL_L = 24  # the limb count the kernels are built for (12 32-bit words)
+# the limb counts the kernels are built for: 24 (12 32-bit words,
+# BLS12-381) and 18 (9 words, FP256BN on the card)
+KERNEL_LS = (18, 24)
 
 
 def _stack(xs, dim: int) -> Tensor:
@@ -187,14 +191,15 @@ def smul_static_plain(F: Row2Adapter, Q: Tensor, bits) -> Tensor:
 # ------------------------------------------------------------------ launches --
 def _check(F: Row2Adapter, *points: Tensor, scalars: Optional[Tensor] = None) -> None:
     """Refuse what the kernels do not take: a device other than CUDA, a limb
-    count other than 24, points not shaped (..., 3, 2, L, B), dtypes other
-    than int32, mixed devices."""
+    count other than 18 or 24, points not shaped (..., 3, 2, L, B), dtypes
+    other than int32, mixed devices."""
     dev = points[0].device
     if dev.type != "cuda":
         raise ValueError(f"G2 kernels run on CPU (plain) or CUDA tensors, got {dev}")
     L = F.fp.L
-    if L != KERNEL_L:
-        raise ValueError(f"the CUDA G2 kernels take L = {KERNEL_L} limbs (12 32-bit words), got L={L}")
+    if L not in KERNEL_LS:
+        raise ValueError(f"the CUDA G2 kernels take L = 18 or 24 limbs (9 or 12 32-bit words), "
+                         f"got L={L}")
     for t in points:
         if t.shape[-4:-1] != (3, 2, L):
             raise ValueError(f"points must be (..., 3, 2, {L}, B), got {tuple(t.shape)}")

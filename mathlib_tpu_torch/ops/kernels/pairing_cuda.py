@@ -348,9 +348,10 @@ def _gammas_on(cfg: TowerCfg, device) -> Tensor:
 def _check(cfg, *tensors: Tensor, shapes) -> None:
     """Refuse what the kernels do not take."""
     L = cfg.fp.L
-    if L not in (16, 24):
+    if L not in build.KERNEL_LS:
         raise ValueError(
-            f"the CUDA pairing kernels take L = 16 or 24 limbs (8 or 12 32-bit words), got L={L}"
+            f"the CUDA pairing kernels take L = 16, 18 or 24 limbs (8, 9 or 12 32-bit words), "
+            f"got L={L}"
         )
     dev = tensors[0].device
     for t, want in zip(tensors, shapes):
@@ -385,9 +386,14 @@ MILLER_SMEM = 227 * 1024  # shared memory a block may take on an H100
 
 def slot_words(L: int, G: int) -> int:
     """32-bit words of one shared-memory slot of a G-lane Miller block: NW
-    words a lane, and G more when G < 32 so that the workers of a warp fall
-    on different banks."""
-    return L // 2 * G + (G if G < 32 else 0)
+    words a lane (word j of lane t at j G + t), and in a block of G < 32
+    lanes the words a lane rounded up to an odd count, so that the 32 / G
+    workers of a warp, reading one word of different slots, fall on
+    different banks: a slot then starts an odd multiple of G words after
+    the one before, which is 0, G, 2G, ... mod 32 over 32 / G slots in a
+    row (NW = 8 and 12 take one word more, 9 none)."""
+    nw = L // 2
+    return nw * G if G == 32 else (nw | 1) * G
 
 
 def miller_programs(cfg: MillerCfg, G: int):

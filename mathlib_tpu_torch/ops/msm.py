@@ -551,7 +551,7 @@ _GLV_CACHE: dict = {}
 
 
 def get_glv_ctx(g1: G1Ctx) -> GlvCtx:
-    key = (g1.spec.name, g1.device)
+    key = (g1.spec.name, g1.device, g1.fp.L)
     ctx = _GLV_CACHE.get(key)
     if ctx is None:
         ctx = _GLV_CACHE[key] = GlvCtx(g1)
@@ -667,13 +667,17 @@ def auto_glv(spec, n: int) -> bool:
 
 def msm_host_bridge(spec, points, scalars, device=None):
     """Host-level MSM: list of affine points (None = infinity) + int scalars
-    -> affine point (None = infinity), on the card unless ``device="cpu"``.
+    -> affine point (None = infinity), on the card unless ``device="cpu"``:
+    ``bridge_msm`` on the curve's G1 context.  Backs the API's
+    ``MultiScalarMul`` for n >= 64."""
+    return bridge_msm(get_g1_ctx(spec, device), points, scalars)
 
-    Pads n up to a power of two >= 64 with infinity, zeroes the scalars of
-    every infinity entry ([k]inf = inf), encodes the points affine (the
-    mixed-add scan), and runs ``msm`` with ``auto_window`` and ``auto_glv``
-    of the padded size.  Backs the API's ``MultiScalarMul`` for n >= 64."""
-    g1 = get_g1_ctx(spec, device)
+
+def bridge_msm(g1: G1Ctx, points, scalars):
+    """``msm_host_bridge`` on ``g1``: pads n up to a power of two >= 64 with
+    infinity, zeroes the scalars of every infinity entry ([k]inf = inf),
+    encodes the points affine (the mixed-add scan), and runs ``msm`` with
+    ``auto_window`` and ``auto_glv`` of the padded size."""
     n = len(points)
     if len(scalars) != n:
         raise ValueError("points and scalars differ in length")
@@ -682,5 +686,5 @@ def msm_host_bridge(spec, points, scalars, device=None):
     scs = [0 if P is None else int(k) for P, k in zip(pts, list(scalars) + [0] * (n_pad - n))]
     c = auto_window(n_pad, g1.nbits)
     out = msm(g1, g1.encode_points_affine(pts), g1.encode_scalars(scs), c=c,
-              glv=auto_glv(spec, n_pad))
+              glv=auto_glv(g1.spec, n_pad))
     return g1.decode_point(out)

@@ -25,7 +25,7 @@ twist-coordinate Frobenius constants come from the port's host tower.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +50,14 @@ def _fp2_scalar(e12) -> Tuple[int, int]:
 
 
 class PairingCtx:
-    def __init__(self, spec: CurveSpec, device=None):
+    def __init__(self, spec: CurveSpec, device=None, L: Optional[int] = None):
+        """The pairing over ``spec`` on ``device``, its base field at
+        ``base_limbs`` (L = 18 for FP256BN on a card, or ``L`` where
+        given)."""
         self.spec = spec
         self.device = _device(device)
-        self.tw = TowerCtx(spec, self.device)
-        self.g2c = G2Ctx(spec, self.device)
+        self.tw = TowerCtx(spec, self.device, L)
+        self.g2c = G2Ctx(spec, self.device, L)
         if spec.family == Family.BLS12:
             if spec.fexp_factor != 3:
                 raise ValueError("the fused product takes BLS12 curves with the factor-3 final exp")

@@ -38,7 +38,7 @@ import torch
 from .. import device as _device
 from ..curves.params import CurveSpec, Family, hard_part_digits
 from ..host.fields import get_tower as get_host_tower
-from .field import LIMB_BITS, FpCtx
+from .field import LIMB_BITS, FpCtx, base_limbs
 from .kernels import fexp_prog, fp_cuda, pairing_cuda
 from .kernels.tower_rows import RowTower
 
@@ -50,10 +50,12 @@ def _stack(xs, dim: int) -> Tensor:
 
 
 class TowerCtx:
-    def __init__(self, spec: CurveSpec, device=None):
+    def __init__(self, spec: CurveSpec, device=None, L: Optional[int] = None):
+        """The tower over ``spec``'s base field at ``base_limbs`` (L = 18
+        for FP256BN on a card, or ``L`` where given)."""
         self.spec = spec
         self.device = _device(device)
-        self.fp = FpCtx(spec.p, self.device, spec.name)
+        self.fp = FpCtx(spec.p, self.device, spec.name, L=base_limbs(spec.p, self.device, L))
         self.host = get_host_tower(spec)
         self.beta = spec.beta  # int mod p (a small negative residue)
         x0, x1 = spec.xi

@@ -23,7 +23,7 @@ from mathlib_tpu_torch.ops.kernels import fp_cuda, g1_cuda, hash_cuda, pairing_c
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(params=["BLS12_381", "BN254"])
+@pytest.fixture(params=["BLS12_381", "BN254", "FP256BN"])  # FP256BN: L = 18, nine words
 def ctx(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -222,7 +222,7 @@ def test_four_warp_double_equals_the_plain_version(ctx, n):
     assert {k: v for k, v in g1_cuda.launches().items() if v} == {"double": 3}
 
 
-@pytest.mark.parametrize("curve", ["BLS12_381", "BLS12_377", "BN254"])
+@pytest.mark.parametrize("curve", ["BLS12_381", "BLS12_377", "BN254", "FP256BN"])
 def test_six_warp_ladder_equals_the_plain_version(curve):
     """smul (the ladder over six warps of 32-lane blocks) on 1, 31, 33 and
     4,097 lanes against smul_plain's 4,097: relaxed Q with infinity lanes,
@@ -257,15 +257,16 @@ def test_mont_mul_kernel_equals_the_plain_version(monkeypatch, group):
     threads, forced through fp_cuda.mont_group) at (6, L, 4,096), (1, L, 1)
     and a ragged (2, L, 4,097), L = 24 and 16, elementwise and with one
     (L, 1) constant operand, on relaxed limbs with the edge values 0, 1,
-    p - 1, p, 2p - 1.  One launch a call."""
+    p - 1, p, 2p - 1.  One launch a call.  With one thread an element also
+    FP256BN's L = 18 (nine words, which the wrapper never groups)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from mathlib_tpu_torch.ops.field import FpCtx
+    from mathlib_tpu_torch.ops.field import FpCtx, base_limbs
 
     monkeypatch.setattr(fp_cuda, "mont_group", lambda elements: group)
-    for curve in ("BLS12_381", "BN254"):
+    for curve in ("BLS12_381", "BN254") + (("FP256BN",) if group == 1 else ()):
         p = get_spec(curve).p
-        fp = FpCtx(p, torch.device("cuda"))
+        fp = FpCtx(p, torch.device("cuda"), L=base_limbs(p, torch.device("cuda")))
         L = fp.L
         rng = np.random.default_rng(L)
 
@@ -461,21 +462,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(ctx):
         g1_cuda.add(g1.F, P[..., :-2, :], P[..., :-2, :])
     with pytest.raises(TypeError):
         g1_cuda.double(g1.F, P.to(torch.int64))
-    odd = G1Ctx(get_spec("FP256BN"), P.device)  # p has L = 17
+    from mathlib_tpu_torch.ops import msm
+
+    spec = get_spec("FP256BN")
+    fp256 = G1Ctx(spec, P.device)  # on the card its p takes L = 18 (nine words)
+    assert fp256.fp.L == 18
+    assert torch.equal(fp256.add(fp256.gen, fp256.gen),
+                       g1_cuda.add_plain(fp256.F, fp256.gen, fp256.gen))
+    assert msm.msm_host_bridge(spec, [spec.g1_gen] * 3, [1, 2, 3]) == get_engine(spec).g1.mul(
+        spec.g1_gen, 6)
+    with pytest.raises(RuntimeError):  # the static ladder is not built at nine words
+        g1_cuda.smul_static(fp256.F, fp256.gen, [1, 0, 1])
+    odd = G1Ctx(spec, P.device, L=17)  # the reference's L = 17: no kernel takes it
     with pytest.raises(ValueError):
         odd.add(odd.gen, odd.gen)
     with pytest.raises(ValueError):  # no plain version on the card
         odd.fp.mont_mul(odd.gen[0], odd.gen[1])
-    from mathlib_tpu_torch.ops import msm
-
-    spec = odd.spec
     with pytest.raises(ValueError):
-        msm.msm_host_bridge(spec, [spec.g1_gen] * 3, [1, 2, 3])
+        msm.bridge_msm(odd, [spec.g1_gen] * 3, [1, 2, 3])
     with pytest.raises(ValueError):
-        BatchEngine(spec).g1_msm([spec.g1_gen] * 3, [1, 2, 3])
+        BatchEngine(spec, L=17).g1_msm([spec.g1_gen] * 3, [1, 2, 3])
 
 
-@pytest.fixture(params=["BLS12_381", "BN254", "BLS12_377"])
+@pytest.fixture(params=["BLS12_381", "BN254", "BLS12_377", "FP256BN"])
 def pair_ctx(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -688,14 +697,16 @@ def test_split_add_step_equals_the_plain_version(pair_ctx, monkeypatch):
     assert pairing_cuda.launches()["add_step"] == launches
 
 
-def test_split_final_exp_bn_equals_the_plain_version(monkeypatch):
-    """BN254's one-launch final exp (its whole script: easy part, the four
-    digit chains, the Frobenius products) on 64 lanes at every block the
-    launcher can pick (forced through ``fexp_shape``) and on 1,024 lanes at
-    the block it picks there, against the plain version on Miller values."""
+@pytest.mark.parametrize("curve", ["BN254", "FP256BN"])
+def test_split_final_exp_bn_equals_the_plain_version(monkeypatch, curve):
+    """A BN curve's one-launch final exp (its whole script: easy part, the
+    four digit chains, the Frobenius products) on 64 lanes at every block
+    the launcher can pick (forced through ``fexp_shape``) and on 1,024
+    lanes at the block it picks there, against the plain version on Miller
+    values (FP256BN at L = 18)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    spec = get_spec("BN254")
+    spec = get_spec(curve)
     eng, be = get_engine(spec), BatchEngine(spec)
     cfg, kcfg = be.pair.cfg, be.tw.kcfg
     f = pairing_cuda.miller_ft(cfg, *be._pair_split_mont(be._encode_pairs(*_pairs(eng, 1024, 19))))[0]
@@ -820,8 +831,8 @@ def test_redesigned_kernels_compile_without_stack_or_spill():
     build.load()
     dbladd = [e for e in ptxas_entries(build.BUILD_LOG) if e.startswith("g1_dbladd_kernel")]
     entries = check_ptxas(build.BUILD_LOG) + static_ptxas(build.BUILD_LOG) + dbladd
-    # (NW, G) of the check; NW of the ladder and of dbladd
-    assert len(entries) == 2 * 3 + 2 + 2, entries
+    # (NW, G) of the check; NW of the static ladder; NW of dbladd (also 9)
+    assert len(entries) == 2 * 3 + 2 + 3, entries
     for entry in entries:
         assert no_stack_or_spill(entry), entry
     for entry in dbladd:
@@ -965,15 +976,15 @@ def test_fp_pow_kernel_bodies_equal_the_plain_version(monkeypatch, group):
     threads an element, forced through fp_cuda.pow_group) at (L, 2,048),
     (1, L, 1), a ragged (2, L, 4,097) and zeros, L = 24 and 16, for p - 2
     and (p + 1)/4, on relaxed limbs with the edge values.  One launch a
-    call."""
+    call.  With one thread an element also FP256BN's L = 18."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from mathlib_tpu_torch.ops.field import FpCtx
+    from mathlib_tpu_torch.ops.field import FpCtx, base_limbs
 
     monkeypatch.setattr(fp_cuda, "pow_group", lambda elements: group)
-    for curve in ("BLS12_381", "BN254"):
+    for curve in ("BLS12_381", "BN254") + (("FP256BN",) if group == 1 else ()):
         p = get_spec(curve).p
-        fp = FpCtx(p, torch.device("cuda"))
+        fp = FpCtx(p, torch.device("cuda"), L=base_limbs(p, torch.device("cuda")))
         rng = np.random.default_rng(fp.L + group)
         tensors = [_pow_rows(fp, (1, fp.L, 2048), rng)[0], _pow_rows(fp, (1, fp.L, 1), rng),
                    _pow_rows(fp, (2, fp.L, 4097), rng),
@@ -1074,7 +1085,11 @@ def test_g2_kernels_equal_plain_versions(g2_ctx):
         assert torch.equal(got, want)
     assert g2_cuda.launches() == {k: 1 for k in ("g2_add", "g2_double", "g2_addsel", "g2_dblsel",
                                                  "g2_smul", "g2_smul_static")}
-    odd = type(g2)(get_spec("FP256BN"), P.device)  # in the gate, but L = 17
+    fp256 = type(g2)(get_spec("FP256BN"), P.device)  # in the gate, at L = 18 on the card
+    assert fp256.fp.L == 18
+    assert torch.equal(fp256.add(fp256.gen, fp256.gen),
+                       g2_cuda.add_plain(fp256.rows, fp256.gen, fp256.gen))
+    odd = type(g2)(get_spec("FP256BN"), P.device, L=17)  # the reference's L: refused
     with pytest.raises(ValueError):
         odd.add(odd.gen, odd.gen)
     with pytest.raises(TypeError):
@@ -1212,8 +1227,9 @@ def test_g2_addsel_on_edge_lanes_and_blocks(g2_edge_lanes, n):
 
 def test_g2_block_kernels_compile_without_stack_or_spill():
     """ptxas' report for the G2 ladders and the add, doubling, addsel and
-    dblsel kernels on their steps, at 16- and 32-lane blocks: at most 96
-    registers, no stack, no spill."""
+    dblsel kernels on their steps, at 16- and 32-lane blocks, at 12 words
+    and (but the static ladder) 9: at most 96 registers, no stack, no
+    spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from chip_smoke import g2_ladder_ptxas, no_stack_or_spill
@@ -1221,11 +1237,12 @@ def test_g2_block_kernels_compile_without_stack_or_spill():
 
     build.load()
     entries = g2_ladder_ptxas(build.BUILD_LOG)
-    assert len(entries) == 12, entries
-    for name in ("g2_add_kernel<12,16>", "g2_add_kernel<12,32>", "g2_double_kernel<12,16>",
-                 "g2_double_kernel<12,32>", "g2_dblsel_kernel<12,16>", "g2_dblsel_kernel<12,32>",
-                 "g2_addsel_kernel<12,16>", "g2_addsel_kernel<12,32>"):
-        assert any(e.startswith(name + ":") for e in entries), (name, entries)
+    assert len(entries) == 12 + 10, entries
+    for nw in (12, 9):
+        for kern in ("g2_add_kernel", "g2_double_kernel", "g2_dblsel_kernel", "g2_addsel_kernel"):
+            for lb in (16, 32):
+                name = f"{kern}<{nw},{lb}>"
+                assert any(e.startswith(name + ":") for e in entries), (name, entries)
     for entry in entries:
         assert int(entry.split(": ")[1].split()[0]) <= 96, entry
         assert no_stack_or_spill(entry), entry
@@ -1265,8 +1282,8 @@ def test_g2_entry_points_on_the_card(g2_ctx):
 def test_gt_pow_and_the_api_msm_on_the_card():
     """``TowerCtx.f12_pow_bits`` is one ``f12_pow`` launch equal to its plain
     version at a ragged lane count; ``Curves[...].MultiScalarMul`` at 64 and
-    65 points runs the bridge's kernels and equals the host fold; FP256BN's
-    raises the G1 kernels' ValueError (no host fallback)."""
+    65 points runs the bridge's kernels and equals the host fold, and so
+    does FP256BN's on both of its IDs (the kernels at nine words)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from mathlib_tpu_torch.api import CurveID, Curves
@@ -1301,6 +1318,166 @@ def test_gt_pow_and_the_api_msm_on_the_card():
         gather_cuda.reset_launches()
         assert c.MultiScalarMul(g1s, zrs).Equals(acc)
         assert g1_cuda.launches()["maddsel"] > 0 and gather_cuda.launches()["gather_rows_t"] > 0
-    f = Curves[CurveID.FP256BN_AMCL]
-    with pytest.raises(ValueError, match="L = 16 or 24"):
-        f.MultiScalarMul([f.GenG1] * 64, [f.NewZrFromInt(3)] * 64)
+    for cid in (CurveID.FP256BN_AMCL, CurveID.FP256BN_AMCL_MIRACL):
+        f = Curves[cid]
+        g1s = [f.GenG1.Mul(f.NewZrFromInt(i % 7 + 1)) for i in range(64)]
+        zrs = [f.NewZrFromInt(int(k)) for k in rng.integers(0, 1 << 62, 64)]
+        g1s[5] = f.NewG1()
+        acc = f.NewG1()
+        for g, z in zip(g1s, zrs):
+            acc.Add(g.Mul(z))
+        g1_cuda.reset_launches()
+        assert f.MultiScalarMul(g1s, zrs).Equals(acc)
+        assert g1_cuda.launches()["maddsel"] > 0
+
+
+# ---- FP256BN on the card: its contexts hold L = 18 (nine 32-bit words), and
+# every entry point of the slice runs on the NW = 9 kernels
+
+
+@pytest.fixture(scope="module")
+def fp256():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = get_spec("FP256BN")
+    return get_engine(spec), BatchEngine(spec)
+
+
+def test_fp256bn_contexts_and_the_edge_on_the_card(fp256):
+    """Every base-field context of FP256BN's engine holds L = 18 on the card
+    (the scalar field 17); ``widen_limbs`` and ``narrow_limbs`` on the card
+    (mont_mul at nine words) equal their plain versions on the CPU."""
+    from mathlib_tpu_torch.ops.field import FpCtx, narrow_limbs, widen_limbs
+
+    eng, be = fp256
+    assert {be.fp.L, be.g1.fp.L, be.g2.fp.L, be.pair.cfg.fp.L} == {18}
+    assert be.g1.fr.L == 17
+    p = eng.spec.p
+    f17 = FpCtx(p, "cpu")
+    xs = [0, 1, p - 1] + [int(k) for k in np.random.default_rng(30).integers(2, 1 << 62, 61)]
+    a17 = f17.encode(xs)
+    fp_cuda.reset_launches()
+    w = widen_limbs(be.fp, a17.cuda())
+    n = narrow_limbs(be.fp, w, 17)
+    assert fp_cuda.launches()["mont_mul"] == 2
+    cpu18 = FpCtx(p, "cpu", L=18)
+    assert torch.equal(w.cpu(), widen_limbs(cpu18, a17))
+    assert torch.equal(n.cpu(), narrow_limbs(cpu18, w.cpu(), 17))
+    assert list(f17.decode(n)) == xs
+
+
+def test_fp256bn_g1_entry_points_on_the_card(fp256):
+    """``g1_msm`` (the projective scan: addsel), ``g1_msm_device`` on points
+    at the reference's L = 17, and ``g1_scalar_mul`` (the ladder, then
+    ``batch_inv`` on fp_pow) against the host engine."""
+    from mathlib_tpu_torch.ops.kernels import gather_cuda
+
+    eng, be = fp256
+    spec = eng.spec
+    rng = np.random.default_rng(31)
+    pool = [eng.g1.mul(eng.gen_g1, int(k)) for k in rng.integers(1, 1 << 62, 16)]
+    pts = [pool[i] for i in rng.integers(0, 16, 300)]
+    pts[7] = None
+    ks = [int.from_bytes(rng.bytes(32), "big") % spec.r for _ in range(300)]
+    ks[9] = 0
+    want = eng.g1.msm([P for P in pts if P], [k for P, k in zip(pts, ks) if P])
+    g1_cuda.reset_launches()
+    gather_cuda.reset_launches()
+    assert be.g1_msm(pts, ks) == want
+    assert g1_cuda.launches()["addsel"] > 0 and gather_cuda.launches()["gather_rows_t"] > 0
+    g17 = G1Ctx(spec, "cpu")
+    out = be.g1_msm_device(g17.encode_points(pts).cuda(), g17.encode_scalars(ks).cuda())
+    assert out.shape == (3, 17, 1) and g17.decode_point(out) == want
+    g1_cuda.reset_launches()
+    fp_cuda.reset_launches()
+    assert be.g1_scalar_mul(pts[:9], ks[:9]) == [None if P is None else eng.g1.mul(P, k)
+                                                for P, k in zip(pts[:9], ks[:9])]
+    assert g1_cuda.launches()["smul"] == 1 and fp_cuda.launches()["fp_pow"] == 1
+
+
+def test_fp256bn_pairing_batch_on_the_card(fp256):
+    """``pairing_batch`` on miller_ft, the BN tail's two add_step and one
+    final_exp (the BN script, 4 base-p digits) against the host engine."""
+    eng, be = fp256
+    g1s, g2s = _pairs(eng, 6, 32)
+    pairing_cuda.reset_launches()
+    assert be.pairing_batch(g1s, g2s) == [eng.pairing(P, Q) for P, Q in zip(g1s, g2s)]
+    assert {k: v for k, v in pairing_cuda.launches().items() if v} == {
+        "miller_ft": 1, "add_step": 2, "final_exp": 1}
+
+
+@pytest.mark.parametrize("strategy", [None, "split"])
+def test_fp256bn_product_checks_on_the_card(fp256, monkeypatch, strategy):
+    """A true and a false product check and grouped checks of two pairs
+    under the default (miller_lanes, the product tree, the host final exp)
+    and ``MATHLIB_PAIR_FUSED=split`` (BN curves keep the default there)."""
+    eng, be = fp256
+    if strategy:
+        monkeypatch.setenv("MATHLIB_PAIR_FUSED", strategy)
+    P = eng.g1.mul(eng.gen_g1, 12345)
+    nP, G = eng.g1.neg(P), eng.gen_g2
+    g1s, g2s = _pairs(eng, 2, 33)
+    pairing_cuda.reset_launches()
+    assert be.pairing_product_is_one([P, nP], [G, G]) is True
+    assert be.pairing_product_is_one(g1s, g2s) is False
+    assert be.pairing_products_are_one([P, nP] + g1s + [P, nP], [G, G] + g2s + [G, G], 2) == [
+        True, False, True]
+    got = pairing_cuda.launches()
+    assert got["miller_lanes"] == 3 and got["f12_seg_product"] >= 3
+
+
+def test_fp256bn_bls_sign_and_verify_on_the_card(fp256):
+    """``bls_sign_batch`` (the host hasher, the ladder, affine on the card)
+    and ``bls_verify_batch`` (two MSMs and a two-pair check), True and
+    False with one signature replaced."""
+    from mathlib_tpu_torch.host.hash_to_curve import get_hasher
+
+    eng, be = fp256
+    dst = b"FP256BN-SIG-TEST"
+    msgs = [b"m-%d" % i for i in range(5)]
+    sk = 0x1234567890ABCDEF
+    pk = eng.g2.mul(eng.gen_g2, sk)
+    sigs = be.bls_sign_batch(sk, msgs, dst)
+    assert sigs == [eng.g1.mul(get_hasher(eng.spec).hash_to_g1(m, dst), sk) for m in msgs]
+    assert be.bls_verify_batch(pk, sigs, msgs, dst)
+    assert not be.bls_verify_batch(pk, sigs[:4] + [sigs[0]], msgs, dst)
+
+
+def test_fp256bn_g2_kernels_and_scalar_mul_on_the_card(fp256):
+    """The G2 kernels at nine words (g2_add, g2_double, g2_addsel, g2_dblsel,
+    the ladder) against their plain versions on 100 lanes with P = Q, P =
+    -Q and infinity, and ``g2_scalar_mul`` (one ladder launch) against the
+    host engine."""
+    from mathlib_tpu_torch.ops.kernels import g2_cuda
+
+    eng, be = fp256
+    g2, F = be.g2, be.g2.rows
+    n = 100
+    rng = np.random.default_rng(34)
+    pool = [eng.g2.mul(eng.gen_g2, int(k)) for k in rng.integers(1, 1 << 62, 9)] + [None]
+    A = [pool[i] for i in rng.integers(0, len(pool), n)]
+    B = [pool[i] for i in rng.integers(0, len(pool), n)]
+    for i in range(0, n, 7):
+        A[i] = B[i]
+    for i in range(3, n, 11):
+        A[i] = eng.g2.neg(B[i]) if B[i] else None
+    Q = g2.encode_points(B)
+    P = g2_cuda.add_plain(F, g2.encode_points(A), Q)
+    sel = torch.from_numpy(rng.random(n) < 15 / 16).to(P.device)
+    ks = g2.encode_scalars([0, 1, eng.spec.r - 1] + [int(k) for k in rng.integers(1, 1 << 62, 61)])
+    g2_cuda.reset_launches()
+    for got, want in [(g2_cuda.add(F, P, Q), g2_cuda.add_plain(F, P, Q)),
+                      (g2_cuda.double(F, P), g2_cuda.double_plain(F, P)),
+                      (g2_cuda.addsel(F, P, Q, sel), g2_cuda.addsel_plain(F, P, Q, sel)),
+                      (g2_cuda.dblsel(F, P, Q, sel), g2_cuda.dblsel_plain(F, P, Q, sel)),
+                      (g2_cuda.smul(F, P[..., :64], ks, g2.nbits),
+                       g2_cuda.smul_plain(F, P[..., :64], ks, g2.nbits))]:
+        assert torch.equal(got, want)
+    with pytest.raises(RuntimeError):  # the static ladders are not built at nine words
+        g2_cuda.smul_static(F, P, [1, 0, 1])
+    pts = [pool[0], pool[1], None, pool[2]]
+    kk = [5, eng.spec.r - 1, 9, 0]
+    g2_cuda.reset_launches()
+    assert be.g2_scalar_mul(pts, kk) == [eng.g2.mul_any(P, k) if P else None
+                                         for P, k in zip(pts, kk)]
+    assert {k: v for k, v in g2_cuda.launches().items() if v} == {"g2_smul": 1}

@@ -163,7 +163,7 @@ def test_pairing_check_refuses_what_the_kernel_does_not_take():
         pc.pairing_check(cfg, x, x, q, q, 4)
     fp256 = PairingCtx(get_spec("FP256BN"), "cpu").cfg  # L = 17
     x17, q17 = torch.empty((17, 4), **meta), torch.empty((2, 17, 4), **meta)
-    with pytest.raises(ValueError, match="L = 16 or 24"):
+    with pytest.raises(ValueError, match="L = 16, 18 or 24"):
         pc.pairing_check(fp256, x17, x17, q17, q17, 4)
     bn = PairingCtx(get_spec("BN254"), "cpu").cfg
     x16, q16 = torch.zeros((16, 1), dtype=torch.int32), torch.zeros((2, 16, 1), dtype=torch.int32)

@@ -245,7 +245,7 @@ def test_pairing_kernels_refuse_what_they_do_not_take():
         pc.f12_seg_product(cfg, torch.empty((2, 3, 2, L, 4), **meta), 2)
     odd = get_spec("FP256BN")
     cfg_odd = PairingCtx(odd, "cpu").cfg
-    with pytest.raises(ValueError, match="L = 16 or 24"):
+    with pytest.raises(ValueError, match="L = 16, 18 or 24"):
         pc.f12_seg_product(cfg_odd, torch.empty((2, 3, 2, cfg_odd.fp.L, 4), **meta), 2)
 
 
